@@ -2,22 +2,35 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, the CUDA toolkit (nvcc) and this repository.  Phases,
-each printing its own lines; any failure raises and exits non-zero:
+Needs one CUDA card, the CUDA toolkit (nvcc) and this repository.  Five
+seeded streams, drawn in this order from one generator:
+
+  (a) kjv-sized text-like (min code length 2): K1-K4
+  (b) 8 MiB over all 256 symbols (md 6, the wide quad table): K1-K4
+  (c) 8 MiB, byte 0 at weight 300 over 256 (md 1, the wide pair table):
+      the 1-bit k1_scan/k3_fix with K2/K4
+  (d) kjv-sized text-like with a 256 KiB run of its most frequent byte:
+      its lanes inside the run overflow the dense rows, so after K1-K4
+      the decode falls back to the lane-DFA candidate_scan/lane_scan
+  (e) 2,000 text-like bytes: too small for the wide lanes, the lane-DFA
+      chain alone
+
+Phases, each printing its own lines; any failure raises and exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    the K1-K4 kernels from csrc/ with nvcc, and the build time
-  3. kernels  each of K1-K4 against its plain torch version on the same
-              CUDA inputs, at the shapes the slice gives it for streams (a)
-              and (b) below: bit-exact (tolerance 0), with both times from
-              CUDA events
-  4. slice    get_decoder("lane_wide", device="cuda") on (a) a seeded
-              kjv-sized text-like stream and (b) a seeded 8 MiB stream over
-              all 256 symbols: bytes equal to the input, every kernel
-              launched; then the device
-              program's median time over 25 runs (CUDA events), the decode
-              wall time (host clock) and the program's device time by
-              kernel (torch.profiler)
+  2. build    the kernels from csrc/ with nvcc, and the build time
+  3. kernels  each kernel against its plain torch version on the same CUDA
+              inputs, at the shapes its decode path gives it: K1-K4 on (a)
+              and (b), k1_scan/K2/k3_fix/K4 on (c), candidate_scan/
+              lane_scan on (d); bit-exact (tolerance 0), with both times
+              from CUDA events
+  4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
+              launch counts set to 0 just before and read just after:
+              bytes equal to the input, and each stream's kernels launched
+              ((d) through the fallback); then for (a)-(c) the device
+              program's median time over 25 runs (CUDA events) and its
+              device time by kernel (torch.profiler), and for (a)-(d) the
+              decode wall time (host clock)
   5. result   one JSON line for the kernels, the card, then the last line
               {"ok": true, "device": {...}}
 """
@@ -39,28 +52,48 @@ SEED = 0
 KJV_BYTES = 5_504_597
 TEXT_SYMBOLS = 84
 WIDE_BYTES = 8 << 20
+#: stream (d): bytes [RUN_START, RUN_END) of a kjv-sized stream set to its
+#: most frequent byte
+RUN_START, RUN_END, RUN_BYTE = 2_621_440, 2_883_584, 32
+TINY_BYTES = 2000
 TIMED_RUNS = 25
 WARMUP = 3
 WALL_RUNS = 10
 
 DEVICE = "cuda"
 
-KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
-    "k1_scan2": ("huffmandecoderongpus_tpu_torch/csrc/k1_scan2.cu",
-                 "huffmandecoderongpus_tpu/ops/pallas_widescan.py:769"),
-    "k2_compose": ("huffmandecoderongpus_tpu_torch/csrc/k2_compose.cu",
-                   "huffmandecoderongpus_tpu/ops/pallas_widescan.py:1254"),
-    "k3_fix2": ("huffmandecoderongpus_tpu_torch/csrc/k3_fix2.cu",
-                "huffmandecoderongpus_tpu/ops/pallas_widescan.py:1456"),
-    "k4_compact": ("huffmandecoderongpus_tpu_torch/csrc/k4_compact.cu",
-                   "huffmandecoderongpus_tpu/ops/pallas_widescan.py:1617"),
+_CSRC = "huffmandecoderongpus_tpu_torch/csrc/"
+_PWS = "huffmandecoderongpus_tpu/ops/pallas_widescan.py:"
+_PLD = "huffmandecoderongpus_tpu/ops/pallas_lanedfa.py:"
+#: name -> (CUDA source, the TPU kernel it replaces, the stream whose times
+#: the result line reports)
+KERNELS = {
+    "k1_scan2": (_CSRC + "k1_scan2.cu", _PWS + "769", "a"),
+    "k2_compose": (_CSRC + "k2_compose.cu", _PWS + "1254", "a"),
+    "k3_fix2": (_CSRC + "k3_fix2.cu", _PWS + "1456", "a"),
+    "k4_compact": (_CSRC + "k4_compact.cu", _PWS + "1617", "a"),
+    "k1_scan": (_CSRC + "k1_scan.cu", _PWS + "347", "c"),
+    "k3_fix": (_CSRC + "k3_fix.cu", _PWS + "1319", "c"),
+    "candidate_scan": (_CSRC + "candidate_scan.cu", _PLD + "296", "d"),
+    "lane_scan": (_CSRC + "lane_scan.cu", _PLD + "74", "d"),
+}
+#: the kernels each stream's decode must launch, once each
+PATHS = {
+    "a": ("k1_scan2", "k2_compose", "k3_fix2", "k4_compact"),
+    "b": ("k1_scan2", "k2_compose", "k3_fix2", "k4_compact"),
+    "c": ("k1_scan", "k2_compose", "k3_fix", "k4_compact"),
+    "d": ("k1_scan2", "k2_compose", "k3_fix2", "k4_compact",
+          "candidate_scan", "lane_scan"),
+    "e": ("candidate_scan", "lane_scan"),
 }
 
 #: device function names of each kernel (K2 is three launches)
 DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "k2_compose": ("k2_groups", "k2_scan", "k2_apply"),
                   "k3_fix2": ("k3_fix2_kernel",),
-                  "k4_compact": ("k4_compact_kernel",)}
+                  "k4_compact": ("k4_compact_kernel",),
+                  "k1_scan": ("k1_scan_kernel",),
+                  "k3_fix": ("k3_fix_kernel",)}
 
 
 def text_like(rng, n):
@@ -73,6 +106,18 @@ def full_alphabet(rng, n):
     w = rng.random(256) ** 3 + 1e-4
     return rng.choice(np.arange(256, dtype=np.uint8), size=n,
                       p=w / w.sum()).astype(np.uint8)
+
+
+def dominant_byte(rng, n):
+    w = np.full(256, 1.0)
+    w[0] = 300.0
+    return rng.choice(np.arange(256, dtype=np.uint8), size=n,
+                      p=w / w.sum()).astype(np.uint8)
+
+
+def with_run(raw):
+    raw[RUN_START:RUN_END] = RUN_BYTE
+    return raw
 
 
 def cuda_ms(torch, fn, runs):
@@ -100,27 +145,10 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
-def check_kernels(torch, name, raw, hf, dev):
-    """Phase 3 on one stream: K1-K4 against their plain versions on the
-    inputs the slice gives them.  Returns {kernel: (max_abs_err, kernel
-    ms, plain ms)} and raises on any difference."""
-    from huffmandecoderongpus_tpu_torch.ops import (
-        k1_scan2,
-        k2_compose,
-        k3_fix2,
-        k4_compact,
-    )
-    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
-
-    st = ws.stage_widescan_inputs(hf, device=dev)
-    p = st["plan"]
-    print(f"[kernels] {name}: {hf.bits} bits, G={p['G']} B={p['B']} "
-          f"H={st['H']} md={st['md']} NS={st['NS']}", flush=True)
-    wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
-    kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"], C0=st["C0"],
-              C1=st["C1"], NS=st["NS"])
-    k1a = dict(B=p["B"], H=st["H"], steps=p["steps"], **kw)
-    rows = {}
+def comparer(torch, name, rows):
+    """compare(kname, kernel, plain): run both on the same inputs, record
+    (max_abs_err, kernel ms, plain ms) in ``rows`` and raise on any
+    difference; returns the kernel's outputs."""
 
     def compare(kname, kernel, plain):
         got = kernel()
@@ -139,10 +167,43 @@ def check_kernels(torch, name, raw, hf, dev):
             raise AssertionError(f"{kname} differs from its plain version")
         return got
 
+    return compare
+
+
+def check_kernels(torch, name, raw, hf, dev):
+    """Phase 3 on one stream of the wide program: K1-K4 (the 1-bit K1/K3
+    for md = 1) against their plain versions on the inputs the slice gives
+    them.  Returns {kernel: (max_abs_err, kernel ms, plain ms)} and raises
+    on any difference."""
+    from huffmandecoderongpus_tpu_torch.ops import (
+        k1_scan,
+        k1_scan2,
+        k2_compose,
+        k3_fix,
+        k3_fix2,
+        k4_compact,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    st = ws.stage_widescan_inputs(hf, device=dev)
+    p = st["plan"]
+    print(f"[kernels] {name}: {hf.bits} bits, G={p['G']} B={p['B']} "
+          f"H={st['H']} md={st['md']} NS={st['NS']}", flush=True)
+    wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+    kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"], NS=st["NS"])
+    if st["chunk2"]:
+        kw.update(C0=st["C0"], C1=st["C1"])
+        scan = ("k1_scan2", k1_scan2.k1_scan2, k1_scan2.k1_scan2_ref)
+        fix = ("k3_fix2", k3_fix2.k3_fix2, k3_fix2.k3_fix2_ref)
+    else:
+        scan = ("k1_scan", k1_scan.k1_scan, k1_scan.k1_scan_ref)
+        fix = ("k3_fix", k3_fix.k3_fix, k3_fix.k3_fix_ref)
+    k1a = dict(B=p["B"], H=st["H"], steps=p["steps"], **kw)
+    rows = {}
+    compare = comparer(torch, name, rows)
     sym, val, cntmap, exmap, mrowmap = compare(
-        "k1_scan2",
-        lambda: k1_scan2.k1_scan2(wmat, st["tab"], st["lim"], **k1a),
-        lambda: k1_scan2.k1_scan2_ref(wmat, st["tab"], st["lim"], **k1a))
+        scan[0], lambda: scan[1](wmat, st["tab"], st["lim"], **k1a),
+        lambda: scan[2](wmat, st["tab"], st["lim"], **k1a))
     entry, _tot = compare("k2_compose",
                           lambda: k2_compose.k2_compose(exmap, 0),
                           lambda: k2_compose.k2_compose_ref(exmap, 0))
@@ -152,11 +213,9 @@ def check_kernels(torch, name, raw, hf, dev):
     s_k, v_k = sym.clone(), val.clone()
     s_p, v_p = sym.clone(), val.clone()
     msym, mval = compare(
-        "k3_fix2",
-        lambda: k3_fix2.k3_fix2(wmat, st["tab"], entry, cut, cut_slot, s_k,
-                                v_k, **kw),
-        lambda: k3_fix2.k3_fix2_ref(wmat, st["tab"], entry, cut, cut_slot,
-                                    s_p, v_p, **kw))
+        fix[0],
+        lambda: fix[1](wmat, st["tab"], entry, cut, cut_slot, s_k, v_k, **kw),
+        lambda: fix[2](wmat, st["tab"], entry, cut, cut_slot, s_p, v_p, **kw))
     (denseT,) = compare("k4_compact",
                         lambda: k4_compact.k4_compact(msym, mval, ORP=p["ORP"]),
                         lambda: k4_compact.k4_compact_ref(msym, mval,
@@ -166,6 +225,37 @@ def check_kernels(torch, name, raw, hf, dev):
     if not np.array_equal(denseT[mask].cpu().numpy(), raw):
         raise AssertionError(f"{name}: the kernels' stages decoded wrong")
     print(f"[kernels] {name}: all four bit-exact; stream decoded", flush=True)
+    return rows
+
+
+def check_lanedfa(torch, name, raw, hf, dev):
+    """Phase 3 on a stream of the lane-DFA chain: the candidate and lane
+    scans against their plain versions on the inputs the fallback gives
+    them (sym compared on every row).  Returns and raises as
+    check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import candidate_scan, lane_scan
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    st = ld.stage_lanedfa(hf, device=dev)
+    print(f"[kernels] {name}: {hf.bits} bits, lane-DFA G="
+          f"{st['bits'].shape[1]} B={st['B']} H={st['H']}", flush=True)
+    kw = dict(B=st["B"], H=st["H"], N=st["N"])
+    rows = {}
+    compare = comparer(torch, name, rows)
+    cnt, ex = compare(
+        "candidate_scan",
+        lambda: candidate_scan.candidate_scan(st["bits"], st["tab"], **kw),
+        lambda: candidate_scan.candidate_scan_ref(st["bits"], st["tab"],
+                                                  **kw))
+    entry = ld.compose(cnt, ex)[0]
+    sym, valid = compare(
+        "lane_scan",
+        lambda: lane_scan.lane_scan(st["bits"], st["tab"], entry, **kw),
+        lambda: lane_scan.lane_scan_ref(st["bits"], st["tab"], entry, **kw))
+    if not np.array_equal(sym.t()[valid.t() > 0].cpu().numpy(), raw):
+        raise AssertionError(f"{name}: the lane-DFA scans decoded wrong")
+    print(f"[kernels] {name}: both scans bit-exact; stream decoded",
+          flush=True)
     return rows
 
 
@@ -186,15 +276,21 @@ def main() -> int:
     from huffmandecoderongpus_tpu_torch.models import get_decoder
     from huffmandecoderongpus_tpu_torch.ops import (
         _build,
+        candidate_scan,
+        k1_scan,
         k1_scan2,
         k2_compose,
+        k3_fix,
         k3_fix2,
         k4_compact,
+        lane_scan,
     )
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
 
     mods = {"k1_scan2": k1_scan2, "k2_compose": k2_compose,
-            "k3_fix2": k3_fix2, "k4_compact": k4_compact}
+            "k3_fix2": k3_fix2, "k4_compact": k4_compact,
+            "k1_scan": k1_scan, "k3_fix": k3_fix,
+            "candidate_scan": candidate_scan, "lane_scan": lane_scan}
     dev = torch.device(DEVICE)
 
     # ---- 1. device ----------------------------------------------------------
@@ -214,74 +310,92 @@ def main() -> int:
     log = (_build.BUILD_DIR / "build.log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "stack" in line:
                 print(f"[build] {line.strip()}")
 
     # ---- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(SEED)
-    streams = [("a kjv-sized text", text_like(rng, KJV_BYTES)),
-               ("b 8MiB full-alphabet", full_alphabet(rng, WIDE_BYTES))]
-    hfs = [(name, r, encode_bytes(r)) for name, r in streams]
-    checked = [check_kernels(torch, name, r, h, dev) for name, r, h in hfs]
+    streams = {"a": ("kjv-sized text", text_like(rng, KJV_BYTES)),
+               "b": ("8MiB full-alphabet", full_alphabet(rng, WIDE_BYTES))}
+    streams["c"] = ("8MiB dominant byte", dominant_byte(rng, WIDE_BYTES))
+    streams["d"] = ("kjv-sized text with a blank run",
+                    with_run(text_like(rng, KJV_BYTES)))
+    streams["e"] = ("2000-byte text", text_like(rng, TINY_BYTES))
+    hfs = {k: (f"{k} {name}", r, encode_bytes(r))
+           for k, (name, r) in streams.items()}
+    checked = {k: check_kernels(torch, *hfs[k], dev) for k in "abc"}
+    checked["d"] = check_lanedfa(torch, *hfs["d"], dev)
 
     # ---- 4. the slice through the registry ----------------------------------
     dec = get_decoder("lane_wide", device=DEVICE)
-    for m in mods.values():
-        m.launches = 0
-    outs = []
-    for name, r, h in hfs:
+    launches = dict.fromkeys(mods, 0)
+    walls = {}
+    for k, (name, r, h) in hfs.items():
+        for m in mods.values():
+            m.launches = 0
         t0 = time.perf_counter()
         out = dec(h)
         torch.cuda.synchronize()
-        outs.append((out, time.perf_counter() - t0))
-    launches = {k: m.launches for k, m in mods.items()}
-    print(f"[slice] launches on the decode path: {launches}", flush=True)
-    for (name, r, h), (out, wall) in zip(hfs, outs):
+        wall = time.perf_counter() - t0
+        ran = {n: m.launches for n, m in mods.items() if m.launches}
         ok = np.array_equal(out, r)
         print(f"[slice] {name}: {r.size} bytes, {h.bits} bits, first decode "
-              f"{wall:.3f} s wall, equal to the input: {ok}", flush=True)
+              f"{wall:.3f} s wall, equal to the input: {ok}; launches "
+              f"{ran}", flush=True)
         if not ok:
             raise AssertionError(f"{name}: decoded bytes differ")
+        if ran != dict.fromkeys(PATHS[k], 1):
+            raise AssertionError(f"{name}: launched {ran}, its path is "
+                                 f"{PATHS[k]}")
+        for n, c in ran.items():
+            launches[n] += c
+    print(f"[slice] launches on the decode paths: {launches}; (d) fell back "
+          "to the lane-DFA chain after the wide program", flush=True)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
 
-    for name, r, h in hfs:
-        s2 = ws.stage_widescan_inputs(h, device=dev)
-        args = ws.program_args(s2)
+    for k, (name, r, h) in hfs.items():
+        if k in "abc":
+            s2 = ws.stage_widescan_inputs(h, device=dev)
+            args = ws.program_args(s2)
 
-        def program():
-            return ws.wide_decode_program(s2["words"], s2["tab"], s2["lim"],
-                                          **args)
+            def program():
+                return ws.wide_decode_program(s2["words"], s2["tab"],
+                                              s2["lim"], **args)
 
-        ts = cuda_ms(torch, program, WARMUP + TIMED_RUNS)
-        med = statistics.median(ts[WARMUP:])
-        q = s2["plan"]
-        print(f"[slice] {name}: device program median {med:.4f} ms over "
-              f"{TIMED_RUNS} runs (min {min(ts[WARMUP:]):.4f}), "
-              f"{r.size / med / 1e6:.3f} GB/s decoded; G={q['G']} "
-              f"B={q['B']} H={s2['H']} md={s2['md']} NS={s2['NS']}; "
-              f"card {card}", flush=True)
-        walls = []
+            ts = cuda_ms(torch, program, WARMUP + TIMED_RUNS)
+            med = statistics.median(ts[WARMUP:])
+            q = s2["plan"]
+            print(f"[slice] {name}: device program median {med:.4f} ms over "
+                  f"{TIMED_RUNS} runs (min {min(ts[WARMUP:]):.4f}), "
+                  f"{r.size / med / 1e6:.3f} GB/s decoded; G={q['G']} "
+                  f"B={q['B']} H={s2['H']} md={s2['md']} NS={s2['NS']}; "
+                  f"card {card}", flush=True)
+            split = device_breakdown(torch, program)
+            print(f"[slice] {name}: device ms per program (profiler) "
+                  + "  ".join(f"{n} {v:.4f}" for n, v in split.items()),
+                  flush=True)
+        if k == "e":
+            continue
+        ws_ = []
         for _ in range(WALL_RUNS):
             t0 = time.perf_counter()
             dec(h)
-            walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"[slice] {name}: decode wall median {statistics.median(walls):.4f}"
-              f" ms over {WALL_RUNS} runs (min {min(walls):.4f}), staging to "
+            ws_.append((time.perf_counter() - t0) * 1e3)
+        walls[k] = statistics.median(ws_)
+        print(f"[slice] {name}: decode wall median {walls[k]:.4f}"
+              f" ms over {WALL_RUNS} runs (min {min(ws_):.4f}), staging to "
               f"host bytes; card {card}", flush=True)
-        split = device_breakdown(torch, program)
-        print(f"[slice] {name}: device ms per program (profiler) "
-              + "  ".join(f"{k} {v:.4f}" for k, v in split.items()),
-              flush=True)
 
     # ---- 5. result ----------------------------------------------------------
-    # times from stream (a), the kjv-sized one; the error over both streams
+    # each kernel's times from the stream named in KERNELS; its error over
+    # every stream it was checked on
     print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=KERNELS[k][0],
-             replaces=KERNELS[k][1], launches=launches[k],
-             max_abs_err=max(c[k][0] for c in checked),
-             ms=checked[0][k][1], plain_ms=checked[0][k][2])
-        for k in KERNELS]}))
+        dict(name=n, route="cuda", source=src, replaces=rep_, stream=k,
+             launches=launches[n],
+             max_abs_err=max(c[n][0] for c in checked.values() if n in c),
+             ms=checked[k][n][1], plain_ms=checked[k][n][2])
+        for n, (src, rep_, k) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -291,7 +405,8 @@ def main() -> int:
 
 def device_breakdown(torch, fn, runs=5):
     """Device time per call of ``fn`` (ms) by kernel, from torch.profiler:
-    K1-K4 by name, everything else (the torch ops around them) together."""
+    the wide program's kernels by name, everything else (the torch ops
+    around them) together."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -300,13 +415,13 @@ def device_breakdown(torch, fn, runs=5):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(list(KERNELS) + ["torch ops"], 0.0)
+    out = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         key = next((k for k, syms in DEVICE_SYMBOLS.items()
                     if any(sym in e.key for sym in syms)), "torch ops")
-        out[key] += e.self_device_time_total / runs / 1e3
+        out[key] = out.get(key, 0.0) + e.self_device_time_total / runs / 1e3
     return out
 
 

@@ -198,53 +198,8 @@ __global__ void __launch_bounds__(128) k1_scan2_kernel(
   }
 
   // ---- epilogue: leaders first, followers compose through them ----------
-  cntmap[g] = cnt0;
-  exmap[g] = exit0;
-  mrowmap[g] = -1;
-  int Ltot[MAX_NL], Lex[MAX_NL], Lmrow[MAX_NL];
-  for (int l = 0; l < NL; ++l) {
-    const int rec = crec[l], res = rec & 1, mrg = (rec >> 1) & 1;
-    const int mrow = rec >> 3;
-    Ltot[l] = res ? (mrg ? cnt0 - ccum[l] : ccum[l]) : ccnt[l];
-    Lex[l] = res ? (mrg ? exit0 : mrow + 1 - B) : 0;
-    Lmrow[l] = (res && mrg) ? mrow : steps;
-    const size_t o = (size_t)(l + 1) * G + g;
-    cntmap[o] = Ltot[l];
-    exmap[o] = Lex[l];
-    mrowmap[o] = Lmrow[l];
-  }
-  for (int r = NL + 1; r <= CH; ++r) {
-    const int c = r - 1, lp = (r - 1) % md;
-    const int rec = crec[c], kind = (rec >> 1) & 3, mrow = rec >> 3;
-    int tot, ex, mro;
-    if (!(rec & 1)) {  // unresolved: the raw count
-      tot = ccnt[c];
-      ex = 0;
-      mro = steps;
-    } else if (kind == 1) {  // merged with the main chain
-      tot = cnt0 - ccum[c];
-      ex = exit0;
-      mro = mrow;
-    } else if (kind == 2) {  // merged with its leader
-      tot = Ltot[lp] - ccum[c];
-      ex = Lex[lp];
-      mro = mrow > Lmrow[lp] ? mrow : Lmrow[lp];
-    } else {  // late exit or stream end
-      tot = ccum[c];
-      ex = mrow + 1 - B;
-      mro = steps;
-    }
-    const size_t o = (size_t)r * G + g;
-    cntmap[o] = tot;
-    exmap[o] = ex;
-    mrowmap[o] = mro;
-  }
-  for (int r = CH + 1; r < HP; ++r) {
-    const size_t o = (size_t)r * G + g;
-    cntmap[o] = 0;
-    exmap[o] = 0;
-    mrowmap[o] = steps;
-  }
+  write_maps(cntmap, exmap, mrowmap, G, g, cnt0, exit0, ccnt, crec, ccum, CH,
+             NL, HP, md, B, steps);
 }
 
 }  // namespace

@@ -1,9 +1,12 @@
-// Shared device helpers for the chunked wide-lane kernels (K1, K3).
+// Shared device helpers for the wide-lane kernels (K1, K3 and their 1-bit
+// versions) and the lane-DFA scans.
 //
 // The quad table (2*NS rows of 128 uint32 words, see
 // ops/widescan.py pack_quad_tables) is staged in shared memory: row
 // b0*NS + (node >> 7), column node & 127, 16-bit half b1 is the entry for
-// the 2-bit chunk (b0, b1) read in state `node`.
+// the 2-bit chunk (b0, b1) read in state `node`.  The 1-bit kernels' pair
+// table (NS rows, pack_pair_table) holds one word per state: word `node`,
+// 16-bit half b is the entry for bit b.
 #pragma once
 
 #include <cstdint>
@@ -17,6 +20,10 @@ constexpr int TAB_WORDS = 2 * MAX_NS * 128;
 constexpr int MAX_SEGH = 16;      // chunk rows per segment: SEG <= 32
 constexpr int MAX_NL = 8;         // leaders: one per residue mod md, md <= 8
 constexpr int MAX_CH = 127;       // candidate chains: HP <= 128
+// the lane-DFA scans' fused table (ops/lanedfa.py LaneDFA.entry, padded)
+constexpr int EMIT_BIT = 1 << 10;
+constexpr int STATE_MASK = (1 << 10) - 1;
+constexpr int LANEDFA_TAB_WORDS = 2048;  // 1023 states, two entries each
 
 struct Step {
   int emit;  // a codeword completed in this chunk
@@ -52,6 +59,34 @@ __device__ __forceinline__ Step decode_entry(uint32_t e, int NS, int rc) {
   return s;
 }
 
+struct Bit {
+  int emit;  // a codeword completed on this bit
+  int sym;   // the symbol (0 unless emit)
+  int node;  // state after the bit (the root after an emission)
+};
+
+// 16-bit pair-table entry of state `node` for bit b.
+__device__ __forceinline__ uint32_t pair_entry(const uint32_t* tab, int node,
+                                               int b) {
+  return (tab[node] >> (b << 4)) & 0xFFFFu;
+}
+
+// Decode a pair entry: compact layout (NS == 1) sym<<8 | emit<<7 | next,
+// wide layout (NS > 1) emit<<15 | sym<<1, or the bare state.
+__device__ __forceinline__ Bit e1_fields(uint32_t e, int NS) {
+  Bit s;
+  if (NS > 1) {
+    s.emit = (e >> 15) & 1;
+    s.sym = s.emit ? (int)((e >> 1) & 0xFF) : 0;
+    s.node = s.emit ? 0 : (int)(e & 0x7FFF);
+  } else {
+    s.emit = (e >> 7) & 1;
+    s.sym = (int)(e >> 8);
+    s.node = e & 127;
+  }
+  return s;
+}
+
 // Stage the quad table into shared memory (all threads of the block).
 __device__ __forceinline__ void load_table(uint32_t* tab_s,
                                            const uint32_t* tab, int NS) {
@@ -67,6 +102,66 @@ __device__ __forceinline__ uint64_t load_bits64(const int32_t* wmat, int G,
   uint64_t lo = w < steps_w ? (uint32_t)wmat[(size_t)w * G + g] : 0u;
   uint64_t hi = w + 1 < steps_w ? (uint32_t)wmat[(size_t)(w + 1) * G + g] : 0u;
   return lo | (hi << 32);
+}
+
+// K1's epilogue, shared by both K1 kernels: lane g's rows of the
+// (HP, G) cnt/exit/merge-row maps.  Row 0 is the main chain (count cnt0,
+// exit exit0); row r = c + 1 is candidate chain c, with its raw count
+// ccnt[c], its record crec[c] (row << 3 | kind << 1 | resolved; kind 0
+// late exit or stream end, 1 merged with the main chain, 2 merged with
+// its leader) and ccum[c].  Leaders are chains c < NL; follower row r
+// composes through leader (r - 1) % md.  Rows past CH are padding.
+__device__ __forceinline__ void write_maps(
+    int32_t* cntmap, int32_t* exmap, int32_t* mrowmap, int G, int g,
+    int cnt0, int exit0, const int* ccnt, const int* crec, const int* ccum,
+    int CH, int NL, int HP, int md, int B, int steps) {
+  cntmap[g] = cnt0;
+  exmap[g] = exit0;
+  mrowmap[g] = -1;
+  int Ltot[MAX_NL], Lex[MAX_NL], Lmrow[MAX_NL];
+  for (int l = 0; l < NL; ++l) {
+    const int rec = crec[l], res = rec & 1, mrg = (rec >> 1) & 1;
+    const int mrow = rec >> 3;
+    Ltot[l] = res ? (mrg ? cnt0 - ccum[l] : ccum[l]) : ccnt[l];
+    Lex[l] = res ? (mrg ? exit0 : mrow + 1 - B) : 0;
+    Lmrow[l] = (res && mrg) ? mrow : steps;
+    const size_t o = (size_t)(l + 1) * G + g;
+    cntmap[o] = Ltot[l];
+    exmap[o] = Lex[l];
+    mrowmap[o] = Lmrow[l];
+  }
+  for (int r = NL + 1; r <= CH; ++r) {
+    const int c = r - 1, lp = (r - 1) % md;
+    const int rec = crec[c], kind = (rec >> 1) & 3, mrow = rec >> 3;
+    int tot, ex, mro;
+    if (!(rec & 1)) {  // unresolved: the raw count
+      tot = ccnt[c];
+      ex = 0;
+      mro = steps;
+    } else if (kind == 1) {  // merged with the main chain
+      tot = cnt0 - ccum[c];
+      ex = exit0;
+      mro = mrow;
+    } else if (kind == 2) {  // merged with its leader
+      tot = Ltot[lp] - ccum[c];
+      ex = Lex[lp];
+      mro = mrow > Lmrow[lp] ? mrow : Lmrow[lp];
+    } else {  // late exit or stream end
+      tot = ccum[c];
+      ex = mrow + 1 - B;
+      mro = steps;
+    }
+    const size_t o = (size_t)r * G + g;
+    cntmap[o] = tot;
+    exmap[o] = ex;
+    mrowmap[o] = mro;
+  }
+  for (int r = CH + 1; r < HP; ++r) {
+    const size_t o = (size_t)r * G + g;
+    cntmap[o] = 0;
+    exmap[o] = 0;
+    mrowmap[o] = steps;
+  }
 }
 
 }  // namespace ws

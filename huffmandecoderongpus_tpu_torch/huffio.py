@@ -80,6 +80,12 @@ def read_huff(path) -> HuffFile:
                     payload=payload)
 
 
+def unpack_bits(payload: np.ndarray, bits: int) -> np.ndarray:
+    """Payload bytes -> (bits,) uint8 array of 0/1, LSB-first."""
+    payload = np.asarray(payload, dtype=np.uint8)
+    return np.unpackbits(payload, bitorder="little")[:bits]
+
+
 def validate_tree(tree: np.ndarray, what: str = "tree") -> None:
     """Child indices in range, leaves marked on both sides, and no node
     reachable twice (a cycle would send a tree walk into a loop)."""

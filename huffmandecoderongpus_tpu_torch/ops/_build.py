@@ -1,10 +1,11 @@
-"""Build and load the CUDA kernels (K1-K4) from ``csrc/``.
+"""Build and load the CUDA kernels from ``csrc/``.
 
-All kernel sources compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds).  The library lands in ``_build/`` beside the
-package, named by a digest of its sources and flags, so an edited source is
-always rebuilt.  Building happens at first use, never at import.
+Every kernel source compiles with its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects link into one shared library with a plain
+C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  The library lands in ``_build/`` beside the package, named by a
+digest of its sources and flags, so an edited source is always rebuilt.
+Building happens at first use, never at import.
 
 Every launcher returns ``cudaGetLastError()`` after its launch; ``check``
 turns a nonzero code into a ``RuntimeError``.
@@ -23,10 +24,15 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu")
+SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
+           "k1_scan.cu", "k3_fix.cu", "candidate_scan.cu", "lane_scan.cu")
 HEADERS = ("widescan.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+#: most int32 words of the padded fused table the lane-DFA kernels stage
+#: in shared memory: 1023 states, two entries each
+LANEDFA_TAB_WORDS = 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +47,15 @@ _SIGNATURES = {
     "ws_k3_fix2": [_P] * 7 + [_I] * 8 + [_P],
     # sym, val, out, G, cells_p, ORP, stream
     "ws_k4_compact": [_P] * 3 + [_I] * 3 + [_P],
+    # wmat, tab, lim, sym, val, cntmap, exmap, mrowmap,
+    # G, steps_w, B, H, steps, steps_p, NS, stream
+    "ws_k1_scan": [_P] * 8 + [_I] * 7 + [_P],
+    # wmat, tab, ent, cut, cutsl, sym, val, G, steps_w, steps_p, NS, stream
+    "ws_k3_fix": [_P] * 7 + [_I] * 4 + [_P],
+    # bits, tab, cnt, ex, G, B, H, N, tab_words, stream
+    "ws_candidate_scan": [_P] * 4 + [_I] * 5 + [_P],
+    # bits, tab, start, sym, valid, G, B, H, N, tab_words, stream
+    "ws_lane_scan": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -75,21 +90,42 @@ def lib_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile the kernels unless this digest is already built.  The
-    compiler's output (``-Xptxas -v``: registers, spills) goes to
+    """Compile the kernels unless this digest is already built: one
+    ``nvcc -c`` per source, all running at once, then one link.  The
+    compilers' output (``-Xptxas -v``: registers, spills) goes to
     ``_build/build.log``."""
     out = lib_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    exe = nvcc()
+    jobs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{pathlib.Path(src).stem}.{tag}.o"
+        cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+               str(CSRC / src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:  # wait for every compiler, failed or not
+        log.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(log[-1])
     tmp = out.with_suffix(f".so.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    if not failed:
+        cmd = [exe, *ARCH, "-shared", "-o", str(tmp),
+               *(str(obj) for _cmd, obj, _proc in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(log[-1])
+    for _cmd, obj, _proc in jobs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-4000:])
     tmp.replace(out)
     return out
 

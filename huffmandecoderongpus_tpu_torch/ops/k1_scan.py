@@ -1,0 +1,169 @@
+"""K1': 1-bit main scan + self-synchronizing candidate discovery (md = 1).
+
+Replaces ``huffmandecoderongpus_tpu/ops/pallas_widescan.py`` ``k1_scan`` /
+``_k1_kernel``, which the JAX package runs for trees with min code length 1.
+CUDA source: ``csrc/k1_scan.cu``.
+
+The same scheme as K1 (``k1_scan2``) one bit per step through the pair
+table (``widescan.pack_pair_table``): the main chain (entry offset 0) writes
+one slot per bit, and one candidate chain per entry offset 1..H-1 runs
+until it state-merges with the main chain or with the leader (offset 1),
+exits the lane late, or reaches the stream end.  A chain starting at offset
+r walks from bit r; it resolves at the bit itself (a merge at bit j records
+row j, where the chunked kernel records the chunk's second bit).  Outputs,
+in the JAX package's logical layouts with lanes minor:
+
+  sym     (cells_p, G) int32  4 symbol bytes per cell (slot = bit // md)
+  val     (cells_p, G) uint8  valid nibble per cell
+  cntmap  (HP, G) int32       symbols the lane emits for each entry offset
+  exmap   (HP, G) int32       the next lane's entry offset for each entry
+  mrowmap (HP, G) int32       merge row (-1 for entry 0, ``steps`` unmerged)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from huffmandecoderongpus_tpu_torch.ops import _build
+from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import (
+    _shapes,
+    chain_maps,
+    resolve,
+)
+from huffmandecoderongpus_tpu_torch.ops.pair import bit_rows, e1_fields, pair_entry
+from huffmandecoderongpus_tpu_torch.ops.quad import CELL, to_i32, u32
+
+#: kernel launches made by ``k1_scan`` on CUDA tensors
+launches = 0
+
+
+def k1_scan(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, NS):
+    """K1' over the halo'd word matrix ``wmat`` (steps_w, G) int32, the pair
+    table ``tab`` (NS, 128) int32 and per-lane bit limits ``lim`` (G,)
+    int32.  Returns (sym, val, cntmap, exmap, mrowmap).  CPU tensors run
+    the plain version; CUDA tensors launch the kernel (md = 1 only, the
+    one tree shape the decode path sends here)."""
+    kw = dict(B=B, H=H, steps=steps, steps_p=steps_p, SEG=SEG, md=md, NS=NS)
+    if wmat.device.type == "cpu":
+        return k1_scan_ref(wmat, tab, lim, **kw)
+    global launches
+    _build.require_cuda("k1_scan", wmat, tab, lim)
+    steps_w, G = wmat.shape
+    CH, HP, cells_p = _shapes(H, steps_p, md)
+    if (md != 1 or SEG != 32 or HP > 128 or NS > 8 or tab.shape[0] != NS
+            or steps_p % SEG or steps_w * 32 < steps_p):
+        raise ValueError("geometry outside the K1' kernel's bounds (see _plan)")
+    dev = wmat.device
+    sym = torch.empty((cells_p, G), dtype=torch.int32, device=dev)
+    val = torch.empty((cells_p, G), dtype=torch.uint8, device=dev)
+    maps = [torch.empty((HP, G), dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    rc = _build.get_lib().ws_k1_scan(
+        _build.ptr(wmat), _build.ptr(tab), _build.ptr(lim), _build.ptr(sym),
+        _build.ptr(val), *(_build.ptr(m) for m in maps),
+        G, steps_w, B, H, steps, steps_p, NS, _build.stream_ptr(wmat))
+    launches += 1
+    _build.check(rc, "k1_scan")
+    return (sym, val, *maps)
+
+
+def k1_scan_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, NS):
+    """Plain torch K1': vectorized over lanes (and chains), a Python loop
+    over bits, in three whole-lane passes as ``k1_scan2_ref``: the main
+    chain, then the leaders (they walk and count past their own
+    resolution and publish state and count per bit), then the followers,
+    frozen once resolved."""
+    del SEG  # segments only gate work; the results do not depend on them
+    G = lim.shape[0]
+    dev = lim.device
+    CH, HP, cells_p = _shapes(H, steps_p, md)
+    NL = min(md, CH)
+    tabf = u32(tab).reshape(-1)
+    bits = bit_rows(wmat, steps_p)
+    lim64 = lim.to(torch.int64)
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    # ---- main chain (entry offset 0): one slot per md bits ----------------
+    node0 = torch.zeros(G, **i64)
+    cnt0 = torch.zeros(G, **i64)
+    done0 = torch.zeros(G, **i64)
+    exit0 = torch.zeros(G, **i64)
+    nscr = torch.empty((steps_p, G), **i64)
+    cscr = torch.empty((steps_p, G), **i64)
+    cells = torch.zeros((cells_p, G), **i64)
+    nib = torch.zeros((cells_p, G), **i64)
+    for j in range(steps_p):
+        e = torch.where(lim64 > j, pair_entry(tabf, node0, bits[j]), 0)
+        emit, sym, node0 = e1_fields(e, NS)
+        emit = emit * (1 - done0)
+        if j + 1 >= B:
+            exiting = emit
+            exit0 = torch.where(exiting > 0, j + 1 - B, exit0)
+            done0 = done0 | exiting
+        cnt0 = cnt0 + emit
+        nscr[j] = torch.where(done0 > 0, -1, node0)
+        cscr[j] = cnt0
+        slot = j // md
+        cells[slot // CELL] |= (sym * emit) << (8 * (slot % CELL))
+        nib[slot // CELL] |= emit << (slot % CELL)
+
+    # ---- leaders: entry offsets 1..NL, walk to the end of the lane --------
+    srow = torch.arange(1, NL + 1, **i64)[:, None]
+    node = torch.zeros((NL, G), **i64)
+    cnt = torch.zeros_like(node)
+    rec = torch.zeros_like(node)
+    cum = torch.zeros_like(node)
+    ldr = torch.empty((steps_p, NL, G), **i64)
+    lcn = torch.empty((steps_p, NL, G), **i64)
+    for j in range(steps_p):
+        valid = lim64 > j
+        e = torch.where(valid, pair_entry(tabf, node, bits[j]), 0)
+        emit, _, nst = e1_fields(e, NS)
+        alive = 1 - (rec & 1)
+        started = (j >= srow).to(torch.int64)
+        node = torch.where(started > 0, nst, node)
+        em = emit * started
+        cnt = cnt + em
+        nz = nscr[j]
+        # a leader that resolved without merging walks on spuriously, and
+        # past the main chain's exit it tracks the halo: publish -1
+        lstop = (rec & 1) * (1 - ((rec >> 1) & 1))
+        ldr[j] = torch.where((lstop > 0) | (nz == -1), -1, node)
+        lcn[j] = cnt
+        live = (alive * started) > 0
+        rec, cum = resolve(rec, cum, [
+            (live & valid & (node == nz), (j << 3) | 3, cscr[j] - cnt),
+            ((em * alive > 0) & (j + 1 >= B), (j << 3) | 1, cnt),
+            (live & ~valid, ((B - 1) << 3) | 1, cnt),
+        ])
+    L = (cnt, rec, cum)
+
+    # ---- followers: entry offsets NL+1..CH, merge with the main chain or
+    # their residue leader (offset r - 1 mod md) ------------------------------
+    NF = CH - NL
+    frow = torch.arange(NL + 1, CH + 1, **i64)[:, None]
+    lp = (frow[:, 0] - 1) % md
+    node = torch.zeros((NF, G), **i64)
+    cnt = torch.zeros_like(node)
+    rec = torch.zeros_like(node)
+    cum = torch.zeros_like(node)
+    for j in range(steps_p if NF else 0):
+        valid = lim64 > j
+        e = torch.where(valid, pair_entry(tabf, node, bits[j]), 0)
+        emit, _, nst = e1_fields(e, NS)
+        act = ((1 - (rec & 1)) * (j >= frow)) > 0
+        node = torch.where(act, nst, node)
+        em = emit * act
+        cnt = cnt + em
+        ok = act & valid
+        rec, cum = resolve(rec, cum, [
+            (ok & (node == nscr[j]), (j << 3) | 3, cscr[j] - cnt),
+            (ok & (node == ldr[j].index_select(0, lp)), (j << 3) | 5,
+             lcn[j].index_select(0, lp) - cnt),
+            ((em > 0) & (j + 1 >= B), (j << 3) | 1, cnt),
+            (act & ~valid, ((B - 1) << 3) | 1, cnt),
+        ])
+
+    return (to_i32(cells), nib.to(torch.uint8),
+            *chain_maps(cnt0, exit0, L, (cnt, rec, cum), lp, HP=HP,
+                        steps=steps, B=B))

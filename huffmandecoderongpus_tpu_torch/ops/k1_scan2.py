@@ -129,13 +129,6 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
         scatter_slots(cells, nib, jbit, pos, emit, sym, md)
 
     # ---- chains ------------------------------------------------------------
-    def resolve(rec, cum, cnt, conds):
-        """First matching (cond, rec value, cum value) wins."""
-        for cond, r, c in reversed(conds):
-            rec = torch.where(cond, r, rec)
-            cum = torch.where(cond, c, cum)
-        return rec, cum
-
     # leaders: entry offsets 1..NL, walk to the end of the lane
     srow = torch.arange(1, NL + 1, **i64)[:, None]
     node = torch.zeros((NL, G), **i64)
@@ -160,14 +153,14 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
         ldr[i] = torch.where((lstop > 0) | (nz == -1), -1, node)
         lcn[i] = cnt
         live = (alive * started) > 0
-        rec, cum = resolve(rec, cum, cnt, [
+        rec, cum = resolve(rec, cum, [
             (live & valid & (node == nz), ((jbit + 1) << 3) | 3,
              cscr[i] - cnt),
             ((em * alive > 0) & (jbit + pos + 1 >= B),
              ((jbit + pos) << 3) | 1, cnt),
             (live & ~valid, ((B - 1) << 3) | 1, cnt),
         ])
-    L = (node, cnt, rec, cum)
+    L = (cnt, rec, cum)
 
     # followers: entry offsets NL+1..CH, merge with the 0-chain or their
     # residue leader (offset r - 1 mod md); frozen once resolved
@@ -192,7 +185,7 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
         nl = ldr[i].index_select(0, lp)
         ok = ((alive * started) > 0) & valid
         m0 = ok & (node == nscr[i])
-        rec, cum = resolve(rec, cum, cnt, [
+        rec, cum = resolve(rec, cum, [
             (m0, ((jbit + 1) << 3) | 3, cscr[i] - cnt),
             (ok & (node == nl), ((jbit + 1) << 3) | 5,
              lcn[i].index_select(0, lp) - cnt),
@@ -200,14 +193,38 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
             ((alive * started > 0) & ~valid, ((B - 1) << 3) | 1, cnt),
         ])
 
-    # ---- epilogue: leaders first, followers compose through them -----------
+    return (to_i32(cells), nib.to(torch.uint8),
+            *chain_maps(cnt0, exit0, L, (cnt, rec, cum), lp, HP=HP,
+                        steps=steps, B=B))
+
+
+def resolve(rec, cum, conds):
+    """A chain's (rec, cum) after one step: the first (cond, rec value,
+    cum value) that holds wins; neither changes where none holds."""
+    for cond, r, c in reversed(conds):
+        rec = torch.where(cond, r, rec)
+        cum = torch.where(cond, c, cum)
+    return rec, cum
+
+
+def chain_maps(cnt0, exit0, L, F, lp, *, HP, steps, B):
+    """K1's epilogue (both the chunked and the 1-bit kernel): the
+    (cntmap, exmap, mrowmap) (HP, G) int32 maps from the main chain's count
+    and exit, the leaders' (cnt, rec, cum) ``L`` (NL, G) and the
+    followers' ``F`` (NF, G), follower i composing through leader
+    ``lp[i]``.  rec packs row << 3 | kind << 1 | resolved, kind 0 late
+    exit or stream end, 1 merged with the main chain, 2 merged with the
+    leader.  Leaders come first; followers compose through them."""
+    G = cnt0.shape[0]
+    i64 = dict(dtype=torch.int64, device=cnt0.device)
+    NL, NF = L[0].shape[0], F[0].shape[0]
     cntmap = torch.zeros((HP, G), **i64)
     exmap = torch.zeros((HP, G), **i64)
     mrowmap = torch.full((HP, G), steps, **i64)
     cntmap[0] = cnt0
     exmap[0] = exit0
     mrowmap[0] = -1
-    lnode, lcnt, lrec, lcum = L
+    lcnt, lrec, lcum = L
     res = lrec & 1
     mrg = (lrec >> 1) & 1
     mrow = lrec >> 3
@@ -218,8 +235,9 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
     exmap[1:NL + 1] = Lex
     mrowmap[1:NL + 1] = Lmrow
     if NF:
+        cnt, rec, cum = F
         res = rec & 1
-        kind = (rec >> 1) & 3  # 0 late/ended, 1 merged-0, 2 merged-leader
+        kind = (rec >> 1) & 3
         mrow = rec >> 3
         tot = torch.where(kind == 1, cnt0 - cum, cum)
         tot = torch.where(kind == 2, Ltot[lp] - cum, tot)
@@ -227,8 +245,8 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
         ex = torch.where(kind == 2, Lex[lp], ex)
         mro = torch.where(kind == 1, mrow, steps)
         mro = torch.where(kind == 2, torch.maximum(mrow, Lmrow[lp]), mro)
-        cntmap[NL + 1:CH + 1] = torch.where(res > 0, tot, cnt)
-        exmap[NL + 1:CH + 1] = torch.where(res > 0, ex, 0)
-        mrowmap[NL + 1:CH + 1] = torch.where(res > 0, mro, steps)
-    return (to_i32(cells), nib.to(torch.uint8), cntmap.to(torch.int32),
-            exmap.to(torch.int32), mrowmap.to(torch.int32))
+        cntmap[NL + 1:NL + NF + 1] = torch.where(res > 0, tot, cnt)
+        exmap[NL + 1:NL + NF + 1] = torch.where(res > 0, ex, 0)
+        mrowmap[NL + 1:NL + NF + 1] = torch.where(res > 0, mro, steps)
+    return (cntmap.to(torch.int32), exmap.to(torch.int32),
+            mrowmap.to(torch.int32))

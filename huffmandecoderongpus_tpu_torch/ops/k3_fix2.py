@@ -82,8 +82,15 @@ def k3_fix2_ref(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md,
         node = torch.where(started, nfull, node)
         node = torch.where(ent64 == jbit + 1, rc, node)
         scatter_slots(cells, nib, jbit, pos, emit, s, md)
-    # masked splice: slots below cut_slot come from the fix scan
-    first = CELL * torch.arange(ncell, device=dev)[:, None]
+    return splice(cells, nib, cut_slot, sym, val)
+
+
+def splice(cells, nib, cut_slot, sym, val):
+    """Masked splice, in place: slots below each lane's ``cut_slot`` take
+    the fix scan's ``cells``/``nib`` (ncell, G) int64, the rest keep
+    ``sym``/``val``.  Returns (sym, val)."""
+    ncell = cells.shape[0]
+    first = CELL * torch.arange(ncell, device=cells.device)[:, None]
     k = (cut_slot.to(torch.int64)[None, :] - first).clamp(0, CELL)
     vmask = (1 << k) - 1
     smask = torch.where(k >= CELL, 0xFFFFFFFF, (1 << (8 * k)) - 1)

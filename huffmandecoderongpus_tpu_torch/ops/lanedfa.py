@@ -1,8 +1,10 @@
-"""Fused bit-transition table over Huffman tree states (numpy).
+"""The lane-parallel bit DFA's table and host staging (numpy).
 
 Port of ``huffmandecoderongpus_tpu.ops.lanedfa`` (``LaneDFA``,
-``build_lane_dfa``), whose module imports jax; the table is host data, so it
-is built with numpy here and compared byte for byte with the reference.
+``build_lane_dfa``, ``bits_matrix``, ``pick_lanes``) and of
+``_pad_table`` (``ops/pallas_lanedfa.py``), whose modules import jax.  The
+table and the bit matrix are host data, built with numpy and compared byte
+for byte with the reference; ``lanedfa_decode`` runs the decode.
 """
 
 from __future__ import annotations
@@ -10,11 +12,25 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from huffmandecoderongpus_tpu_torch.huffio import table_height, table_min_depth
+from huffmandecoderongpus_tpu_torch.huffio import (
+    table_height,
+    table_min_depth,
+    unpack_bits,
+)
 
 EMIT_BIT = 1 << 10
 STATE_MASK = (1 << 10) - 1
+#: lanes are whole multiples of this on the tiled route (the Pallas
+#: kernel's (8, 128) lane tile); kept so staged inputs compare equal
+LANE_TILE = 1024
+#: table entries per row of the padded table
+CHUNK = 128
+
+
+class EnvelopeError(ValueError):
+    """The stream is outside what a decoder takes."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,3 +75,40 @@ def build_lane_dfa(tree: np.ndarray) -> LaneDFA:
     t32 = np.ascontiguousarray(tree, dtype=np.int32)
     return LaneDFA(entry=entry, nodes=n, height=table_height(t32),
                    min_depth=table_min_depth(t32))
+
+
+def pad_table(entry: np.ndarray) -> np.ndarray:
+    """The fused table padded to (n_chunks, 128) int32."""
+    t = entry.shape[0]
+    out = np.zeros((max(-(-t // CHUNK), 1), CHUNK), dtype=np.int32)
+    out.reshape(-1)[:t] = entry
+    return out
+
+
+def bits_matrix(payload: np.ndarray, bits: int, lanes: int, halo: int,
+                round_to: int = 1):
+    """(B + halo, G) uint8 bit matrix and B: element [j, g] is stream bit
+    ``g*B + j`` (rows >= B repeat the head of the next lane), zero past the
+    stream end.  B is rounded up to a multiple of ``round_to``."""
+    B = -(-bits // lanes)
+    if round_to > 1:
+        B = -(-B // round_to) * round_to
+    flat = np.zeros(lanes * B + halo, dtype=np.uint8)
+    flat[:bits] = unpack_bits(payload, bits)
+    # column g is the window flat[g*B : g*B + B + halo]
+    mat = np.lib.stride_tricks.as_strided(
+        flat, shape=(B + halo, lanes), strides=(1, B))
+    return np.ascontiguousarray(mat), B
+
+
+def pick_lanes(bits: int, target_block_bits: int = 4096,
+               max_lanes: int = 1 << 15) -> int:
+    """Lane count: a power of two, blocks of at least target_block_bits."""
+    g = max(1, bits // max(target_block_bits, 1))
+    g = 1 << max(g.bit_length() - 1, 0)
+    return int(min(max(g, 1), max_lanes))
+
+
+def lane_limits(N: int, B: int, G: int, device) -> torch.Tensor:
+    """(G,) int64: each lane's bit rows below N - g*B are in the stream."""
+    return N - torch.arange(G, device=device, dtype=torch.int64) * B

@@ -1,0 +1,132 @@
+"""Lane-DFA decode: the fallback chain of the wide-lane decoder.
+
+Port of ``decode_lanedfa_pallas`` (``huffmandecoderongpus_tpu/ops/
+pallas_lanedfa.py``, candidate discovery) and of ``decode_lanedfa`` and
+``_compose`` (``ops/lanedfa.py``, without the sidecar ``entries``).  The
+decode cuts the stream into G lanes of B bits, each column of the bit
+matrix (``lanedfa.bits_matrix``) holding its lane's bits and H more:
+
+  candidate_scan  H chains per lane from every entry offset -> cnt, exit
+  compose         exit maps -> each lane's entry offset, base and count
+  lane_scan       each lane from its entry offset -> per-bit sym, valid
+
+and the host keeps the valid symbols, lane by lane.  The JAX package runs
+the two scans as Pallas kernels, or, for streams under ``LANE_TILE * H``
+bits, as XLA scans that compute the same; the port runs both geometries
+through the one pair of kernel wrappers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from huffmandecoderongpus_tpu_torch.ops.candidate_scan import candidate_scan
+from huffmandecoderongpus_tpu_torch.ops.lane_scan import lane_scan
+from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
+    LANE_TILE,
+    bits_matrix,
+    build_lane_dfa,
+    pad_table,
+    pick_lanes,
+)
+
+
+def compose(cnt: torch.Tensor, ex: torch.Tensor):
+    """Chain the per-lane exit maps ``cnt``/``ex`` (H, G) int32: lane 0
+    enters at offset 0, lane g+1 where lane g's chain from its own entry
+    exits.  Returns (entry_off, base, n) (G,) int32 and total (0-d int32):
+    each lane's entry offset, the symbols before it, its own symbols, and
+    all symbols.
+
+    Plain torch: an inclusive prefix scan of the maps by doubling
+    (log2(G) steps of (H, G) gathers), where the JAX package folds
+    sqrt(G)-lane groups; the composition is the same.  An exit offset
+    outside [0, H) is read as 0, as the reference's select chain does."""
+    H, G = cnt.shape
+    cn = cnt.to(torch.int64)
+    ex = ex.to(torch.int64)
+    ex = torch.where((ex >= 0) & (ex < H), ex, 0)
+    # column g of (M, C): exit offset and symbols over lanes (g - d, g]
+    # for a chain entering the first of them at each offset
+    M, C = ex, cn
+    d = 1
+    while d < G:
+        nxt = M[:, :-d]
+        M = torch.cat([M[:, :d], M[:, d:].gather(0, nxt)], dim=1)
+        C = torch.cat([C[:, :d], C[:, :-d] + C[:, d:].gather(0, nxt)], dim=1)
+        d *= 2
+    zero = torch.zeros(1, dtype=torch.int64, device=cnt.device)
+    entry = torch.cat([zero, M[0, :-1]])
+    base = torch.cat([zero, C[0, :-1]])
+    n = cn.gather(0, entry[None])[0]
+    i32 = torch.int32
+    return entry.to(i32), base.to(i32), n.to(i32), C[0, -1].to(i32)
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for CUDA where it is not
+    available (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is false")
+    return device
+
+
+def stage_lanedfa(hf, *, device, lanes=None, tiled=True) -> dict:
+    """The scans' inputs for a HuffFile: the bit matrix ``bits`` (B+H, G)
+    uint8 and the padded table ``tab`` (n_chunks, 128) int32 on
+    ``device``, with B, H and the stream's bit count N.  ``tiled``: the
+    geometry ``decode_lanedfa_tiled`` runs (whole ``LANE_TILE`` multiples
+    of lanes, up to 16384, for streams of at least ``LANE_TILE * H`` bits;
+    ``decode_lanedfa``'s below); else ``decode_lanedfa``'s (a power of two
+    of 4096-bit blocks, at least H bits a lane)."""
+    dfa = build_lane_dfa(hf.tree)
+    H = max(dfa.height, 1)
+    if tiled and hf.bits >= LANE_TILE * H:
+        G = (pick_lanes(hf.bits, max_lanes=1 << 14) if lanes is None
+             else int(lanes))
+        G = max(LANE_TILE, min(G, max(hf.bits // H, 1)))
+        G = (G // LANE_TILE) * LANE_TILE
+    else:
+        G = pick_lanes(hf.bits) if lanes is None else int(lanes)
+        G = max(1, min(G, hf.bits // H if hf.bits >= H else 1))
+    mat, B = bits_matrix(hf.payload, hf.bits, G, H, round_to=512)
+    return dict(bits=torch.from_numpy(mat).to(device),
+                tab=torch.from_numpy(pad_table(dfa.entry)).to(device),
+                B=B, H=H, N=hf.bits)
+
+
+def decode_lanedfa(hf, *, device, lanes=None, check_size=True) -> np.ndarray:
+    """Lane-DFA decode of a HuffFile on ``device`` to host bytes, in the
+    JAX package's XLA geometry (``decode_lanedfa``, without its sidecar
+    ``entries``)."""
+    device = require_device(device)
+    return _decode(hf, stage_lanedfa(hf, device=device, lanes=lanes,
+                                     tiled=False), check_size)
+
+
+def decode_lanedfa_tiled(hf, *, device, lanes=None,
+                         check_size=True) -> np.ndarray:
+    """Lane-DFA decode in the JAX package's Pallas geometry
+    (``decode_lanedfa_pallas`` with candidate discovery); streams under
+    ``LANE_TILE * H`` bits take ``decode_lanedfa``'s, as there."""
+    device = require_device(device)
+    return _decode(hf, stage_lanedfa(hf, device=device, lanes=lanes),
+                   check_size)
+
+
+def _decode(hf, st: dict, check_size: bool) -> np.ndarray:
+    kw = dict(B=st["B"], H=st["H"], N=st["N"])
+    cnt, ex = candidate_scan(st["bits"], st["tab"], **kw)
+    entry_off, _base, _n, total = compose(cnt, ex)
+    sym, valid = lane_scan(st["bits"], st["tab"], entry_off, **kw)
+    total = int(total)
+    if check_size and total != hf.uncompressed_size:
+        raise RuntimeError(
+            f"decoded {total} symbols, header says {hf.uncompressed_size}")
+    out = sym.t()[valid.t() > 0].cpu().numpy()
+    if check_size and out.size != hf.uncompressed_size:
+        raise RuntimeError(
+            f"emitted {out.size} symbols, header says {hf.uncompressed_size}")
+    return out

@@ -1,20 +1,25 @@
 """Wide-lane decoder: host staging (numpy), the device program (torch), and
 the ``decode_widescan`` wrapper.
 
-Port of the chunked (min code length md >= 2) path of
-``huffmandecoderongpus_tpu/ops/pallas_widescan.py``.  The stream is cut into
-G lanes of B bits; the device program runs
+Port of ``huffmandecoderongpus_tpu/ops/pallas_widescan.py`` without its
+one-shot route.  The stream is cut into G lanes of B bits; the device
+program runs
 
   words_matrix  (G, B/32) lane words -> halo'd (steps_w, G) word matrix
-  K1 k1_scan2   main scan + candidate discovery -> cells, per-lane maps
+  K1            main scan + candidate discovery -> cells, per-lane maps:
+                k1_scan2 two bits per step (min code length md >= 2),
+                k1_scan one bit per step (md = 1)
   K2 k2_compose exit maps -> each lane's true entry offset
   select/cut    per-lane counts and fix rows (plain torch)
-  K3 k3_fix2    re-decode lanes entered mid-codeword, spliced in place
+  K3            re-decode lanes entered mid-codeword, spliced in place
+                (k3_fix2, or k3_fix for md = 1)
   K4 k4_compact cells -> per-lane dense bytes
 
-and the host trims the dense rows by the per-lane counts.  Everything
-outside this envelope raises :class:`EnvelopeError` naming the ROADMAP item
-that will lift it; nothing falls back to another decoder or device.
+and the host trims the dense rows by the per-lane counts.  A stream outside
+the program's envelope (staging raises :class:`EnvelopeError`) or a lane
+overflowing its dense row decodes through the lane-DFA chain
+(``lanedfa.decode_lanedfa_tiled``) on the same device, as in the JAX
+package; nothing else falls back.
 """
 
 from __future__ import annotations
@@ -22,17 +27,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from huffmandecoderongpus_tpu_torch.ops.k1_scan import k1_scan
 from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import k1_scan2
 from huffmandecoderongpus_tpu_torch.ops.k2_compose import k2_compose
+from huffmandecoderongpus_tpu_torch.ops.k3_fix import k3_fix
 from huffmandecoderongpus_tpu_torch.ops.k3_fix2 import k3_fix2
 from huffmandecoderongpus_tpu_torch.ops.k4_compact import k4_compact
 from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     EMIT_BIT,
     STATE_MASK,
+    EnvelopeError,
     LaneDFA,
     build_lane_dfa,
 )
-from huffmandecoderongpus_tpu_torch.ops.quad import CELL
+from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import (
+    decode_lanedfa_tiled,
+    require_device,
+)
 
 MAX_STATES = 127  # compact-entry limit: the state field is 7 bits
 MAX_STATES_WIDE = 1023  # LaneDFA STATE_MASK bound; wide entries hold 15 bits
@@ -40,12 +51,34 @@ MAX_STATES_WIDE = 1023  # LaneDFA STATE_MASK bound; wide entries hold 15 bits
 MAX_HEIGHT = 128
 
 
-class EnvelopeError(ValueError):
-    """The stream or tree is outside what this port decodes yet."""
-
-
 # ---------------------------------------------------------------------------
 # Host staging (numpy)
+
+
+def pack_pair_table(dfa: LaneDFA) -> np.ndarray:
+    """(NS, 128) int32 pair table for the 1-bit kernels: one word per state,
+    entry(bit 0) | entry(bit 1) << 16; row c holds states [c*128,
+    c*128+128).  Up to 127 states the compact entry sym<<8 | emit<<7 |
+    next state (an emitting entry's next state is the root, and a
+    non-emitting one carries zero sym bits); beyond that the wide entry
+    emit<<15 | sym<<1 when emitting, the bare state otherwise."""
+    n_states = dfa.entry.shape[0] // 2
+    if n_states > MAX_STATES_WIDE:
+        raise ValueError(
+            f"{n_states} states > {MAX_STATES_WIDE} (wide pair table)")
+    NS = max(1, -(-n_states // 128))
+    out = np.zeros(NS * 128, dtype=np.int64)
+    for bit in (0, 1):
+        e = dfa.entry[bit::2].astype(np.int64)
+        emit = (e & EMIT_BIT) != 0
+        state = np.where(emit, 0, e & STATE_MASK)
+        sym = np.where(emit, (e >> 16) & 0xFF, 0)
+        if n_states > MAX_STATES:
+            e16 = np.where(emit, 0x8000 | (sym << 1), state)
+        else:
+            e16 = (sym << 8) | (emit.astype(np.int64) << 7) | state
+        out[:n_states] |= e16 << (16 * bit)
+    return out.astype(np.uint32).view(np.int32).reshape(NS, 128)
 
 
 def pack_quad_tables(dfa: LaneDFA):
@@ -159,38 +192,39 @@ def _plan(bits: int, H: int, md: int, lanes=None, avg_len=None):
 
 
 def stage_widescan_inputs(hf, *, device, lanes=None):
-    """Build everything the device program needs: the plan, the quad table
-    and the per-lane payload words and bit limits as tensors on
-    ``device``.  Raises EnvelopeError outside the port's envelope."""
+    """Build everything the device program needs: the plan, the table (the
+    quad table for md >= 2, ``chunk2``; the pair table for md = 1) and the
+    per-lane payload words and bit limits as tensors on ``device``.  Raises
+    EnvelopeError for a stream the program does not take."""
     dfa = build_lane_dfa(hf.tree)
     H = max(dfa.height, 1)
     md = max(dfa.min_depth, 1)
     n_states = dfa.entry.shape[0] // 2
     if n_states > MAX_STATES_WIDE:
         raise EnvelopeError(
-            f"{n_states} internal states > {MAX_STATES_WIDE}: needs the "
-            "lane-DFA fallback chain (ROADMAP Queue 1 item 6)")
+            f"{n_states} internal states > {MAX_STATES_WIDE} (wide tables)")
     if hf.bits < 1024 * max(H, 8):
         raise EnvelopeError(
-            f"{hf.bits} bits < 1024*max(H, 8): tiny streams need the "
-            "lane-DFA fallback chain (ROADMAP Queue 1 item 6)")
-    if md < 2:
-        raise EnvelopeError(
-            "min code length 1: needs the 1-bit kernels k1_scan/k3_fix "
-            "(ROADMAP Queue 1 item 4)")
+            f"{hf.bits} bits < 1024*max(H, 8): too small for the wide lanes")
     if H > MAX_HEIGHT:
+        # the JAX program fails in K2's map padding here instead
         raise EnvelopeError(
             f"tree height {H} > {MAX_HEIGHT}: K2 composes at most "
             f"{MAX_HEIGHT} entry offsets per lane")
     avg = hf.bits / max(hf.uncompressed_size, 1)
     p = _plan(hf.bits, H, md, lanes=lanes, avg_len=avg)
     G = p["G"]
-    tabq, C0, C1, NS = pack_quad_tables(dfa)
+    chunk2 = md >= 2
+    if chunk2:
+        tab, C0, C1, NS = pack_quad_tables(dfa)
+    else:
+        tab, C0, C1 = pack_pair_table(dfa), 0, 0
+        NS = tab.shape[0]
     w2 = payload_lane_words(hf.payload, hf.bits, G, p["B"])
     lane = np.arange(G, dtype=np.int64)
     lim = np.clip(hf.bits - lane * p["B"], -(1 << 30), 1 << 30).astype(np.int32)
-    return dict(plan=p, dfa=dfa, H=H, md=md, C0=C0, C1=C1, NS=NS,
-                tab=torch.from_numpy(tabq).to(device),
+    return dict(plan=p, dfa=dfa, H=H, md=md, chunk2=chunk2, C0=C0, C1=C1,
+                NS=NS, tab=torch.from_numpy(tab).to(device),
                 words=torch.from_numpy(w2).to(device),
                 lim=torch.from_numpy(lim).to(device))
 
@@ -199,15 +233,14 @@ def from_jax_staging(st: dict, device) -> dict:
     """The port's staged tensors from the JAX package's
     ``stage_widescan_inputs`` result, its arrays given as numpy
     (``tabw``, ``words``, ``lim2``) beside the plan scalars."""
-    if not st["chunk2"]:
-        raise EnvelopeError("min code length 1 (ROADMAP Queue 1 item 4)")
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
 
     return dict(plan=dict(st["plan"]), dfa=st["dfa"], H=st["H"], md=st["md"],
-                C0=st["C0"], C1=st["C1"], NS=st["NS"], tab=t(st["tabw"]),
-                words=t(st["words"]), lim=t(st["lim2"]).reshape(-1))
+                chunk2=st["chunk2"], C0=st["C0"], C1=st["C1"], NS=st["NS"],
+                tab=t(st["tabw"]), words=t(st["words"]),
+                lim=t(st["lim2"]).reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -241,19 +274,23 @@ def select_h(maps: torch.Tensor, idx: torch.Tensor, H: int) -> torch.Tensor:
 
 
 def wide_decode_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md,
-                        ORP, C0, C1, NS):
+                        ORP, chunk2, C0, C1, NS):
     """Full decode from lane words ``words`` (G, B//32) int32.  Returns
     (denseT (G, ORP) uint8, n (G,) int32, total int64 scalar tensor), all
-    on the input's device."""
+    on the input's device.  ``chunk2`` picks the 2-bit kernels (quad
+    table, md >= 2) or the 1-bit ones (pair table, md = 1)."""
     wmat = words_matrix(words, -(-steps_p // 32))
-    kw = dict(steps_p=steps_p, SEG=SEG, md=md, C0=C0, C1=C1, NS=NS)
-    sym, val, cntmap, exmap, mrowmap = k1_scan2(
+    kw = dict(steps_p=steps_p, SEG=SEG, md=md, NS=NS)
+    if chunk2:
+        kw.update(C0=C0, C1=C1)
+    scan, fix = (k1_scan2, k3_fix2) if chunk2 else (k1_scan, k3_fix)
+    sym, val, cntmap, exmap, mrowmap = scan(
         wmat, tab, lim, B=B, H=H, steps=steps, **kw)
     entry, _tot = k2_compose(exmap, 0)
     n = select_h(cntmap, entry, H)
     total = n.sum()
     cut, cut_slot = fix_rows(entry, mrowmap, lim, H, md)
-    sym, val = k3_fix2(wmat, tab, entry, cut, cut_slot, sym, val, **kw)
+    sym, val = fix(wmat, tab, entry, cut, cut_slot, sym, val, **kw)
     denseT = k4_compact(sym, val, ORP=ORP)
     return denseT, n, total
 
@@ -274,19 +311,23 @@ def program_args(st: dict) -> dict:
     """Keyword arguments of wide_decode_program for a staged stream."""
     p = st["plan"]
     return dict(B=p["B"], H=st["H"], steps=p["steps"], steps_p=p["steps_p"],
-                SEG=p["SEG"], md=st["md"], ORP=p["ORP"], C0=st["C0"],
-                C1=st["C1"], NS=st["NS"])
+                SEG=p["SEG"], md=st["md"], ORP=p["ORP"], chunk2=st["chunk2"],
+                C0=st["C0"], C1=st["C1"], NS=st["NS"])
 
 
 def decode_widescan(hf, *, device, lanes=None, check_size=True) -> np.ndarray:
     """Wide-lane decode of a HuffFile on ``device`` to host bytes.
 
     ``device="cuda"`` runs the CUDA kernels and raises when CUDA is not
-    available; ``device="cpu"`` runs their plain torch versions."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is false")
-    st = stage_widescan_inputs(hf, device=device, lanes=lanes)
+    available; ``device="cpu"`` runs their plain torch versions.  A stream
+    that staging refuses (EnvelopeError), or whose lanes overflow the dense
+    rows, decodes through the lane-DFA chain on the same device; a size
+    mismatch with the header raises first."""
+    device = require_device(device)
+    try:
+        st = stage_widescan_inputs(hf, device=device, lanes=lanes)
+    except EnvelopeError:
+        return decode_lanedfa_tiled(hf, device=device, check_size=check_size)
     ORP = st["plan"]["ORP"]
     denseT, n, total = wide_decode_program(st["words"], st["tab"], st["lim"],
                                            **program_args(st))
@@ -294,10 +335,8 @@ def decode_widescan(hf, *, device, lanes=None, check_size=True) -> np.ndarray:
     if check_size and total != hf.uncompressed_size:
         raise RuntimeError(
             f"decoded {total} symbols, header says {hf.uncompressed_size}")
-    if int(n.max()) > ORP:
-        raise EnvelopeError(
-            f"a lane decoded {int(n.max())} symbols > ORP={ORP}: needs the "
-            "lane-DFA fallback chain (ROADMAP Queue 1 item 6)")
+    if int(n.max()) > ORP:  # a lane overflowed its dense row
+        return decode_lanedfa_tiled(hf, device=device, check_size=check_size)
     mask = torch.arange(ORP, device=device)[None, :] < n[:, None]
     out = denseT[mask].cpu().numpy()
     if check_size and out.size != hf.uncompressed_size:

@@ -98,22 +98,32 @@ def test_words_matrix_matches(name):
 
 
 def test_md1_raises_envelope():
+    # min code length 1 no longer raises: staging takes the pair table of
+    # the 1-bit kernels (chunk2=False), as the JAX package's does
     rng = np.random.default_rng(0)
     raw = md1(rng, 30000)
     hf = encode_bytes(raw)
     assert jlanedfa.build_lane_dfa(hf.tree).min_depth == 1
-    assert not jws.stage_widescan_inputs(hf, lanes=512)["chunk2"]
-    with pytest.raises(widescan.EnvelopeError, match="Queue 1 item 4"):
-        widescan.stage_widescan_inputs(hf, device="cpu", lanes=512)
-    with pytest.raises(widescan.EnvelopeError):
-        widescan.from_jax_staging(
-            as_numpy(jws.stage_widescan_inputs(hf, lanes=512)), "cpu")
+    want = as_numpy(jws.stage_widescan_inputs(hf, lanes=512))
+    assert not want["chunk2"]
+    got = widescan.stage_widescan_inputs(hf, device="cpu", lanes=512)
+    assert got["chunk2"] is False and got["NS"] == want["NS"]
+    np.testing.assert_array_equal(got["tab"].numpy(), want["tabw"])
+    carried = widescan.from_jax_staging(want, "cpu")
+    assert torch.equal(carried["tab"], got["tab"])
+    out = widescan.decode_widescan(hf, device="cpu", lanes=512)
+    np.testing.assert_array_equal(out, raw)
 
 
 def test_tiny_stream_raises_envelope():
+    # staging still refuses a tiny stream, in both packages; the port's
+    # decode_widescan then takes the lane-DFA chain, as the JAX one does
     rng = np.random.default_rng(0)
-    hf = encode_bytes(text_like(rng, 500))
+    raw = text_like(rng, 500)
+    hf = encode_bytes(raw)
     with pytest.raises(jws.EnvelopeError):
         jws.stage_widescan_inputs(hf)
-    with pytest.raises(widescan.EnvelopeError, match="Queue 1 item 6"):
+    with pytest.raises(widescan.EnvelopeError, match="too small"):
         widescan.stage_widescan_inputs(hf, device="cpu")
+    out = widescan.decode_widescan(hf, device="cpu")
+    np.testing.assert_array_equal(out, raw)

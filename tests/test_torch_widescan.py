@@ -29,8 +29,10 @@ from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
 from huffmandecoderongpus_tpu.huffio.format import write_huff
 from huffmandecoderongpus_tpu.ops import pallas_widescan as jws
 from huffmandecoderongpus_tpu_torch.models import all_decoders, get_decoder
-from huffmandecoderongpus_tpu_torch.ops import k1_scan2, k2_compose, k3_fix2
-from huffmandecoderongpus_tpu_torch.ops import k4_compact, widescan
+from huffmandecoderongpus_tpu_torch.ops import k1_scan, k1_scan2, k2_compose
+from huffmandecoderongpus_tpu_torch.ops import k3_fix, k3_fix2, k4_compact
+from huffmandecoderongpus_tpu_torch.ops import candidate_scan, lane_scan
+from huffmandecoderongpus_tpu_torch.ops import widescan
 from torch_streams import SHAPES, as_numpy, fuzz, make, text_like
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,16 +40,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _jax_stages(hf, lanes, RB=None):
     """Every stage output of the JAX program (Pallas kernels in interpret
-    mode), in the port's logical layouts, plus the staging it ran on."""
+    mode: k1_scan2/k3_fix2, or k1_scan/k3_fix for md=1), in the port's
+    logical layouts, plus the staging it ran on."""
     st = jws.stage_widescan_inputs(hf, lanes=lanes)
     p = st["plan"]
     G, H, md = p["G"], st["H"], st["md"]
     R = G // 128
     wmat = jws.words_matrix_device(st["words"], -(-p["steps_p"] // 32))
     kw = dict(G=G, steps_p=p["steps_p"], SEG=p["SEG"], UNROLL=p["UNROLL"],
-              md=md, C0=st["C0"], C1=st["C1"], NS=st["NS"],
-              RB=RB or p["RB"], interpret=True)
-    sym, val, cntm, exm, mrm = jws.k1_scan2(
+              md=md, RB=RB or p["RB"], interpret=True)
+    if st["chunk2"]:
+        kw.update(C0=st["C0"], C1=st["C1"], NS=st["NS"])
+        scan, fix = jws.k1_scan2, jws.k3_fix2
+    else:
+        scan, fix = jws.k1_scan, jws.k3_fix
+    sym, val, cntm, exm, mrm = scan(
         wmat, st["tabw"], st["lim2"], B=p["B"], H=H, steps=p["steps"], **kw)
     HP = cntm.shape[0]
     Rg, NG = p["Rg"], p["NG"]
@@ -61,9 +68,9 @@ def _jax_stages(hf, lanes, RB=None):
                     jws._select_h(mrm.reshape(HP, G), entry, H) + 1)
     cut = jnp.where(st["lim2"].reshape(G) > 0, cut, 0)
     cut_slot = jnp.where(cut > 0, (cut - 1) // md + 1, 0)
-    msym, mval = jws.k3_fix2(wmat, st["tabw"], entry.reshape(R, 128),
-                             cut.reshape(R, 128), cut_slot.reshape(R, 128),
-                             sym, val, **kw)
+    msym, mval = fix(wmat, st["tabw"], entry.reshape(R, 128),
+                     cut.reshape(R, 128), cut_slot.reshape(R, 128), sym, val,
+                     **kw)
     denseT = jws.k4_compact(msym, mval, G=G, cells_p=p["steps_p"] // md // 4,
                             ORP=p["ORP"], interpret=True)
     cells = sym.shape[0]
@@ -80,16 +87,20 @@ def _port_stages(st):
     """The port's plain torch stages on staged tensors ``st``."""
     p = st["plan"]
     H, md = st["H"], st["md"]
-    kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=md, C0=st["C0"],
-              C1=st["C1"], NS=st["NS"])
+    kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=md, NS=st["NS"])
+    if st["chunk2"]:
+        kw.update(C0=st["C0"], C1=st["C1"])
+        scan, fix = k1_scan2.k1_scan2_ref, k3_fix2.k3_fix2_ref
+    else:
+        scan, fix = k1_scan.k1_scan_ref, k3_fix.k3_fix_ref
     wmat = widescan.words_matrix(st["words"], -(-p["steps_p"] // 32))
-    sym, val, cntmap, exmap, mrowmap = k1_scan2.k1_scan2_ref(
+    sym, val, cntmap, exmap, mrowmap = scan(
         wmat, st["tab"], st["lim"], B=p["B"], H=H, steps=p["steps"], **kw)
     entry, tot = k2_compose.k2_compose_ref(exmap, 0)
     n = widescan.select_h(cntmap, entry, H)
     cut, cut_slot = widescan.fix_rows(entry, mrowmap, st["lim"], H, md)
-    msym, mval = k3_fix2.k3_fix2_ref(wmat, st["tab"], entry, cut, cut_slot,
-                                     sym.clone(), val.clone(), **kw)
+    msym, mval = fix(wmat, st["tab"], entry, cut, cut_slot, sym.clone(),
+                     val.clone(), **kw)
     denseT = k4_compact.k4_compact_ref(msym, mval, ORP=p["ORP"])
     out = dict(sym=sym, val=val, cntmap=cntmap, exmap=exmap, mrowmap=mrowmap,
                entry=entry, tot=tot, n=n, cut=cut, cut_slot=cut_slot,
@@ -197,9 +208,11 @@ def test_corrupt_size_raises():
 
 
 def test_orp_overflow_raises(monkeypatch):
-    # a dense row narrower than the lanes' counts must raise, never decode
-    # another way (~190 symbols per lane against 128 columns)
-    hf = encode_bytes(text_like(np.random.default_rng(2), 100000))
+    # a dense row narrower than the lanes' counts (~190 symbols per lane
+    # against 128 columns) no longer raises: the lane-DFA chain decodes
+    # the stream, and only then
+    raw = text_like(np.random.default_rng(2), 100000)
+    hf = encode_bytes(raw)
     plan = widescan._plan
 
     def small_orp(*a, **k):
@@ -208,8 +221,13 @@ def test_orp_overflow_raises(monkeypatch):
     monkeypatch.setattr(widescan, "_plan", small_orp)
     st = widescan.stage_widescan_inputs(hf, device="cpu", lanes=512)
     assert st["plan"]["ORP"] == 128
-    with pytest.raises(widescan.EnvelopeError, match="ORP"):
-        widescan.decode_widescan(hf, device="cpu", lanes=512)
+    calls = []
+    tiled = widescan.decode_lanedfa_tiled
+    monkeypatch.setattr(widescan, "decode_lanedfa_tiled",
+                        lambda *a, **k: calls.append(1) or tiled(*a, **k))
+    out = widescan.decode_widescan(hf, device="cpu", lanes=512)
+    assert calls == [1]
+    np.testing.assert_array_equal(out, raw)
 
 
 def test_cuda_never_falls_back():
@@ -231,6 +249,22 @@ def test_cuda_never_falls_back():
         k2_compose.k2_compose(meta)
     with pytest.raises(ValueError, match="CUDA"):
         k4_compact.k4_compact(meta, meta.to(torch.uint8), ORP=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1_scan.k1_scan(meta, tab[:1], lim, B=96, H=4, steps=100,
+                        steps_p=128, SEG=32, md=1, NS=1)
+    cells = torch.empty((32, 512), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        k3_fix.k3_fix(meta, tab[:1], lim, lim, lim, cells,
+                      cells.to(torch.uint8), steps_p=128, SEG=32, md=1, NS=1)
+    bits = torch.empty((100, 512), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        candidate_scan.candidate_scan(bits, tab, B=96, H=4, N=40000)
+    with pytest.raises(ValueError, match="CUDA"):
+        lane_scan.lane_scan(bits, tab, lim, B=96, H=4, N=40000)
+    # the lane-DFA decoders refuse an absent card the same way
+    for dec in ("lane_dfa", "lane_dfa_pallas"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            get_decoder(dec, device="cuda")(hf)
 
 
 def test_registry():
@@ -238,7 +272,8 @@ def test_registry():
     dec = get_decoder("lane_wide", device="cpu")
     assert dec.device == "cpu" and dec.backend == "cuda"
     np.testing.assert_array_equal(dec(hf, 512), native.simple_decode(hf))
-    assert set(all_decoders(device="cpu")) == {"lane_wide"}
+    assert set(all_decoders(device="cpu")) == {
+        "lane_wide", "lane_dfa", "lane_dfa_pallas"}
     with pytest.raises(TypeError):
         get_decoder("lane_wide")  # the device is never picked implicitly
 
@@ -267,11 +302,14 @@ def test_port_never_imports_jax(tmp_path):
         "from huffmandecoderongpus_tpu_torch.models import get_decoder\n"
         "import huffmandecoderongpus_tpu_torch.harness.cli\n"
         "import huffmandecoderongpus_tpu_torch.ops.widescan as ws\n"
+        "import huffmandecoderongpus_tpu_torch.ops.lanedfa_decode\n"
         "import chip_smoke\n"
         "raw = np.tile(np.arange(97, 105, dtype=np.uint8), 2000)\n"
-        "hf = encode_bytes(raw)\n"
-        "out = get_decoder('lane_wide', device='cpu')(hf, 512)\n"
-        "assert np.array_equal(out, raw)\n"
+        "md1 = np.where(np.arange(raw.size) % 5 == 0, raw, 0)\n"
+        "for r in (raw, md1.astype(np.uint8), raw[:300]):\n"
+        "    for name in ('lane_wide', 'lane_dfa', 'lane_dfa_pallas'):\n"
+        "        out = get_decoder(name, device='cpu')(encode_bytes(r))\n"
+        "        assert np.array_equal(out, r), name\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] == 'huffmandecoderongpus_tpu']\n"

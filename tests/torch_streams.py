@@ -53,7 +53,36 @@ def md1(rng, n):
                       p=w / w.sum()).astype(np.uint8)
 
 
-#: name -> (generator, symbols): the envelope shapes of the port
+def md1_wide(rng, n):
+    """Byte 0 at weight 300 over all 256 symbols: md=1 with 255 internal
+    states (the wide pair table, NS=2).  Seed 3 at 20000 symbols is the
+    JAX package's leader halo-publish regression stream."""
+    w = np.full(256, 1.0)
+    w[0] = 300.0
+    return rng.choice(np.arange(256, dtype=np.uint8), size=n,
+                      p=w / w.sum()).astype(np.uint8)
+
+
+def two_symbol(rng, n):
+    """Bytes 0/1, 30 % ones: a two-leaf tree (height 1, md=1)."""
+    return (rng.random(n) < 0.3).astype(np.uint8)
+
+
+def md1_phase_locked(rng):
+    """Runs of 'a' (a 1-bit code) between periodic 'xy' runs, with 12 rare
+    deeper symbols: md=1 candidate chains phase-lock and merge late, and
+    several followers exist beside the leader."""
+    blocks = []
+    for _ in range(20):
+        blocks.append(np.full(600, 97, dtype=np.uint8))
+        blocks.append(np.tile(np.array([120, 121], dtype=np.uint8), 300))
+    data = np.concatenate(blocks)
+    rare = rng.integers(0, data.size, size=12)
+    data[rare] = (122 + np.arange(12) % 4).astype(np.uint8)
+    return data
+
+
+#: name -> (generator, symbols): the shapes of the chunked (md >= 2) path
 SHAPES = {
     "text": (text_like, 20000),
     "random": (random_bytes, 9000),
@@ -61,11 +90,18 @@ SHAPES = {
     "ns2": (full_alphabet, 30000),
     "abcd": (phase_locked, None),
 }
+#: the min-code-length-1 shapes (the 1-bit kernels)
+MD1_SHAPES = {
+    "md1": (md1, 30000),
+    "md1wide": (md1_wide, 20000),
+    "two": (two_symbol, 30000),
+    "md1abab": (md1_phase_locked, None),
+}
 
 
 def make(name, seed=0):
     """(raw bytes, HuffFile) of one named shape."""
-    gen, n = SHAPES[name]
+    gen, n = {**SHAPES, **MD1_SHAPES}[name]
     rng = np.random.default_rng(seed)
     raw = gen(rng) if n is None else gen(rng, n)
     return raw, encode_bytes(raw)
@@ -87,6 +123,24 @@ def fuzz(seed):
         if md >= 2 and hf.bits >= 1024 * max(H, 8):
             lanes = [512, 1024, None][int(rng.integers(0, 3))]
             return raw, hf, lanes
+
+
+def fuzz_any(seed):
+    """(raw, HuffFile, lanes) of a seeded random stream of any shape:
+    ``fuzz`` without its filters, its alphabet size and length drawn
+    log-uniform and a dominant symbol in some draws, so that min code
+    length 1 and streams too small for the wide lanes come up as well as
+    the chunked path's."""
+    rng = np.random.default_rng(3000 + seed)
+    k = int(2 ** rng.uniform(1.0, 8.0))
+    w = rng.random(k) ** float(rng.uniform(0.0, 4.0)) + 1e-3
+    if rng.random() < 0.4:
+        w[0] = w.sum() * float(rng.uniform(1.0, 4.0))
+    alpha = rng.choice(256, size=k, replace=False).astype(np.uint8)
+    n = int(np.exp(rng.uniform(np.log(300), np.log(60000))))
+    raw = rng.choice(alpha, size=n, p=w / w.sum()).astype(np.uint8)
+    lanes = [512, 1024, None][int(rng.integers(0, 3))]
+    return raw, encode_bytes(raw), lanes
 
 
 def as_numpy(st):
