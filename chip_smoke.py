@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, the CUDA toolkit (nvcc) and this repository.  Five
+Needs one CUDA card, the CUDA toolkit (nvcc) and this repository.  Nine
 seeded streams, drawn in this order from one generator:
 
   (a) kjv-sized text-like (min code length 2): K1-K4
@@ -14,6 +14,13 @@ seeded streams, drawn in this order from one generator:
       the decode falls back to the lane-DFA candidate_scan/lane_scan
   (e) 2,000 text-like bytes: too small for the wide lanes, the lane-DFA
       chain alone
+  (f) paper1-sized text, 53,161 bytes (0.26 Mbit)
+  (g) news-sized text, 377,109 bytes (1.83 Mbit)
+  (h) 256 KiB over all 256 symbols (1.90 Mbit, md 6, the wide quad table)
+  (i) 400,000 bytes uniform over 12 symbols (1.47 Mbit, md 3: odd-md slot
+      splitting)
+      (f)-(i) are under ONESHOT_MAX_BITS and one-shot eligible, so
+      lane_wide decodes each in one launch of the fused kernel
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -22,17 +29,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   3. kernels  each kernel against its plain torch version on the same CUDA
               inputs, at the shapes its decode path gives it: K1-K4 on (a)
               and (b), k1_scan/K2/k3_fix/K4 on (c), candidate_scan/
-              lane_scan on (d); bit-exact (tolerance 0), with both times
-              from CUDA events
+              lane_scan on (d), the one-shot kernel on (f)-(i) (its whole
+              dense rows, counts and total); bit-exact (tolerance 0), with
+              both times from CUDA events
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
-              ((d) through the fallback); then for (a)-(c) the device
-              program's median time over 25 runs (CUDA events) and its
-              device time by kernel (torch.profiler), and for (a)-(d) the
-              decode wall time (host clock)
-  5. result   one JSON line for the kernels, the card, then the last line
-              {"ok": true, "device": {...}}
+              ((d) through the fallback, (f)-(i) the one-shot alone); then
+              get_decoder("lane_oneshot", ...) on (f)-(i) and on (c), which
+              falls back to lane_wide's md = 1 kernels; then for (a)-(c)
+              the device program's median time over 25 runs (CUDA events)
+              and its device time by kernel (torch.profiler), for (f)-(i)
+              the one-shot and the four-kernel program the same way, and
+              the decode wall time (host clock) of (a)-(d) and of both
+              routes of (f)-(i)
+  5. result   one JSON line for the kernels (times, launches, error, and
+              the bound: the bytes each must move at 3.35 TB/s), the card,
+              then the last line {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -56,6 +69,14 @@ WIDE_BYTES = 8 << 20
 #: most frequent byte
 RUN_START, RUN_END, RUN_BYTE = 2_621_440, 2_883_584, 32
 TINY_BYTES = 2000
+#: the one-shot streams (f)-(i): paper1- and news-sized text, 256 KiB over
+#: all 256 symbols, 400,000 bytes uniform over 12 symbols
+PAPER1_BYTES = 53_161
+NEWS_BYTES = 377_109
+ALPHA_BYTES = 256 << 10
+UNIFORM12_BYTES = 400_000
+#: the card's memory rate (bytes/s): NVIDIA's data sheet, H100 SXM
+HBM_BYTES_PER_S = 3.35e12
 TIMED_RUNS = 25
 WARMUP = 3
 WALL_RUNS = 10
@@ -76,16 +97,24 @@ KERNELS = {
     "k3_fix": (_CSRC + "k3_fix.cu", _PWS + "1319", "c"),
     "candidate_scan": (_CSRC + "candidate_scan.cu", _PLD + "296", "d"),
     "lane_scan": (_CSRC + "lane_scan.cu", _PLD + "74", "d"),
+    "oneshot": (_CSRC + "oneshot.cu",
+                "huffmandecoderongpus_tpu/ops/pallas_oneshot.py:62", "g"),
 }
+#: the one-shot streams
+ONESHOT = "fghi"
+MD1_PATH = ("k1_scan", "k2_compose", "k3_fix", "k4_compact")
 #: the kernels each stream's decode must launch, once each
 PATHS = {
     "a": ("k1_scan2", "k2_compose", "k3_fix2", "k4_compact"),
     "b": ("k1_scan2", "k2_compose", "k3_fix2", "k4_compact"),
-    "c": ("k1_scan", "k2_compose", "k3_fix", "k4_compact"),
+    "c": MD1_PATH,
     "d": ("k1_scan2", "k2_compose", "k3_fix2", "k4_compact",
           "candidate_scan", "lane_scan"),
     "e": ("candidate_scan", "lane_scan"),
+    **{k: ("oneshot",) for k in ONESHOT},
 }
+#: the kernels get_decoder("lane_oneshot") must launch, once each
+ONESHOT_PATHS = {"c": MD1_PATH, **{k: ("oneshot",) for k in ONESHOT}}
 
 #: device function names of each kernel (K2 is three launches)
 DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
@@ -93,7 +122,8 @@ DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "k3_fix2": ("k3_fix2_kernel",),
                   "k4_compact": ("k4_compact_kernel",),
                   "k1_scan": ("k1_scan_kernel",),
-                  "k3_fix": ("k3_fix_kernel",)}
+                  "k3_fix": ("k3_fix_kernel",),
+                  "oneshot": ("oneshot_kernel",)}
 
 
 def text_like(rng, n):
@@ -113,6 +143,11 @@ def dominant_byte(rng, n):
     w[0] = 300.0
     return rng.choice(np.arange(256, dtype=np.uint8), size=n,
                       p=w / w.sum()).astype(np.uint8)
+
+
+def uniform12(rng, n):
+    return rng.choice(np.arange(65, 77, dtype=np.uint8), size=n).astype(
+        np.uint8)
 
 
 def with_run(raw):
@@ -145,12 +180,30 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
-def comparer(torch, name, rows):
-    """compare(kname, kernel, plain): run both on the same inputs, record
-    (max_abs_err, kernel ms, plain ms) in ``rows`` and raise on any
-    difference; returns the kernel's outputs."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
-    def compare(kname, kernel, plain):
+
+def k3_moved(tab, cut, cut_slot) -> int:
+    """Bytes K3 must move on these inputs: the entries, cuts and cut slots
+    (12 a lane), the table, and for each lane it fixes the words up to its
+    cut and the cells below its cut slot (4 slots a cell, 4 symbol bytes
+    and a nibble byte each), written once."""
+    fixed = cut > 0
+    words = int(((cut[fixed].long() + 31) // 32).sum()) * 4
+    cells = int(((cut_slot[fixed].long() + 3) // 4).sum()) * 5
+    return 12 * cut.numel() + nbytes(tab) + words + cells
+
+
+def comparer(torch, name, rows):
+    """compare(kname, kernel, plain, inputs, moved=None): run both on the
+    same inputs, record (max_abs_err, kernel ms, plain ms, bound ms) in
+    ``rows`` and raise on any difference; returns the kernel's outputs.
+    The bound is the least time the card's memory rate allows for the
+    bytes the kernel must move: ``moved``, or else each of ``inputs`` read
+    once and each output written once."""
+
+    def compare(kname, kernel, plain, inputs, moved=None):
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -160,9 +213,13 @@ def comparer(torch, name, rows):
         err = max_abs_err(torch, got, want)
         ms = statistics.median(cuda_ms(torch, kernel, 20))
         plain_ms = statistics.median(cuda_ms(torch, plain, 2))
-        rows[kname] = (err, ms, plain_ms)
+        if moved is None:
+            moved = nbytes(*inputs, *got)
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        rows[kname] = (err, ms, plain_ms, bound_ms)
         print(f"[kernels] {name}: {kname} max_abs_err {err} (tolerance 0) "
-              f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms", flush=True)
+              f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+              f"{bound_ms:.6f} ms ({moved} bytes)", flush=True)
         if err:
             raise AssertionError(f"{kname} differs from its plain version")
         return got
@@ -203,10 +260,12 @@ def check_kernels(torch, name, raw, hf, dev):
     compare = comparer(torch, name, rows)
     sym, val, cntmap, exmap, mrowmap = compare(
         scan[0], lambda: scan[1](wmat, st["tab"], st["lim"], **k1a),
-        lambda: scan[2](wmat, st["tab"], st["lim"], **k1a))
+        lambda: scan[2](wmat, st["tab"], st["lim"], **k1a),
+        (wmat, st["tab"], st["lim"]))
     entry, _tot = compare("k2_compose",
                           lambda: k2_compose.k2_compose(exmap, 0),
-                          lambda: k2_compose.k2_compose_ref(exmap, 0))
+                          lambda: k2_compose.k2_compose_ref(exmap, 0),
+                          (exmap,))
     cut, cut_slot = ws.fix_rows(entry, mrowmap, st["lim"], st["H"], st["md"])
     # K3 splices in place and is idempotent on its own output, so repeated
     # timing runs on one copy do the same work
@@ -215,11 +274,13 @@ def check_kernels(torch, name, raw, hf, dev):
     msym, mval = compare(
         fix[0],
         lambda: fix[1](wmat, st["tab"], entry, cut, cut_slot, s_k, v_k, **kw),
-        lambda: fix[2](wmat, st["tab"], entry, cut, cut_slot, s_p, v_p, **kw))
+        lambda: fix[2](wmat, st["tab"], entry, cut, cut_slot, s_p, v_p, **kw),
+        (), moved=k3_moved(st["tab"], cut, cut_slot))
     (denseT,) = compare("k4_compact",
                         lambda: k4_compact.k4_compact(msym, mval, ORP=p["ORP"]),
                         lambda: k4_compact.k4_compact_ref(msym, mval,
-                                                          ORP=p["ORP"]))
+                                                          ORP=p["ORP"]),
+                        (msym, mval))
     n = ws.select_h(cntmap, entry, st["H"])
     mask = torch.arange(p["ORP"], device=dev)[None, :] < n[:, None]
     if not np.array_equal(denseT[mask].cpu().numpy(), raw):
@@ -246,16 +307,49 @@ def check_lanedfa(torch, name, raw, hf, dev):
         "candidate_scan",
         lambda: candidate_scan.candidate_scan(st["bits"], st["tab"], **kw),
         lambda: candidate_scan.candidate_scan_ref(st["bits"], st["tab"],
-                                                  **kw))
+                                                  **kw),
+        (st["bits"], st["tab"]))
     entry = ld.compose(cnt, ex)[0]
     sym, valid = compare(
         "lane_scan",
         lambda: lane_scan.lane_scan(st["bits"], st["tab"], entry, **kw),
-        lambda: lane_scan.lane_scan_ref(st["bits"], st["tab"], entry, **kw))
+        lambda: lane_scan.lane_scan_ref(st["bits"], st["tab"], entry, **kw),
+        (st["bits"], st["tab"], entry))
     if not np.array_equal(sym.t()[valid.t() > 0].cpu().numpy(), raw):
         raise AssertionError(f"{name}: the lane-DFA scans decoded wrong")
     print(f"[kernels] {name}: both scans bit-exact; stream decoded",
           flush=True)
+    return rows
+
+
+def check_oneshot(torch, name, raw, hf, dev):
+    """Phase 3 on a one-shot stream: the fused kernel against its plain
+    version (the four kernels' plain stages) on the same staged inputs,
+    over the whole dense rows, the counts and the total.  Returns and
+    raises as check_kernels; raises too if the stream is not one that
+    lane_wide routes to the one-shot."""
+    from huffmandecoderongpus_tpu_torch.ops import oneshot
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    st = ws.stage_widescan_inputs(hf, device=dev)
+    p = st["plan"]
+    print(f"[kernels] {name}: {hf.bits} bits, G={p['G']} B={p['B']} "
+          f"H={st['H']} md={st['md']} NS={st['NS']} ORP={p['ORP']}",
+          flush=True)
+    if hf.bits >= ws.ONESHOT_MAX_BITS or not oneshot.oneshot_eligible(st):
+        raise AssertionError(f"{name}: lane_wide does not route it to the "
+                             "one-shot")
+    args = (st["words"], st["tab"], st["lim"])
+    kw = oneshot.program_args(st)
+    rows = {}
+    denseT, n, total = comparer(torch, name, rows)(
+        "oneshot", lambda: oneshot.oneshot_program(*args, **kw),
+        lambda: oneshot.oneshot_program_ref(*args, **kw), args)
+    mask = torch.arange(p["ORP"], device=dev)[None, :] < n[:, None]
+    if (int(total) != raw.size
+            or not np.array_equal(denseT[mask].cpu().numpy(), raw)):
+        raise AssertionError(f"{name}: the one-shot kernel decoded wrong")
+    print(f"[kernels] {name}: oneshot bit-exact; stream decoded", flush=True)
     return rows
 
 
@@ -284,13 +378,15 @@ def main() -> int:
         k3_fix2,
         k4_compact,
         lane_scan,
+        oneshot,
     )
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
 
     mods = {"k1_scan2": k1_scan2, "k2_compose": k2_compose,
             "k3_fix2": k3_fix2, "k4_compact": k4_compact,
             "k1_scan": k1_scan, "k3_fix": k3_fix,
-            "candidate_scan": candidate_scan, "lane_scan": lane_scan}
+            "candidate_scan": candidate_scan, "lane_scan": lane_scan,
+            "oneshot": oneshot}
     dev = torch.device(DEVICE)
 
     # ---- 1. device ----------------------------------------------------------
@@ -321,38 +417,53 @@ def main() -> int:
     streams["d"] = ("kjv-sized text with a blank run",
                     with_run(text_like(rng, KJV_BYTES)))
     streams["e"] = ("2000-byte text", text_like(rng, TINY_BYTES))
+    streams["f"] = ("paper1-sized text", text_like(rng, PAPER1_BYTES))
+    streams["g"] = ("news-sized text", text_like(rng, NEWS_BYTES))
+    streams["h"] = ("256KiB full-alphabet", full_alphabet(rng, ALPHA_BYTES))
+    streams["i"] = ("400KB uniform over 12", uniform12(rng, UNIFORM12_BYTES))
     hfs = {k: (f"{k} {name}", r, encode_bytes(r))
            for k, (name, r) in streams.items()}
     checked = {k: check_kernels(torch, *hfs[k], dev) for k in "abc"}
     checked["d"] = check_lanedfa(torch, *hfs["d"], dev)
+    for k in ONESHOT:
+        checked[k] = check_oneshot(torch, *hfs[k], dev)
 
     # ---- 4. the slice through the registry ----------------------------------
-    dec = get_decoder("lane_wide", device=DEVICE)
-    launches = dict.fromkeys(mods, 0)
-    walls = {}
-    for k, (name, r, h) in hfs.items():
+    def drive(decoder, k):
+        """One decode of stream k, the launch counts set to 0 just before
+        and read just after; raises unless the bytes equal the input and
+        the kernels of its path each launched once.  Returns the counts."""
+        name, r, h = hfs[k]
+        paths = PATHS if decoder == "lane_wide" else ONESHOT_PATHS
         for m in mods.values():
             m.launches = 0
         t0 = time.perf_counter()
-        out = dec(h)
+        out = get_decoder(decoder, device=DEVICE)(h)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ran = {n: m.launches for n, m in mods.items() if m.launches}
         ok = np.array_equal(out, r)
-        print(f"[slice] {name}: {r.size} bytes, {h.bits} bits, first decode "
-              f"{wall:.3f} s wall, equal to the input: {ok}; launches "
-              f"{ran}", flush=True)
+        print(f"[slice] {decoder} {name}: {r.size} bytes, {h.bits} bits, "
+              f"first decode {wall:.3f} s wall, equal to the input: {ok}; "
+              f"launches {ran}", flush=True)
         if not ok:
             raise AssertionError(f"{name}: decoded bytes differ")
-        if ran != dict.fromkeys(PATHS[k], 1):
+        if ran != dict.fromkeys(paths[k], 1):
             raise AssertionError(f"{name}: launched {ran}, its path is "
-                                 f"{PATHS[k]}")
-        for n, c in ran.items():
+                                 f"{paths[k]}")
+        return ran
+
+    launches = dict.fromkeys(mods, 0)
+    for k in hfs:
+        for n, c in drive("lane_wide", k).items():
             launches[n] += c
     print(f"[slice] launches on the decode paths: {launches}; (d) fell back "
-          "to the lane-DFA chain after the wide program", flush=True)
+          "to the lane-DFA chain after the wide program, (f)-(i) took the "
+          "one-shot alone", flush=True)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    for k in ONESHOT_PATHS:
+        drive("lane_oneshot", k)
 
     for k, (name, r, h) in hfs.items():
         if k in "abc":
@@ -375,32 +486,79 @@ def main() -> int:
             print(f"[slice] {name}: device ms per program (profiler) "
                   + "  ".join(f"{n} {v:.4f}" for n, v in split.items()),
                   flush=True)
+        if k in ONESHOT:
+            time_oneshot(torch, ws, oneshot, name, r, h, dev, card)
+            continue
         if k == "e":
             continue
-        ws_ = []
-        for _ in range(WALL_RUNS):
-            t0 = time.perf_counter()
-            dec(h)
-            ws_.append((time.perf_counter() - t0) * 1e3)
-        walls[k] = statistics.median(ws_)
-        print(f"[slice] {name}: decode wall median {walls[k]:.4f}"
-              f" ms over {WALL_RUNS} runs (min {min(ws_):.4f}), staging to "
-              f"host bytes; card {card}", flush=True)
+        med, mn = wall_ms(torch, lambda: ws.decode_widescan(h, device=dev))
+        print(f"[slice] {name}: decode wall median {med:.4f} ms over "
+              f"{WALL_RUNS} runs (min {mn:.4f}), staging to host bytes; "
+              f"card {card}", flush=True)
 
     # ---- 5. result ----------------------------------------------------------
     # each kernel's times from the stream named in KERNELS; its error over
-    # every stream it was checked on
+    # every stream it was checked on; its bound from the bytes it must move
+    # (no single PyTorch call computes any of these functions)
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep_, stream=k,
              launches=launches[n],
              max_abs_err=max(c[n][0] for c in checked.values() if n in c),
-             ms=checked[k][n][1], plain_ms=checked[k][n][2])
+             ms=checked[k][n][1], plain_ms=checked[k][n][2],
+             bound_ms=checked[k][n][3], bound_by="bytes", library_ms=None)
         for n, (src, rep_, k) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def wall_ms(torch, fn):
+    """(median, min) host-clock ms of ``fn`` ending in a synchronize, over
+    WALL_RUNS runs."""
+    ts = []
+    for _ in range(WALL_RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), min(ts)
+
+
+def time_oneshot(torch, ws, oneshot, name, raw, hf, dev, card):
+    """Phase 4 times of a one-shot stream: the one-shot program and the
+    four-kernel program on the same staged inputs (CUDA events, median of
+    TIMED_RUNS after WARMUP), the decode walls of both routes, and the
+    one-shot kernel's split by phase (its timer stamps)."""
+    st = ws.stage_widescan_inputs(hf, device=dev)
+    args = (st["words"], st["tab"], st["lim"])
+    kw1, kw4 = oneshot.program_args(st), ws.program_args(st)
+    med = {}
+    for route, fn in (
+            ("one-shot", lambda: oneshot.oneshot_program(*args, **kw1)),
+            ("four-kernel", lambda: ws.wide_decode_program(*args, **kw4))):
+        ts = cuda_ms(torch, fn, WARMUP + TIMED_RUNS)[WARMUP:]
+        med[route] = (statistics.median(ts), min(ts))
+    wall = {route: wall_ms(torch, lambda o=o: ws.decode_widescan(
+                hf, device=dev, oneshot=o))
+            for route, o in (("one-shot", None), ("four-kernel", False))}
+    splits = [oneshot.phase_ms(*args, **kw1) for _ in range(5)]
+    phases = {ph: statistics.median(sp[ph] for sp in splits)
+              for ph in oneshot.PHASES}
+    q = st["plan"]
+    print(f"[slice] {name}: device program median over {TIMED_RUNS} runs "
+          + "  ".join(f"{r} {m:.4f} ms (min {mn:.4f})"
+                      for r, (m, mn) in med.items())
+          + "; decode wall median over " + f"{WALL_RUNS} runs "
+          + "  ".join(f"{r} {m:.4f} ms (min {mn:.4f})"
+                      for r, (m, mn) in wall.items())
+          + f"; {raw.size} bytes, G={q['G']} B={q['B']} H={st['H']} "
+          f"md={st['md']} NS={st['NS']}; card {card}", flush=True)
+    print(f"[slice] {name}: one-shot device ms by phase (timer stamps, "
+          "median of 5) " + "  ".join(f"{ph} {v:.4f}"
+                                      for ph, v in phases.items())
+          + f"; sum {sum(phases.values()):.4f}", flush=True)
 
 
 def device_breakdown(torch, fn, runs=5):

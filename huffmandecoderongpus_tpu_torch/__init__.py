@@ -9,11 +9,14 @@ version beside it.
 
 Layering (bottom-up):
   huffio    — `.huff` container reader, Huffman trees, encoder (numpy)
-  csrc      — CUDA C++ kernels K1-K4, built with nvcc at first use
+  csrc      — CUDA C++ kernels (K1-K4, their 1-bit versions, the fused
+              one-shot kernel, the lane-DFA scans), built with nvcc at
+              first use
   ops       — host staging (numpy), the torch device program, the kernel
               wrappers (CUDA tensors launch the kernel, CPU tensors run the
               plain torch version)
-  models    — the decoder registry (``lane_wide``)
+  models    — the decoder registry (``lane_wide``, ``lane_oneshot``,
+              ``lane_dfa``, ``lane_dfa_pallas``)
   harness   — the ``decode`` command line
 
 This package never imports jax.

@@ -10,6 +10,9 @@
 // here each lane stops at its first cell that keeps every slot, after which
 // nothing it would compute is used.
 //
+// The per-lane body is k3_fix2_lane (widescan.cuh), which the fused
+// one-shot kernel runs too.
+//
 // What bounds it on the H100: a dependent table-lookup chain per fixed lane
 // (latency); most lanes merge within a few dozen bits, so the work is the
 // tail of the slowest lanes.
@@ -30,44 +33,8 @@ __global__ void __launch_bounds__(128) k3_fix2_kernel(
   load_table(tab_s, tab, NS);
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
-  const int e0 = ent[g], ct = cut[g], cs = cutsl[g];
-  if (ct <= 0) return;
-  // the TPU kernel runs segments while the cut reaches them
-  const int S = steps_p / SEG;
-  const int nseg = min((ct + SEG - 1) / SEG, S);
-  const int ncell = nseg * (SEG / (md * CELL));
-  int node = 0;
-  int wcur = -1;
-  uint32_t word = 0;
-  for (int c = 0; c < ncell && c * CELL < cs; ++c) {
-    uint32_t cacc = 0, nacc = 0;
-    for (int k = 0; k < 2 * md; ++k) {
-      const int jbit = c * CELL * md + 2 * k;
-      if ((jbit >> 5) != wcur) {
-        wcur = jbit >> 5;
-        word = wcur < steps_w ? (uint32_t)wmat[(size_t)wcur * G + g] : 0u;
-      }
-      const int b0 = (word >> (jbit & 31)) & 1;
-      const int b1 = (word >> ((jbit & 31) + 1)) & 1;
-      const int rc = b1 ? C1 : C0;
-      const bool started = jbit >= e0;
-      const uint32_t e = started ? quad_entry(tab_s, NS, node, b0, b1) : 0u;
-      const Step st = decode_entry(e, NS, rc);
-      if (started) node = st.node;
-      if (e0 == jbit + 1) node = rc;
-      if (st.emit) {
-        const int sl = (2 * k + st.pos) / md;
-        cacc |= (uint32_t)st.sym << (8 * sl);
-        nacc |= 1u << sl;
-      }
-    }
-    const int kk = min(cs - c * CELL, CELL);  // > 0 by the loop bound
-    const uint32_t vmask = (1u << kk) - 1u;
-    const uint32_t smask = kk >= CELL ? 0xFFFFFFFFu : (1u << (8 * kk)) - 1u;
-    const size_t o = (size_t)c * G + g;
-    sym[o] = (int32_t)((cacc & smask) | ((uint32_t)sym[o] & ~smask));
-    val[o] = (uint8_t)((nacc & vmask) | ((uint32_t)val[o] & ~vmask));
-  }
+  k3_fix2_lane(WmatWords{wmat, G, steps_w}, tab_s, ent[g], cut[g], cutsl[g],
+               sym, val, G, g, steps_p, SEG, md, C0, C1, NS);
 }
 
 }  // namespace

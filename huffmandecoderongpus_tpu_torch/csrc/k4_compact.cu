@@ -10,6 +10,9 @@
 // or past ORP are dropped (the caller checks the counts); the rest of the
 // row is zeroed.
 //
+// The per-lane body is k4_compact_lane (widescan.cuh), which the fused
+// one-shot kernel runs too.
+//
 // What bounds it on the H100: memory traffic.  Cell reads are coalesced
 // across a warp's lanes; the row writes are 4-byte stores ORP bytes apart,
 // which the L2 merges into full sectors only partly.
@@ -25,27 +28,7 @@ __global__ void __launch_bounds__(128) k4_compact_kernel(
     uint8_t* __restrict__ out, int G, int cells_p, int ORP) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
-  uint32_t* row = reinterpret_cast<uint32_t*>(out + (size_t)g * ORP);
-  const int nw = ORP / 4;
-  uint32_t acc = 0;
-  int fill = 0, w = 0;
-  for (int c = 0; c < cells_p && w < nw; ++c) {
-    const uint32_t nib = val[(size_t)c * G + g];
-    if (!nib) continue;
-    const uint32_t s = (uint32_t)sym[(size_t)c * G + g];
-    for (int b = 0; b < CELL; ++b) {
-      if (!((nib >> b) & 1)) continue;
-      acc |= ((s >> (8 * b)) & 0xFFu) << (8 * fill);
-      if (++fill == 4) {
-        row[w++] = acc;
-        acc = 0;
-        fill = 0;
-        if (w == nw) break;
-      }
-    }
-  }
-  if (fill) row[w++] = acc;
-  for (; w < nw; ++w) row[w] = 0;
+  k4_compact_lane(sym, val, out, G, cells_p, ORP, ORP, g);
 }
 
 }  // namespace

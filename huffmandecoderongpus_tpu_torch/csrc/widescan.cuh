@@ -1,5 +1,8 @@
 // Shared device helpers for the wide-lane kernels (K1, K3 and their 1-bit
-// versions) and the lane-DFA scans.
+// versions) and the lane-DFA scans, and the per-lane bodies of K1
+// (k1_scan2_lane), K2's three steps, K3 (k3_fix2_lane) and K4
+// (k4_compact_lane), which the separate kernels and the fused one-shot
+// kernel (oneshot.cu) both run.
 //
 // The quad table (2*NS rows of 128 uint32 words, see
 // ops/widescan.py pack_quad_tables) is staged in shared memory: row
@@ -20,6 +23,8 @@ constexpr int TAB_WORDS = 2 * MAX_NS * 128;
 constexpr int MAX_SEGH = 16;      // chunk rows per segment: SEG <= 32
 constexpr int MAX_NL = 8;         // leaders: one per residue mod md, md <= 8
 constexpr int MAX_CH = 127;       // candidate chains: HP <= 128
+constexpr int K2_NE = 128;        // K2: entry offsets per map
+constexpr int K2_MAX_GROUPS = 256;  // K2: group maps its scan step stages
 // the lane-DFA scans' fused table (ops/lanedfa.py LaneDFA.entry, padded)
 constexpr int EMIT_BIT = 1 << 10;
 constexpr int STATE_MASK = (1 << 10) - 1;
@@ -94,14 +99,37 @@ __device__ __forceinline__ void load_table(uint32_t* tab_s,
   __syncthreads();
 }
 
-// Bits [base, base + 64) of lane g from the halo'd word matrix
-// wmat (steps_w, G), with base a multiple of 32; rows past the matrix are 0.
-__device__ __forceinline__ uint64_t load_bits64(const int32_t* wmat, int G,
-                                                int steps_w, int base, int g) {
-  int w = base >> 5;
-  uint64_t lo = w < steps_w ? (uint32_t)wmat[(size_t)w * G + g] : 0u;
-  uint64_t hi = w + 1 < steps_w ? (uint32_t)wmat[(size_t)(w + 1) * G + g] : 0u;
-  return lo | (hi << 32);
+// Word w of lane g's halo'd bits (bit j of the lane is bit j % 32 of word
+// j / 32), from the halo'd word matrix wmat (steps_w, G); words past the
+// matrix are 0.  Both word sources are read-only for the whole launch.
+struct WmatWords {
+  const int32_t* wmat;
+  int G, steps_w;
+  __device__ __forceinline__ uint32_t operator()(int w, int g) const {
+    return w < steps_w ? (uint32_t)__ldg(&wmat[(size_t)w * G + g]) : 0u;
+  }
+};
+
+// The same words straight from the (G, BW) lane words: word w >= BW is
+// word w % BW of lane g + w / BW (0 past the last lane), which is what
+// ops/widescan.py words_matrix puts in row w.
+struct LaneWords {
+  const int32_t* words;
+  int G, BW, steps_w;
+  __device__ __forceinline__ uint32_t operator()(int w, int g) const {
+    if (w >= steps_w) return 0u;
+    const int lane = g + w / BW;
+    return lane < G ? (uint32_t)__ldg(&words[(size_t)lane * BW + w % BW])
+                    : 0u;
+  }
+};
+
+// Bits [base, base + 64) of lane g, with base a multiple of 32.
+template <class Words>
+__device__ __forceinline__ uint64_t load_bits64(const Words& words, int base,
+                                                int g) {
+  const int w = base >> 5;
+  return (uint64_t)words(w, g) | ((uint64_t)words(w + 1, g) << 32);
 }
 
 // K1's epilogue, shared by both K1 kernels: lane g's rows of the
@@ -162,6 +190,303 @@ __device__ __forceinline__ void write_maps(
     exmap[o] = 0;
     mrowmap[o] = steps;
   }
+}
+
+// K1 (k1_scan2.cu) for lane g, whose stream limit is `lim`: walks every
+// segment of the lane, writes its (cells_p, G) sym/val cells and its rows
+// of the (HP, G) maps.  tab_s is the quad table in shared memory.
+template <class Words>
+__device__ __forceinline__ void k1_scan2_lane(
+    const Words& words, const uint32_t* tab_s, int lim, int32_t* sym,
+    uint8_t* val, int32_t* cntmap, int32_t* exmap, int32_t* mrowmap, int G,
+    int g, int B, int H, int steps, int steps_p, int SEG, int md, int C0,
+    int C1, int NS) {
+  const int CH = H - 1 > 1 ? H - 1 : 1;
+  const int HP = (CH + 1 + 7) / 8 * 8;
+  const int NL = md < CH ? md : CH;
+  const int SEGH = SEG / 2;
+  const int cells_seg = SEG / (md * CELL);
+  const int S = steps_p / SEG;
+
+  // main chain (entry offset 0)
+  int node0 = 0, cnt0 = 0, done0 = 0, exit0 = 0;
+  // candidate chain of entry offset r lives at index r - 1: leaders are
+  // offsets 1..NL, followers NL+1..CH
+  int cnode[MAX_CH], ccnt[MAX_CH], crec[MAX_CH], ccum[MAX_CH];
+  for (int c = 0; c < CH; ++c) cnode[c] = ccnt[c] = crec[c] = ccum[c] = 0;
+  int unresolved = CH;
+  // per-segment scratch: chunk bits, the main chain's post-chunk state (-1
+  // once it has exited) and count, the leaders' state (-1 once stopped)
+  // and count
+  int chunk[MAX_SEGH], nscr[MAX_SEGH], cscr[MAX_SEGH];
+  int ldr[MAX_SEGH][MAX_NL], lcn[MAX_SEGH][MAX_NL];
+
+  for (int s = 0; s < S; ++s) {
+    const int base = s * SEG;
+    const int cell0 = s * cells_seg;
+    if (lim <= base) {  // the lane's stream ended before this segment
+      for (int c = 0; c < cells_seg; ++c) {
+        sym[(size_t)(cell0 + c) * G + g] = 0;
+        val[(size_t)(cell0 + c) * G + g] = 0;
+      }
+      continue;
+    }
+    const int wb = base & ~31;
+    const uint64_t bits = load_bits64(words, wb, g);
+    for (int i = 0; i < SEGH; ++i)
+      chunk[i] = (int)((bits >> (base - wb + 2 * i)) & 3);
+    const bool live = unresolved > 0;
+
+    // ---- main chain: cell-packed emissions, exit offset ----------------
+    for (int cc = 0; cc < cells_seg; ++cc) {
+      uint32_t cacc = 0, nacc = 0;
+      for (int k = 0; k < 2 * md; ++k) {
+        const int i = cc * 2 * md + k;
+        const int jbit = base + 2 * i;
+        const int b0 = chunk[i] & 1, b1 = chunk[i] >> 1;
+        const int rc = b1 ? C1 : C0;
+        const uint32_t e =
+            lim > jbit ? quad_entry(tab_s, NS, node0, b0, b1) : 0u;
+        const Step st = decode_entry(e, NS, rc);
+        node0 = st.node;
+        const int emit = done0 ? 0 : st.emit;
+        if (emit && jbit + st.pos + 1 >= B) {
+          exit0 = jbit + st.pos + 1 - B;
+          done0 = 1;
+        }
+        cnt0 += emit;
+        if (live) {
+          nscr[i] = done0 ? -1 : node0;
+          cscr[i] = cnt0;
+        }
+        if (emit) {  // slot (jbit + pos) / md, counted from the cell start
+          const int sl = (2 * k + st.pos) / md;
+          cacc |= (uint32_t)st.sym << (8 * sl);
+          nacc |= 1u << sl;
+        }
+      }
+      sym[(size_t)(cell0 + cc) * G + g] = (int32_t)cacc;
+      val[(size_t)(cell0 + cc) * G + g] = (uint8_t)nacc;
+    }
+    if (!live) continue;
+
+    // ---- leaders: walk past their own resolution, publish per row ------
+    for (int l = 0; l < NL; ++l) {
+      const int srow = l + 1;
+      int node = cnode[l], cnt = ccnt[l], rec = crec[l], cum = ccum[l];
+      for (int i = 0; i < SEGH; ++i) {
+        const int jbit = base + 2 * i;
+        const int b0 = chunk[i] & 1, b1 = chunk[i] >> 1;
+        const int rc = b1 ? C1 : C0;
+        const bool valid = lim > jbit;
+        const uint32_t e = valid ? quad_entry(tab_s, NS, node, b0, b1) : 0u;
+        const Step st = decode_entry(e, NS, rc);
+        const bool alive = !(rec & 1);
+        const bool started = jbit >= srow;
+        if (started) node = st.node;
+        if (srow == jbit + 1 && valid) node = rc;  // mid-chunk start
+        const int em = started ? st.emit : 0;
+        cnt += em;
+        const int nz = nscr[i];
+        // a leader that resolved without merging (late exit or stream end)
+        // walks on spuriously; past the main chain's exit it tracks the
+        // halo: publish -1 in both cases
+        const bool lstop = (rec & 1) && !((rec >> 1) & 1);
+        ldr[i][l] = (lstop || nz == -1) ? -1 : node;
+        lcn[i][l] = cnt;
+        if (alive && started) {
+          if (valid && node == nz) {  // state-merged with the main chain
+            rec = ((jbit + 1) << 3) | 3;
+            cum = cscr[i] - cnt;
+          } else if (em && jbit + st.pos + 1 >= B) {  // late exit
+            rec = ((jbit + st.pos) << 3) | 1;
+            cum = cnt;
+          } else if (!valid) {  // stream end: a late exit at row B-1
+            rec = ((B - 1) << 3) | 1;
+            cum = cnt;
+          }
+          if (rec & 1) --unresolved;
+        }
+      }
+      cnode[l] = node;
+      ccnt[l] = cnt;
+      crec[l] = rec;
+      ccum[l] = cum;
+    }
+
+    // ---- followers: merge with the main chain or the residue leader -----
+    for (int r = NL + 1; r <= CH; ++r) {
+      const int c = r - 1;
+      if (crec[c] & 1) continue;  // resolved: frozen
+      const int lp = (r - 1) % md;
+      int node = cnode[c], cnt = ccnt[c], rec = 0, cum = ccum[c];
+      for (int i = 0; i < SEGH; ++i) {
+        const int jbit = base + 2 * i;
+        if (jbit + 1 < r) continue;  // not started, not the start chunk
+        const int b0 = chunk[i] & 1, b1 = chunk[i] >> 1;
+        const int rc = b1 ? C1 : C0;
+        const bool valid = lim > jbit;
+        if (jbit + 1 == r) {  // odd start: a root step on the second bit
+          if (valid) node = rc;
+          continue;
+        }
+        const uint32_t e = valid ? quad_entry(tab_s, NS, node, b0, b1) : 0u;
+        const Step st = decode_entry(e, NS, rc);
+        node = st.node;
+        cnt += st.emit;
+        if (valid && node == nscr[i]) {
+          rec = ((jbit + 1) << 3) | 3;
+          cum = cscr[i] - cnt;
+        } else if (valid && node == ldr[i][lp]) {
+          rec = ((jbit + 1) << 3) | 5;
+          cum = lcn[i][lp] - cnt;
+        } else if (st.emit && jbit + st.pos + 1 >= B) {
+          rec = ((jbit + st.pos) << 3) | 1;
+          cum = cnt;
+        } else if (!valid) {
+          rec = ((B - 1) << 3) | 1;
+          cum = cnt;
+        }
+        if (rec & 1) {
+          --unresolved;
+          break;
+        }
+      }
+      cnode[c] = node;
+      ccnt[c] = cnt;
+      crec[c] = rec;
+      ccum[c] = cum;
+    }
+  }
+
+  // ---- epilogue: leaders first, followers compose through them ----------
+  write_maps(cntmap, exmap, mrowmap, G, g, cnt0, exit0, ccnt, crec, ccum, CH,
+             NL, HP, md, B, steps);
+}
+
+// K2 (k2_compose.cu): exmap[state, lane], or 0 for an entry offset at or
+// past the map rows (HP), as the TPU kernel's zero padding to 128 reads.
+__device__ __forceinline__ int k2_ex_at(const int32_t* exmap, int G, int HP,
+                                        int state, int lane) {
+  return (state >= 0 && state < HP) ? exmap[(size_t)state * G + lane] : 0;
+}
+
+// K2 step (1): group grp's composite map (L lanes) at entry offset e.
+__device__ __forceinline__ int k2_group_map(const int32_t* exmap, int G,
+                                            int HP, int L, int grp, int e) {
+  int st = e;
+  for (int l = 0; l < L; ++l) st = k2_ex_at(exmap, G, HP, st, grp * L + l);
+  return st;
+}
+
+// K2 step (2), for one block of K2_NE threads: stage the NGp group maps in
+// shared memory `gm`, walk them for all K2_NE lane-0 entries at once; the
+// thread of entry `start` records each group's first-lane entry in goff,
+// and the final states are the composite map `tot`.
+__device__ __forceinline__ void k2_scan_block(uint8_t* gm,
+                                              const uint8_t* gmap,
+                                              int32_t* goff, uint8_t* tot,
+                                              int NGp, int start) {
+  for (int i = threadIdx.x; i < NGp * K2_NE; i += blockDim.x) gm[i] = gmap[i];
+  __syncthreads();
+  const int e = threadIdx.x;
+  int st = e;
+  for (int grp = 0; grp < NGp; ++grp) {
+    if (e == start) goff[grp] = st;
+    st = gm[grp * K2_NE + st];
+  }
+  tot[e] = (uint8_t)st;
+}
+
+// K2 step (3): group grp re-walks its L lanes from its first-lane entry.
+__device__ __forceinline__ void k2_apply_group(const int32_t* exmap,
+                                               const int32_t* goff,
+                                               int32_t* entry, int G, int HP,
+                                               int L, int grp) {
+  int st = goff[grp];
+  for (int l = 0; l < L; ++l) {
+    const int lane = grp * L + l;
+    entry[lane] = st;
+    st = k2_ex_at(exmap, G, HP, st, lane);
+  }
+}
+
+// K3 (k3_fix2.cu) for lane g, entered at e0 with cut row ct and cut slot
+// cs: re-decode from e0 and splice the slots below cs into sym/val in
+// place.  Stops at its first cell that keeps every slot.
+template <class Words>
+__device__ __forceinline__ void k3_fix2_lane(
+    const Words& words, const uint32_t* tab_s, int e0, int ct, int cs,
+    int32_t* sym, uint8_t* val, int G, int g, int steps_p, int SEG, int md,
+    int C0, int C1, int NS) {
+  if (ct <= 0) return;
+  // the TPU kernel runs segments while the cut reaches them
+  const int S = steps_p / SEG;
+  const int nseg = min((ct + SEG - 1) / SEG, S);
+  const int ncell = nseg * (SEG / (md * CELL));
+  int node = 0;
+  int wcur = -1;
+  uint32_t word = 0;
+  for (int c = 0; c < ncell && c * CELL < cs; ++c) {
+    uint32_t cacc = 0, nacc = 0;
+    for (int k = 0; k < 2 * md; ++k) {
+      const int jbit = c * CELL * md + 2 * k;
+      if ((jbit >> 5) != wcur) {
+        wcur = jbit >> 5;
+        word = words(wcur, g);
+      }
+      const int b0 = (word >> (jbit & 31)) & 1;
+      const int b1 = (word >> ((jbit & 31) + 1)) & 1;
+      const int rc = b1 ? C1 : C0;
+      const bool started = jbit >= e0;
+      const uint32_t e = started ? quad_entry(tab_s, NS, node, b0, b1) : 0u;
+      const Step st = decode_entry(e, NS, rc);
+      if (started) node = st.node;
+      if (e0 == jbit + 1) node = rc;
+      if (st.emit) {
+        const int sl = (2 * k + st.pos) / md;
+        cacc |= (uint32_t)st.sym << (8 * sl);
+        nacc |= 1u << sl;
+      }
+    }
+    const int kk = min(cs - c * CELL, CELL);  // > 0 by the loop bound
+    const uint32_t vmask = (1u << kk) - 1u;
+    const uint32_t smask = kk >= CELL ? 0xFFFFFFFFu : (1u << (8 * kk)) - 1u;
+    const size_t o = (size_t)c * G + g;
+    sym[o] = (int32_t)((cacc & smask) | ((uint32_t)sym[o] & ~smask));
+    val[o] = (uint8_t)((nacc & vmask) | ((uint32_t)val[o] & ~vmask));
+  }
+}
+
+// K4 (k4_compact.cu) for lane g: its first `keep` <= ORP valid slot bytes,
+// in slot order, into row g of out (G, ORP), 32-bit words at a time; the
+// rest of the row is zeroed.
+__device__ __forceinline__ void k4_compact_lane(const int32_t* sym,
+                                                const uint8_t* val,
+                                                uint8_t* out, int G,
+                                                int cells_p, int ORP,
+                                                int keep, int g) {
+  uint32_t* row = reinterpret_cast<uint32_t*>(out + (size_t)g * ORP);
+  const int nw = ORP / 4;
+  uint32_t acc = 0;
+  int fill = 0, w = 0, r = 0;
+  for (int c = 0; c < cells_p && r < keep; ++c) {
+    const uint32_t nib = val[(size_t)c * G + g];
+    if (!nib) continue;
+    const uint32_t s = (uint32_t)sym[(size_t)c * G + g];
+    for (int b = 0; b < CELL && r < keep; ++b) {
+      if (!((nib >> b) & 1)) continue;
+      acc |= ((s >> (8 * b)) & 0xFFu) << (8 * fill);
+      ++r;
+      if (++fill == 4) {
+        row[w++] = acc;
+        acc = 0;
+        fill = 0;
+      }
+    }
+  }
+  if (fill) row[w++] = acc;
+  for (; w < nw; ++w) row[w] = 0;
 }
 
 }  // namespace ws

@@ -10,6 +10,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import (
     decode_lanedfa,
     decode_lanedfa_tiled,
 )
+from huffmandecoderongpus_tpu_torch.ops.oneshot import decode_oneshot
 from huffmandecoderongpus_tpu_torch.ops.widescan import decode_widescan
 
 
@@ -33,9 +34,22 @@ def lane_dfa_pallas(hf, param=None, *, device) -> np.ndarray:
 
 @register("lane_wide", backend="cuda")
 def lane_wide(hf, param=None, *, device) -> np.ndarray:
-    """Wide-lane decode to dense bytes (ops/widescan.py): the K1-K4 CUDA
-    kernels (the 1-bit K1/K3 for min code length 1) on a CUDA device,
-    their plain torch versions on the CPU, and the lane-DFA chain for the
-    streams outside their envelope.  ``param`` optionally sets the lane
-    count."""
+    """Wide-lane decode to dense bytes (ops/widescan.py): streams under
+    ONESHOT_MAX_BITS inside the one-shot envelope in one launch
+    (ops/oneshot.py), the others through the K1-K4 CUDA kernels (the 1-bit
+    K1/K3 for min code length 1), and the lane-DFA chain for the streams
+    outside their envelope; on the CPU the kernels' plain torch versions.
+    ``param`` optionally sets the lane count."""
     return decode_widescan(hf, device=device, lanes=param)
+
+
+@register("lane_oneshot", backend="cuda")
+def lane_oneshot(hf, param=None, *, device) -> np.ndarray:
+    """The one-shot decode (ops/oneshot.py): the whole wide-lane program in
+    one kernel launch, whatever the stream's size; ``lane_wide`` for a
+    stream outside its envelope.  ``param`` optionally sets the lane
+    count."""
+    try:
+        return decode_oneshot(hf, device=device, lanes=param)
+    except EnvelopeError:
+        return decode_widescan(hf, device=device, lanes=param)

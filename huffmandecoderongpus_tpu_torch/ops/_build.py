@@ -25,7 +25,8 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
-           "k1_scan.cu", "k3_fix.cu", "candidate_scan.cu", "lane_scan.cu")
+           "k1_scan.cu", "k3_fix.cu", "candidate_scan.cu", "lane_scan.cu",
+           "oneshot.cu")
 HEADERS = ("widescan.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -56,6 +57,10 @@ _SIGNATURES = {
     "ws_candidate_scan": [_P] * 4 + [_I] * 5 + [_P],
     # bits, tab, start, sym, valid, G, B, H, N, tab_words, stream
     "ws_lane_scan": [_P] * 5 + [_I] * 5 + [_P],
+    # words, tab, lim, out, n, total, sym, val, cntmap, exmap, mrowmap,
+    # gmap, goff, tot, entry, stamps,
+    # G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp, stream
+    "ws_oneshot": [_P] * 16 + [_I] * 14 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,203 @@
+"""The one-shot decode: the whole wide-lane program in one kernel launch.
+
+Port of ``huffmandecoderongpus_tpu/ops/pallas_oneshot.py``:
+``oneshot_eligible``, ``oneshot_program`` / ``_oneshot_kernel`` and
+``decode_oneshot`` / ``decode_oneshot_staged``.  CUDA source:
+``csrc/oneshot.cu``.
+
+``oneshot_program`` computes what the four-kernel
+``widescan.wide_decode_program`` computes for a chunked tree (min code
+length >= 2): K1's main scan and candidate chains, K2's composition, the
+per-lane counts and cut rows, K3's fix and splice and K4's compaction.  On
+CUDA tensors that is one cooperative launch running the four kernels'
+per-lane bodies, with K2's three steps between grid barriers; on CPU tensors
+it is the plain version, the four kernels' plain stages in sequence.  The
+dense rows are zero past each lane's count.  (K4 alone zeroes only past a
+lane's valid slots: a lane that K3 replays to its end keeps the halo's
+symbols past its count.  The JAX kernel leaves the bytes past the counts
+undefined, so a comparison with it masks by the counts.)
+
+``widescan.decode_widescan`` routes a stream under ``ONESHOT_MAX_BITS``
+here when ``oneshot_eligible`` holds, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from huffmandecoderongpus_tpu_torch.ops import _build, widescan
+from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import _shapes, k1_scan2_ref
+from huffmandecoderongpus_tpu_torch.ops.k2_compose import (
+    NE,
+    groups,
+    k2_compose_ref,
+)
+from huffmandecoderongpus_tpu_torch.ops.k3_fix2 import k3_fix2_ref
+from huffmandecoderongpus_tpu_torch.ops.k4_compact import k4_compact_ref
+from huffmandecoderongpus_tpu_torch.ops.lanedfa import EnvelopeError
+from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import require_device
+from huffmandecoderongpus_tpu_torch.ops.quad import CELL
+
+#: kernel launches made by ``oneshot_program`` on CUDA tensors
+launches = 0
+
+#: most bytes of the one-shot working set: the lane words, cells, maps and
+#: dense rows of the fused launch, counted with the JAX package's word
+#: model (``oneshot_eligible``) so that the port routes the same streams.
+#: At this size the whole working set stays resident in the H100's 50 MB L2.
+ONESHOT_WORKING_SET_BYTES = 10 * 1024 * 1024
+
+#: the kernel's phases, as split by its timer stamps (``phase_ms``)
+PHASES = ("K1", "K2 group maps", "K2 scan", "K2 apply", "K3", "K4")
+
+
+def oneshot_eligible(st) -> bool:
+    """Whether a staged stream (``widescan.stage_widescan_inputs``) fits
+    the one-shot launch: a chunked tree, at most 32 blocks of 128 lanes
+    (G <= 4096), a halo no wider than a lane, and a working set of at most
+    ``ONESHOT_WORKING_SET_BYTES``."""
+    p = st["plan"]
+    if not st["chunk2"]:
+        return False
+    G = p["G"]
+    R = G // 128
+    if R > 32:
+        return False
+    CH, HP, cells_p = _shapes(st["H"], p["steps_p"], st["md"])
+    steps_w = -(-p["steps_p"] // 32)
+    BW = p["B"] // 32
+    if steps_w - BW > BW:
+        return False
+    words = (cells_p * 2 * R * 128          # sym + val
+             + steps_w * R * 128            # word matrix
+             + G * (-(-BW // 128) * 128)    # (G, BW) input, lane-padded
+             + CH * 4 * R * 128             # candidate chains
+             + (p["SEG"] // 2) * 2 * R * 128  # per-segment scratch
+             + HP * 3 * R * 128             # maps
+             + 128 * R * 128                # composition
+             + G * p["ORP"] // 4            # dense rows (u8)
+             + 8 * R * 128)
+    return words * 4 <= ONESHOT_WORKING_SET_BYTES
+
+
+def program_args(st: dict) -> dict:
+    """Keyword arguments of oneshot_program for a staged stream."""
+    args = widescan.program_args(st)
+    del args["chunk2"]
+    return args
+
+
+def oneshot_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md, C0,
+                    C1, NS, ORP, stamps=None):
+    """Whole decode from lane words ``words`` (G, B//32) int32, the quad
+    table ``tab`` (2 * NS, 128) int32 and per-lane bit limits ``lim`` (G,)
+    int32.  Returns (denseT (G, ORP) uint8, n (G,) int32, total int64
+    scalar tensor) on the input's device.  Raises EnvelopeError for a halo
+    wider than a lane.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel, which writes its device clock at each phase
+    boundary into ``stamps`` (a (len(PHASES) + 1,) int64 CUDA tensor) when
+    one is given (see ``phase_ms``)."""
+    G, BW = words.shape
+    if -(-steps_p // 32) - BW > BW:
+        raise EnvelopeError("halo wider than a lane (steps_w - BW > BW): "
+                            "outside the one-shot envelope")
+    kw = dict(B=B, H=H, steps=steps, steps_p=steps_p, SEG=SEG, md=md, C0=C0,
+              C1=C1, NS=NS, ORP=ORP)
+    if words.device.type == "cpu" and stamps is None:
+        return oneshot_program_ref(words, tab, lim, **kw)
+    global launches
+    _build.require_cuda("oneshot", words, tab, lim,
+                        *(() if stamps is None else (stamps,)))
+    if stamps is not None and stamps.shape != (len(PHASES) + 1,):
+        raise ValueError("oneshot: stamps must hold len(PHASES) + 1 values")
+    CH, HP, cells_p = _shapes(H, steps_p, md)
+    if (SEG % (CELL * md) or SEG > 32 or not 2 <= md <= 8 or HP > NE
+            or NS > 8 or steps_p % SEG or BW * 32 != B or G % 128
+            or ORP % 128):
+        raise ValueError("geometry outside the one-shot kernel's bounds "
+                         "(see oneshot_eligible)")
+    L, NGp = groups(G)
+    dev = words.device
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    denseT = empty((G, ORP), torch.uint8)
+    n = empty(G, torch.int32)
+    total = empty((), torch.int64)
+    scratch = [empty((cells_p, G), torch.int32),     # sym
+               empty((cells_p, G), torch.uint8),     # val
+               *(empty((HP, G), torch.int32) for _ in range(3)),  # maps
+               empty((NGp, NE), torch.uint8),        # group maps
+               empty(NGp, torch.int32),              # group entries
+               empty(NE, torch.uint8),               # composite map
+               empty(G, torch.int32)]                # entries
+    rc = _build.get_lib().ws_oneshot(
+        _build.ptr(words), _build.ptr(tab), _build.ptr(lim),
+        _build.ptr(denseT), _build.ptr(n), _build.ptr(total),
+        *(_build.ptr(t) for t in scratch),
+        None if stamps is None else _build.ptr(stamps),
+        G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp,
+        _build.stream_ptr(words))
+    launches += 1
+    _build.check(rc, "oneshot")
+    return denseT, n, total
+
+
+def phase_ms(words, tab, lim, **kw) -> dict:
+    """Device time (ms) of each of the kernel's PHASES in one launch on
+    CUDA tensors, from its timer stamps (%globaltimer): K1 and K2's steps up
+    to each grid barrier, then K3 and K4 up to the last warp's end."""
+    stamps = torch.zeros(len(PHASES) + 1, dtype=torch.int64,
+                         device=words.device)
+    oneshot_program(words, tab, lim, stamps=stamps, **kw)
+    t = stamps.tolist()
+    return {name: (t[i + 1] - t[i]) / 1e6 for i, name in enumerate(PHASES)}
+
+
+def oneshot_program_ref(words, tab, lim, *, B, H, steps, steps_p, SEG, md,
+                        C0, C1, NS, ORP):
+    """Plain oneshot_program: the four kernels' plain stages in sequence
+    (words_matrix, K1, K2, select_h, fix_rows, K3, K4), then the rows
+    zeroed past the counts."""
+    wmat = widescan.words_matrix(words, -(-steps_p // 32))
+    kw = dict(steps_p=steps_p, SEG=SEG, md=md, C0=C0, C1=C1, NS=NS)
+    sym, val, cntmap, exmap, mrowmap = k1_scan2_ref(
+        wmat, tab, lim, B=B, H=H, steps=steps, **kw)
+    entry, _tot = k2_compose_ref(exmap, 0)
+    n = widescan.select_h(cntmap, entry, H)
+    cut, cut_slot = widescan.fix_rows(entry, mrowmap, lim, H, md)
+    sym, val = k3_fix2_ref(wmat, tab, entry, cut, cut_slot, sym, val, **kw)
+    denseT = k4_compact_ref(sym, val, ORP=ORP)
+    denseT[torch.arange(ORP, device=n.device)[None, :] >= n[:, None]] = 0
+    return denseT, n, n.sum()
+
+
+def decode_oneshot(hf, *, device, lanes=None, check_size=True) -> np.ndarray:
+    """One-shot decode of a HuffFile on ``device`` to host bytes.  Raises
+    EnvelopeError for a stream outside the one-shot envelope (callers fall
+    back to ``widescan.decode_widescan``)."""
+    device = require_device(device)
+    st = widescan.stage_widescan_inputs(hf, device=device, lanes=lanes)
+    if not oneshot_eligible(st):
+        raise EnvelopeError("stream outside the one-shot envelope")
+    return decode_oneshot_staged(hf, st, check_size=check_size)
+
+
+def decode_oneshot_staged(hf, st, *, check_size=True) -> np.ndarray:
+    """One-shot decode of an already staged stream (the router in
+    ``widescan.decode_widescan`` calls this to avoid staging twice).
+    Raises EnvelopeError when a lane overflows its dense row, and
+    RuntimeError when the size disagrees with the header."""
+    ORP = st["plan"]["ORP"]
+    denseT, n, _total = oneshot_program(st["words"], st["tab"], st["lim"],
+                                        **program_args(st))
+    if int(n.max()) > ORP:
+        raise EnvelopeError("a lane overflowed the dense buffer")
+    mask = torch.arange(ORP, device=n.device)[None, :] < n[:, None]
+    out = denseT[mask].cpu().numpy()
+    if check_size and out.size != hf.uncompressed_size:
+        raise RuntimeError(
+            f"emitted {out.size} symbols, header says {hf.uncompressed_size}")
+    return out

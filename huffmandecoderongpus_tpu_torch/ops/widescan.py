@@ -1,9 +1,8 @@
 """Wide-lane decoder: host staging (numpy), the device program (torch), and
 the ``decode_widescan`` wrapper.
 
-Port of ``huffmandecoderongpus_tpu/ops/pallas_widescan.py`` without its
-one-shot route.  The stream is cut into G lanes of B bits; the device
-program runs
+Port of ``huffmandecoderongpus_tpu/ops/pallas_widescan.py``.  The stream
+is cut into G lanes of B bits; the four-kernel device program runs
 
   words_matrix  (G, B/32) lane words -> halo'd (steps_w, G) word matrix
   K1            main scan + candidate discovery -> cells, per-lane maps:
@@ -15,11 +14,13 @@ program runs
                 (k3_fix2, or k3_fix for md = 1)
   K4 k4_compact cells -> per-lane dense bytes
 
-and the host trims the dense rows by the per-lane counts.  A stream outside
-the program's envelope (staging raises :class:`EnvelopeError`) or a lane
-overflowing its dense row decodes through the lane-DFA chain
-(``lanedfa.decode_lanedfa_tiled``) on the same device, as in the JAX
-package; nothing else falls back.
+and the host trims the dense rows by the per-lane counts.  As in the JAX
+package, ``decode_widescan`` first routes a stream under
+``ONESHOT_MAX_BITS`` that fits the one-shot envelope to the same program in
+one launch (``oneshot.py``).  A stream outside the program's envelope
+(staging raises :class:`EnvelopeError`) or a lane overflowing its dense row
+decodes through the lane-DFA chain (``lanedfa.decode_lanedfa_tiled``) on the
+same device; nothing else falls back.
 """
 
 from __future__ import annotations
@@ -49,6 +50,10 @@ MAX_STATES = 127  # compact-entry limit: the state field is 7 bits
 MAX_STATES_WIDE = 1023  # LaneDFA STATE_MASK bound; wide entries hold 15 bits
 #: the map rows (HP) must fit K2's 128 entry offsets
 MAX_HEIGHT = 128
+#: streams below this many bits route to the one-shot launch when eligible:
+#: the JAX package's threshold, kept so both packages route alike (it was
+#: set on a TPU; the H100's is still to be decided)
+ONESHOT_MAX_BITS = 1 << 21
 
 
 # ---------------------------------------------------------------------------
@@ -315,19 +320,39 @@ def program_args(st: dict) -> dict:
                 C0=st["C0"], C1=st["C1"], NS=st["NS"])
 
 
-def decode_widescan(hf, *, device, lanes=None, check_size=True) -> np.ndarray:
+def decode_widescan(hf, *, device, lanes=None, check_size=True,
+                    oneshot=None) -> np.ndarray:
     """Wide-lane decode of a HuffFile on ``device`` to host bytes.
 
     ``device="cuda"`` runs the CUDA kernels and raises when CUDA is not
-    available; ``device="cpu"`` runs their plain torch versions.  A stream
-    that staging refuses (EnvelopeError), or whose lanes overflow the dense
-    rows, decodes through the lane-DFA chain on the same device; a size
-    mismatch with the header raises first."""
+    available; ``device="cpu"`` runs their plain torch versions.
+
+    ``oneshot``: None routes a stream under ONESHOT_MAX_BITS to the one-shot
+    launch (``oneshot.decode_oneshot_staged``) when ``oneshot_eligible``
+    holds, on every device; True routes every eligible stream, False none.
+    The JAX package skips the route under its interpreter only because the
+    interpreted kernel is slow; here the CPU runs the plain version, so no
+    device is exempt.  A lane overflowing the one-shot's dense rows
+    (EnvelopeError) falls through to the four-kernel program.
+
+    A stream that staging refuses (EnvelopeError), or whose lanes overflow
+    the four-kernel program's dense rows, decodes through the lane-DFA
+    chain on the same device; a size mismatch with the header raises
+    first."""
+    # oneshot imports this module, so it is imported here
+    from huffmandecoderongpus_tpu_torch.ops import oneshot as ons
+
     device = require_device(device)
     try:
         st = stage_widescan_inputs(hf, device=device, lanes=lanes)
     except EnvelopeError:
         return decode_lanedfa_tiled(hf, device=device, check_size=check_size)
+    route = oneshot if oneshot is not None else hf.bits < ONESHOT_MAX_BITS
+    if route and ons.oneshot_eligible(st):
+        try:
+            return ons.decode_oneshot_staged(hf, st, check_size=check_size)
+        except EnvelopeError:
+            pass  # a lane overflowed: the four-kernel program takes it
     ORP = st["plan"]["ORP"]
     denseT, n, total = wide_decode_program(st["words"], st["tab"], st["lim"],
                                            **program_args(st))

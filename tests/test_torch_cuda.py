@@ -6,7 +6,8 @@ on a machine without jax it runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Every stream's decode path is checked kernel by kernel: K1-K4 for min code
-length >= 2, the 1-bit K1'/K3' with K2/K4 for md = 1, and the lane-DFA
+length >= 2, the 1-bit K1'/K3' with K2/K4 for md = 1, the fused one-shot
+kernel for the small streams ``lane_wide`` routes to it, and the lane-DFA
 candidate and lane scans for the streams the wide program refuses.
 Tolerance: bit-exact (integer outputs).
 """
@@ -21,7 +22,7 @@ from huffmandecoderongpus_tpu_torch.ops import candidate_scan, k1_scan
 from huffmandecoderongpus_tpu_torch.ops import k1_scan2, k2_compose, k3_fix
 from huffmandecoderongpus_tpu_torch.ops import k3_fix2, k4_compact
 from huffmandecoderongpus_tpu_torch.ops import lane_scan, lanedfa_decode
-from huffmandecoderongpus_tpu_torch.ops import widescan
+from huffmandecoderongpus_tpu_torch.ops import oneshot, widescan
 from torch_streams import MD1_SHAPES, SHAPES, fuzz, fuzz_any, make, text_like
 
 pytestmark = pytest.mark.cuda
@@ -111,15 +112,94 @@ def test_lanedfa_kernels_match_plain(cuda, name):
     _lanedfa_kernels_match_plain(raw, hf, cuda)
 
 
+KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
+                  k3_fix, candidate_scan, lane_scan, oneshot)
+
+
+def _launched(fn):
+    """fn()'s result and the kernels it launched, {module name: count}."""
+    before = [m.launches for m in KERNEL_MODULES]
+    out = fn()
+    ran = {m.__name__.rsplit(".", 1)[1]: m.launches - b
+           for m, b in zip(KERNEL_MODULES, before) if m.launches != b}
+    return out, ran
+
+
 @pytest.mark.parametrize("name", sorted(SHAPES) + sorted(MD1_SHAPES))
 def test_decode_on_cuda(cuda, name):
+    # every test shape is under ONESHOT_MAX_BITS: the chunked ones take the
+    # one-shot launch, the md = 1 ones the four 1-bit-path kernels
     raw, hf = make(name, seed=1)
-    scan = k1_scan if name in MD1_SHAPES else k1_scan2
-    before = scan.launches
-    out = widescan.decode_widescan(hf, device=cuda)
-    assert scan.launches == before + 1
+    out, ran = _launched(lambda: widescan.decode_widescan(hf, device=cuda))
+    if name in MD1_SHAPES:
+        assert ran == dict.fromkeys(("k1_scan", "k2_compose", "k3_fix",
+                                     "k4_compact"), 1)
+    else:
+        assert ran == {"oneshot": 1}
     np.testing.assert_array_equal(out, raw)
     np.testing.assert_array_equal(out, native.simple_decode(hf))
+
+
+@pytest.mark.parametrize("lanes", [512, 1024])
+@pytest.mark.parametrize("name", ["text", "ns2", "md3", "abcd"])
+def test_oneshot_matches_plain(cuda, name, lanes):
+    raw, hf = make(name)
+    st = widescan.stage_widescan_inputs(hf, device=cuda, lanes=lanes)
+    assert oneshot.oneshot_eligible(st)
+    args = (st["words"], st["tab"], st["lim"])
+    kw = oneshot.program_args(st)
+    got = oneshot.oneshot_program(*args, **kw)
+    want = oneshot.oneshot_program_ref(*args, **kw)
+    for g, w in zip(got, want):  # the whole (G, ORP) rows, counts, total
+        assert torch.equal(g, w)
+    denseT, n, _total = got
+    mask = torch.arange(denseT.shape[1], device=cuda)[None, :] < n[:, None]
+    np.testing.assert_array_equal(denseT[mask].cpu().numpy(), raw)
+
+
+def test_oneshot_phase_ms(cuda):
+    # the timer stamps split one launch into its phases and change nothing
+    _, hf = make("ns2")
+    st = widescan.stage_widescan_inputs(hf, device=cuda)
+    args = (st["words"], st["tab"], st["lim"])
+    kw = oneshot.program_args(st)
+    stamps = torch.zeros(len(oneshot.PHASES) + 1, dtype=torch.int64,
+                         device=cuda)
+    got = oneshot.oneshot_program(*args, stamps=stamps, **kw)
+    for g, w in zip(got, oneshot.oneshot_program(*args, **kw)):
+        assert torch.equal(g, w)
+    t = stamps.tolist()
+    assert t[0] > 0 and t == sorted(t)
+    split = oneshot.phase_ms(*args, **kw)
+    assert list(split) == list(oneshot.PHASES)
+    assert all(v >= 0 for v in split.values()) and split["K1"] > 0
+
+
+def test_lane_wide_small_stream_is_one_launch(cuda):
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+
+    raw = text_like(np.random.default_rng(7), 300_000)
+    hf = encode_bytes(raw)
+    assert hf.bits < widescan.ONESHOT_MAX_BITS
+    out, ran = _launched(lambda: get_decoder("lane_wide", device=cuda)(hf))
+    assert ran == {"oneshot": 1}
+    np.testing.assert_array_equal(out, raw)
+
+
+def test_oneshot_grid_not_coresident_raises(cuda):
+    # more blocks than the card holds at once: the launcher refuses the
+    # cooperative launch instead of running a grid that can deadlock
+    L = 529
+    G = 256 * L  # 1058 blocks of 128 lanes, in 256 groups of L lanes
+    words = torch.zeros((G, 1), dtype=torch.int32, device=cuda)
+    lim = torch.full((G,), 32, dtype=torch.int32, device=cuda)
+    tab = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    before = oneshot.launches
+    with pytest.raises(RuntimeError, match="oneshot: CUDA error"):
+        oneshot.oneshot_program(words, tab, lim, B=32, H=2, steps=34,
+                                steps_p=64, SEG=32, md=2, C0=1, C1=2, NS=1,
+                                ORP=128)
+    assert oneshot.launches == before + 1
 
 
 def _fallback_decode(cuda, hf, **kw):
@@ -145,9 +225,10 @@ def test_orp_overflow_decode_on_cuda(cuda, monkeypatch):
     plan = widescan._plan
     monkeypatch.setattr(widescan, "_plan",
                         lambda *a, **k: dict(plan(*a, **k), ORP=128))
-    before = k1_scan2.launches
-    out = _fallback_decode(cuda, hf, lanes=512)
-    assert k1_scan2.launches == before + 1  # the wide program ran first
+    out, ran = _launched(lambda: _fallback_decode(cuda, hf, lanes=512))
+    # one-shot (a lane overflows) -> the four kernels (again) -> lane-DFA
+    assert ran == dict(oneshot=1, k1_scan2=1, k2_compose=1, k3_fix2=1,
+                       k4_compact=1, candidate_scan=1, lane_scan=1)
     np.testing.assert_array_equal(out, raw)
 
 
