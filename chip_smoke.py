@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch/CUDA wide-lane decoder.
+"""GPU smoke run of the PyTorch/CUDA lane-parallel codec: decode and encode.
 
     python3 chip_smoke.py
 
@@ -21,6 +21,12 @@ seeded streams, drawn in this order from one generator:
       splitting)
       (f)-(i) are under ONESHOT_MAX_BITS and one-shot eligible, so
       lane_wide decodes each in one launch of the fused kernel
+  and two encoder streams off the first plan: Fibonacci weights over 26
+  symbols (24-bit deepest codes) with a tail run of the deepest symbol, at
+  128 lanes, whose tail lanes overflow their dense rows, so encode_lanes
+  runs E2 and E3 again with a larger ORP; and the same over 30 symbols
+  (29-bit deepest codes, past E1's two 13-bit halves), which encode_lanes
+  hands to encode_device; both on the card
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -30,8 +36,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               inputs, at the shapes its decode path gives it: K1-K4 on (a)
               and (b), k1_scan/K2/k3_fix/K4 on (c), candidate_scan/
               lane_scan on (d), the one-shot kernel on (f)-(i) (its whole
-              dense rows, counts and total); bit-exact (tolerance 0), with
-              both times from CUDA events
+              dense rows, counts and total), the encoder's E1/E2/E3 on the
+              staging of (a), (b), (c), (e) and (f); bit-exact (tolerance
+              0), with both times from CUDA events
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
@@ -42,7 +49,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               and its device time by kernel (torch.profiler), for (f)-(i)
               the one-shot and the four-kernel program the same way, and
               the decode wall time (host clock) of (a)-(d) and of both
-              routes of (f)-(i)
+              routes of (f)-(i).  Then encode_lanes(..., device="cuda") on
+              (a)-(i), the launch counts set to 0 just before and read just
+              after: E1, E2 and E3 once each, no host fallback, payload,
+              bits and tree equal to the host encode_bytes; lane_wide
+              decodes the device-encoded (a), (c) and (f) back to their
+              input; the overflow stream re-runs E2 and E3 on the card
+              (E1 once, E2 and E3 twice, one retry) and the long-code
+              stream goes to encode_device (no E1-E3, one retry), both
+              byte-equal; encode_device on (a) is byte-equal.  For (a)-(c): the encode program's median time
+              (CUDA events) and split by kernel (torch.profiler), and the
+              walls (host clock) of the histogram and tree, the whole
+              staging, encode_lanes, encode_device and the host
+              encode_bytes
   5. result   one JSON line for the kernels (times, launches, error, and
               the bound: the bytes each must move at 3.35 TB/s), the card,
               then the last line {"ok": true, "device": {...}}
@@ -80,12 +99,20 @@ HBM_BYTES_PER_S = 3.35e12
 TIMED_RUNS = 25
 WARMUP = 3
 WALL_RUNS = 10
+#: host-clock runs of the numpy encoder, timed as context only
+HOST_RUNS = 3
+#: the encoder overflow stream: Fibonacci weights over FIB_SYMBOLS symbols,
+#: FIB_BODY symbols drawn from them, then FIB_DEEP copies of the deepest
+FIB_SYMBOLS, FIB_BODY, FIB_DEEP = 26, 16000, 600
+#: symbols of the long-code stream: its deepest codes are 29 bits
+LONG_SYMBOLS = 30
 
 DEVICE = "cuda"
 
 _CSRC = "huffmandecoderongpus_tpu_torch/csrc/"
 _PWS = "huffmandecoderongpus_tpu/ops/pallas_widescan.py:"
 _PLD = "huffmandecoderongpus_tpu/ops/pallas_lanedfa.py:"
+_PEN = "huffmandecoderongpus_tpu/ops/pallas_encode.py:"
 #: name -> (CUDA source, the TPU kernel it replaces, the stream whose times
 #: the result line reports)
 KERNELS = {
@@ -99,7 +126,16 @@ KERNELS = {
     "lane_scan": (_CSRC + "lane_scan.cu", _PLD + "74", "d"),
     "oneshot": (_CSRC + "oneshot.cu",
                 "huffmandecoderongpus_tpu/ops/pallas_oneshot.py:62", "g"),
+    "e1_pack": (_CSRC + "e1_pack.cu", _PEN + "92", "a"),
+    "e2_compact": (_CSRC + "e2_compact.cu", _PEN + "195", "a"),
+    "e3_place": (_CSRC + "e3_place.cu", _PEN + "308", "a"),
 }
+#: the encoder's kernels, which encode_lanes must launch once each
+ENCODE_PATH = ("e1_pack", "e2_compact", "e3_place")
+#: the streams whose staging phase 3 runs E1-E3 on, and those whose
+#: device-encoded stream lane_wide decodes in phase 4
+ENCODE_CHECKED = "abcef"
+ENCODE_DECODED = "acf"
 #: the one-shot streams
 ONESHOT = "fghi"
 MD1_PATH = ("k1_scan", "k2_compose", "k3_fix", "k4_compact")
@@ -123,7 +159,10 @@ DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "k4_compact": ("k4_compact_kernel",),
                   "k1_scan": ("k1_scan_kernel",),
                   "k3_fix": ("k3_fix_kernel",),
-                  "oneshot": ("oneshot_kernel",)}
+                  "oneshot": ("oneshot_kernel",),
+                  "e1_pack": ("e1_pack_kernel",),
+                  "e2_compact": ("e2_compact_kernel",),
+                  "e3_place": ("e3_place_kernel",)}
 
 
 def text_like(rng, n):
@@ -153,6 +192,23 @@ def uniform12(rng, n):
 def with_run(raw):
     raw[RUN_START:RUN_END] = RUN_BYTE
     return raw
+
+
+def fib_stream(rng, build_tree, n_sym):
+    """(raw, tree) of an encoder stream off the first plan: the tree from
+    Fibonacci weights over ``n_sym`` symbols (not the sample), so the tail
+    symbol keeps its deepest code however often it appears."""
+    fib = [1, 1]
+    while len(fib) < n_sym:
+        fib.append(fib[-1] + fib[-2])
+    counts = np.array(fib[::-1], dtype=np.int64)
+    body = rng.choice(np.arange(n_sym, dtype=np.uint8), size=FIB_BODY,
+                      p=counts / counts.sum()).astype(np.uint8)
+    raw = np.concatenate([body, np.full(FIB_DEEP, n_sym - 1,
+                                        dtype=np.uint8)])
+    freqs = np.zeros(256, dtype=np.int64)
+    freqs[:n_sym] = counts
+    return raw, build_tree(freqs)
 
 
 def cuda_ms(torch, fn, runs):
@@ -353,6 +409,49 @@ def check_oneshot(torch, name, raw, hf, dev):
     return rows
 
 
+def check_encoder(torch, name, raw, hf, dev):
+    """Phase 3 of the encoder on one stream: E1, E2 and E3 against their
+    plain versions on the staging encode_lanes gives them, each stage fed
+    by the previous kernel's output, then the payload against the host
+    encoder's.  Returns and raises as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import (
+        e1_pack,
+        e2_compact,
+        e3_place,
+        encode,
+    )
+
+    st = encode.stage_encode_inputs(raw, device=dev)
+    p = st["plan"]
+    print(f"[kernels] {name}: encode G={p['G']} K={p['K']} ORP={p['ORP']} "
+          f"NROWS={p['NROWS']} bits={p['total_bits']}", flush=True)
+    rows = {}
+    compare = comparer(torch, name, rows)
+    args = (st["data3"], st["lo"], st["hi"], st["nval"])
+    gran, gval, cnt, bits = compare(
+        "e1_pack", lambda: e1_pack.e1_pack(*args),
+        lambda: e1_pack.e1_pack_ref(*args), args)
+    ORP, NROWS = p["ORP"], p["NROWS"]
+    (denseT,) = compare(
+        "e2_compact", lambda: e2_compact.e2_compact(gran, gval, ORP=ORP),
+        lambda: e2_compact.e2_compact_ref(gran, gval, ORP=ORP), (gran, gval))
+    shift, word_off, occ = encode.lane_offsets(bits)
+    e3a = (encode.shift_lanes(denseT, cnt, shift), word_off, occ)
+    # E3 reads only each lane's occupied granules, and writes the payload
+    moved = (4 * int(torch.clamp(occ, max=ORP).sum()) + 8 * occ.numel()
+             + 4 * 128 * NROWS)
+    (out,) = compare("e3_place", lambda: e3_place.e3_place(*e3a, NROWS=NROWS),
+                     lambda: e3_place.e3_place_ref(*e3a, NROWS=NROWS), (),
+                     moved)
+    payload = encode.payload_bytes(out, p["total_bits"]).cpu().numpy()
+    if p["total_bits"] != hf.bits or not np.array_equal(payload, hf.payload):
+        raise AssertionError(f"{name}: the encode kernels' payload differs "
+                             "from the host encoder's")
+    print(f"[kernels] {name}: E1-E3 bit-exact; payload equal to the host "
+          "encoder's", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -427,6 +526,8 @@ def main() -> int:
     checked["d"] = check_lanedfa(torch, *hfs["d"], dev)
     for k in ONESHOT:
         checked[k] = check_oneshot(torch, *hfs[k], dev)
+    for k in ENCODE_CHECKED:
+        checked.setdefault(k, {}).update(check_encoder(torch, *hfs[k], dev))
 
     # ---- 4. the slice through the registry ----------------------------------
     def drive(decoder, k):
@@ -495,6 +596,8 @@ def main() -> int:
         print(f"[slice] {name}: decode wall median {med:.4f} ms over "
               f"{WALL_RUNS} runs (min {mn:.4f}), staging to host bytes; "
               f"card {card}", flush=True)
+    # the encoder's launches are counted apart from the decode paths' check
+    launches.update(drive_encoder(torch, hfs, dev, card))
 
     # ---- 5. result ----------------------------------------------------------
     # each kernel's times from the stream named in KERNELS; its error over
@@ -514,11 +617,133 @@ def main() -> int:
     return 0
 
 
-def wall_ms(torch, fn):
+def drive_encoder(torch, hfs, dev, card):
+    """Phase 4 of the encoder: encode_lanes on every stream (E1-E3 once
+    each, no retry, byte-equal to encode_bytes), lane_wide on the
+    device-encoded ENCODE_DECODED streams, the overflow and long-code
+    streams (one retry each, on the card), encode_device on (a), then the
+    times of (a)-(c).  Raises on any failure; returns the encoder's
+    launches summed over the streams (a)-(i)."""
+    from huffmandecoderongpus_tpu_torch.huffio import (
+        build_tree,
+        encode_bytes,
+        tree_codes,
+    )
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+    from huffmandecoderongpus_tpu_torch.ops import (
+        e1_pack,
+        e2_compact,
+        e3_place,
+        encode,
+        encode_ops,
+    )
+
+    mods = {"e1_pack": e1_pack, "e2_compact": e2_compact,
+            "e3_place": e3_place}
+
+    def same(hf, want):
+        return (hf.bits == want.bits and hf.tree.shape == want.tree.shape
+                and np.array_equal(hf.tree, want.tree)
+                and np.array_equal(hf.payload, want.payload))
+
+    def drive(name, raw, want, tree=None, lanes=None,
+              path=dict.fromkeys(ENCODE_PATH, 1), retries=0):
+        for m in mods.values():
+            m.launches = 0
+        tries = encode.device_retries
+        t0 = time.perf_counter()
+        hf = encode.encode_lanes(raw, tree=tree, lanes=lanes, device=DEVICE)
+        wall = time.perf_counter() - t0
+        ran = {n: m.launches for n, m in mods.items() if m.launches}
+        tries = encode.device_retries - tries
+        ok = same(hf, want)
+        print(f"[slice] encode_lanes {name}: {raw.size} bytes -> {hf.bits} "
+              f"bits, first encode {wall:.3f} s wall, equal to encode_bytes: "
+              f"{ok}; launches {ran}, device retries {tries}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: device-encoded bytes differ")
+        if ran != path or tries != retries:
+            raise AssertionError(f"{name}: launched {ran} with {tries} "
+                                 f"retries, expected {path} and {retries}")
+        return ran, hf
+
+    launches = dict.fromkeys(mods, 0)
+    encoded = {}
+    for k, (name, r, h) in hfs.items():
+        ran, encoded[k] = drive(name, r, h)
+        for n, c in ran.items():
+            launches[n] += c
+    print(f"[slice] launches on the encode path: {launches}", flush=True)
+    for k in ENCODE_DECODED:
+        name, r, _h = hfs[k]
+        ok = np.array_equal(get_decoder("lane_wide", device=DEVICE)(
+            encoded[k]), r)
+        print(f"[slice] lane_wide on the device-encoded {name}: equal to the "
+              f"input: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: device encode -> decode differs")
+    # off the first plan, still on the card: the overflow stream runs E2
+    # and E3 again with a larger ORP, the long-code stream encode_device
+    raw, tree = fib_stream(np.random.default_rng(SEED), build_tree,
+                           FIB_SYMBOLS)
+    drive("overflow stream (Fibonacci tree, 128 lanes)", raw,
+          encode_bytes(raw, tree=tree), tree=tree, lanes=128,
+          path=dict(e1_pack=1, e2_compact=2, e3_place=2), retries=1)
+    raw, tree = fib_stream(np.random.default_rng(SEED), build_tree,
+                           LONG_SYMBOLS)
+    drive("long-code stream (Fibonacci tree, 29-bit codes)", raw,
+          encode_bytes(raw, tree=tree), tree=tree, path={}, retries=1)
+    name, r, h = hfs["a"]
+    ok = same(encode_ops.encode_device(r, device=DEVICE), h)
+    print(f"[slice] encode_device {name}: equal to encode_bytes: {ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: encode_device differs")
+
+    for k in "abc":
+        name, r, _h = hfs[k]
+        st = encode.stage_encode_inputs(r, device=dev)
+        p = st["plan"]
+        args = (st["data3"], st["lo"], st["hi"], st["nval"])
+
+        def program(args=args, p=p):
+            return encode.encode_program(*args, ORP=p["ORP"],
+                                         NROWS=p["NROWS"])
+
+        ts = cuda_ms(torch, program, WARMUP + TIMED_RUNS)[WARMUP:]
+        med = statistics.median(ts)
+        print(f"[slice] {name}: encode program median {med:.4f} ms over "
+              f"{TIMED_RUNS} runs (min {min(ts):.4f}), {r.size / med / 1e6:.3f}"
+              f" GB/s encoded; G={p['G']} K={p['K']} ORP={p['ORP']} "
+              f"NROWS={p['NROWS']}; card {card}", flush=True)
+        split = device_breakdown(torch, program)
+        print(f"[slice] {name}: encode device ms per program (profiler) "
+              + "  ".join(f"{n} {v:.4f}" for n, v in split.items()),
+              flush=True)
+        walls = {
+            "histogram and tree": wall_ms(torch, lambda r=r: tree_codes(
+                build_tree(np.bincount(r, minlength=256)))),
+            "staging": wall_ms(torch, lambda r=r: encode.stage_encode_inputs(
+                r, device=dev)),
+            "encode_lanes": wall_ms(torch, lambda r=r: encode.encode_lanes(
+                r, device=dev)),
+            "encode_device": wall_ms(torch, lambda r=r: (
+                encode_ops.encode_device(r, device=dev))),
+            "host encode_bytes": wall_ms(torch, lambda r=r: encode_bytes(r),
+                                         runs=HOST_RUNS)}
+        print(f"[slice] {name}: encode walls, median (min) ms: "
+              + "  ".join(f"{n} {m:.4f} ({mn:.4f})"
+                          for n, (m, mn) in walls.items())
+              + f"; {WALL_RUNS} runs, host encode_bytes {HOST_RUNS}; "
+              f"card {card}", flush=True)
+    return launches
+
+
+def wall_ms(torch, fn, runs=WALL_RUNS):
     """(median, min) host-clock ms of ``fn`` ending in a synchronize, over
-    WALL_RUNS runs."""
+    ``runs`` runs."""
     ts = []
-    for _ in range(WALL_RUNS):
+    for _ in range(runs):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

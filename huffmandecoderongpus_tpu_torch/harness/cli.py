@@ -1,11 +1,16 @@
-"""Command line of the port: the ``decode`` command.
+"""Command line of the port: the ``encode`` and ``decode`` commands.
 
-    python -m huffmandecoderongpus_tpu_torch decode x.huff [out.bin] --device cuda
+    python -m huffmandecoderongpus_tpu_torch encode x.bin [x.huff] [--index K]
+    python -m huffmandecoderongpus_tpu_torch decode x.huff [out.bin]
 
-writes the decoded bytes (to stdout without an output path).  With
-``--verify RAW`` it instead byte-compares the decode with the raw file and
-then times it: the minimum wall time over the checked run and ``--repeats``
-more.
+``encode`` compresses a file with the lane-parallel encoder
+(``ops.encode.encode_lanes``) into ``x.huff`` (default: the input's name
+plus ``.huff``), with ``--index K`` also a ``.huffidx`` sidecar of every
+K-th symbol's bit offset, and prints a summary line.  ``decode`` writes the
+decoded bytes (to stdout without an output path).  With ``--verify RAW`` it
+instead byte-compares the decode with the raw file and then times it: the
+minimum wall time over the checked run and ``--repeats`` more.  Both run on
+the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -16,8 +21,14 @@ import time
 
 import numpy as np
 
-from huffmandecoderongpus_tpu_torch.huffio import read_huff
+from huffmandecoderongpus_tpu_torch.huffio import (
+    index_path,
+    read_huff,
+    write_huff,
+    write_index,
+)
 from huffmandecoderongpus_tpu_torch.models import get_decoder
+from huffmandecoderongpus_tpu_torch.ops.encode import encode_lanes
 
 #: timed runs after the checked one
 REPEATS = 25
@@ -39,21 +50,47 @@ def verify_and_time(dec, hf, raw: np.ndarray, name: str, repeats: int):
           f"   {raw.size / best / 1e9:8.4f} GB/s")
 
 
+def encode(src: str, dst: str | None, index: int | None, device) -> None:
+    """Encode file ``src`` into ``dst`` (and its sidecar with ``index``)."""
+    dst = dst or src + ".huff"
+    raw = np.fromfile(src, dtype=np.uint8)
+    hf = encode_lanes(raw, device=device, block_symbols=index or None)
+    write_huff(dst, hf)
+    if hf.index is not None:
+        write_index(index_path(dst), *hf.index, bits=hf.bits,
+                    uncompressed_size=hf.uncompressed_size,
+                    payload=hf.payload)
+    ratio = hf.file_bytes() / max(raw.size, 1)
+    print(f"{src}: {raw.size} -> {hf.file_bytes()} bytes "
+          f"({ratio:.3f}), {hf.nodes} nodes, {hf.bits} bits"
+          + (f", index every {hf.index[1]} symbols" if hf.index else ""))
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="huffmandecoderongpus_tpu_torch",
-        description="PyTorch/CUDA wide-lane Huffman decoder")
-    p.add_argument("command", choices=["decode"])
-    p.add_argument("args", nargs="+", help="<input.huff> [output]")
-    p.add_argument("--device", required=True,
-                   help="torch device to decode on, e.g. cuda or cpu")
+        description="PyTorch/CUDA lane-parallel Huffman codec")
+    p.add_argument("command", choices=["encode", "decode"])
+    p.add_argument("args", nargs="+",
+                   help="encode: <input> [output.huff]; "
+                        "decode: <input.huff> [output]")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu runs the "
+                        "kernels' plain versions)")
+    p.add_argument("--index", type=int, metavar="K", default=None,
+                   help="encode: also write a .huffidx sidecar every K "
+                        "symbols")
     p.add_argument("--verify", metavar="RAW", default=None,
-                   help="compare with this raw file, then time the decode")
+                   help="decode: compare with this raw file, then time it")
     p.add_argument("--repeats", type=int, default=REPEATS,
-                   help="timed runs after the verified one")
+                   help="decode --verify: timed runs after the verified one")
     ns = p.parse_args(argv)
 
     src = ns.args[0]
+    dst = ns.args[1] if len(ns.args) > 1 else None
+    if ns.command == "encode":
+        encode(src, dst, ns.index, ns.device)
+        return
     hf = read_huff(src)
     dec = get_decoder("lane_wide", device=ns.device)
     if ns.verify:
@@ -61,7 +98,6 @@ def main(argv=None) -> None:
                         ns.repeats)
         return
     out = np.asarray(dec(hf), dtype=np.uint8)
-    dst = ns.args[1] if len(ns.args) > 1 else None
     if dst:
         out.tofile(dst)
         print(f"{src}: {hf.payload_bytes} -> {out.size} bytes -> {dst}")

@@ -1,4 +1,5 @@
-"""The `.huff` container, Huffman trees and the encoder, in numpy.
+"""The `.huff` container, Huffman trees, the encoder and the `.huffidx`
+sidecar writer, in numpy.
 
 The port's own copy of the host layer it needs, so that the port and its
 smoke run import nothing of the JAX package.  Same format and the same
@@ -11,13 +12,21 @@ Container layout: magic ``b"HUFF"``; three big-endian int32 ``nodes``,
 -1``, node 0 is the root); then ``ceil(bits/8)`` payload bytes, bit *p* of
 the stream being ``(payload[p//8] >> (p%8)) & 1``.  A 0-bit descends
 ``izero``, a 1-bit ``ione``.
+
+Sidecar layout (``<name>.huffidx``, big-endian like the container): magic
+``b"HIDX"``; int32 version (2), block_symbols K, n_blocks and a crc32
+binding the index to (bits, uncompressed_size, payload); then n_blocks
+int64 bit offsets, of symbols 0, K, 2K, ...  The reader here does not load
+sidecars: nothing in the port decodes by an index yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import heapq
+import pathlib
 import struct
+import zlib
 
 import numpy as np
 
@@ -25,6 +34,10 @@ MAGIC = b"HUFF"
 _HEADER = struct.Struct(">iii")
 LEAF = -1
 MAX_CODE_LEN = 31
+INDEX_MAGIC = b"HIDX"
+INDEX_VERSION = 2
+_INDEX_HEADER = struct.Struct(">4siiii")
+DEFAULT_BLOCK_SYMBOLS = 4096
 
 
 @dataclasses.dataclass
@@ -35,6 +48,9 @@ class HuffFile:
     bits: int  # exact number of payload bits
     uncompressed_size: int  # decoded byte count
     payload: np.ndarray  # (ceil(bits/8),) uint8, LSB-first bit packing
+    #: block index for the `.huffidx` sidecar: (bit offsets int64 (n,),
+    #: block_symbols); not part of the container
+    index: tuple | None = None
 
     def __post_init__(self) -> None:
         self.tree = np.ascontiguousarray(self.tree, dtype=np.int32)
@@ -49,6 +65,14 @@ class HuffFile:
     @property
     def payload_bytes(self) -> int:
         return (self.bits + 7) // 8
+
+    @property
+    def nodes(self) -> int:
+        return int(self.tree.shape[0])
+
+    def file_bytes(self) -> int:
+        """Size of the serialized container."""
+        return 4 + _HEADER.size + 9 * self.nodes + self.payload_bytes
 
 
 def read_huff(path) -> HuffFile:
@@ -78,6 +102,75 @@ def read_huff(path) -> HuffFile:
                             offset=off + 9 * nodes).copy()
     return HuffFile(tree=tree, bits=bits, uncompressed_size=size,
                     payload=payload)
+
+
+def write_huff(path, hf: HuffFile) -> None:
+    """Serialize a HuffFile in the container format (the inverse of
+    ``read_huff``)."""
+    n = hf.nodes
+    rec = np.empty((n, 9), dtype=np.uint8)
+    rec[:, 0] = (hf.tree[:, 0] & 0xFF).astype(np.uint8)
+    rec[:, 1:5] = hf.tree[:, 1].astype(">i4").view(np.uint8).reshape(n, 4)
+    rec[:, 5:9] = hf.tree[:, 2].astype(">i4").view(np.uint8).reshape(n, 4)
+    with open(path, "wb") as f:
+        f.write(MAGIC)
+        f.write(_HEADER.pack(n, hf.bits, hf.uncompressed_size))
+        f.write(rec.tobytes())
+        f.write(hf.payload.tobytes())
+
+
+def index_path(huff_path) -> pathlib.Path:
+    """The sidecar beside a `.huff` file: ``foo.huff`` -> ``foo.huffidx``."""
+    return pathlib.Path(str(huff_path) + "idx")
+
+
+def build_block_index(code_lengths_per_symbol,
+                      block_symbols: int = DEFAULT_BLOCK_SYMBOLS
+                      ) -> np.ndarray:
+    """Bit offsets of symbols 0, K, 2K, ... from per-symbol code lengths."""
+    lens = np.asarray(code_lengths_per_symbol, dtype=np.int64)
+    starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    return np.ascontiguousarray(starts[::block_symbols])
+
+
+def payload_binding(bits: int, uncompressed_size: int,
+                    payload: np.ndarray) -> int:
+    """crc32 binding an index to one (bits, size, payload) triple."""
+    head = struct.pack(">ii", int(bits), int(uncompressed_size))
+    return zlib.crc32(np.ascontiguousarray(payload, dtype=np.uint8).tobytes(),
+                      zlib.crc32(head)) & 0x7FFFFFFF
+
+
+def write_index(path, offsets: np.ndarray, block_symbols: int, *,
+                bits: int, uncompressed_size: int,
+                payload: np.ndarray) -> None:
+    """Write a `.huffidx` sidecar bound to the given payload."""
+    offsets = np.ascontiguousarray(offsets, dtype=">i8")
+    crc = payload_binding(bits, uncompressed_size, payload)
+    with open(path, "wb") as f:
+        f.write(_INDEX_HEADER.pack(INDEX_MAGIC, INDEX_VERSION,
+                                   int(block_symbols), offsets.shape[0], crc))
+        f.write(offsets.tobytes())
+
+
+def read_index(path) -> tuple[np.ndarray, int, int]:
+    """``(offsets int64 (n_blocks,), block_symbols, binding crc)`` of a
+    sidecar; raises ValueError on a malformed one."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:4] != INDEX_MAGIC:
+        raise ValueError(
+            f"{path}: expected magic {INDEX_MAGIC!r}, got {raw[:4]!r}")
+    if len(raw) < _INDEX_HEADER.size:
+        raise ValueError(f"{path}: truncated index header")
+    _magic, version, k, n, crc = _INDEX_HEADER.unpack_from(raw, 0)
+    if version != INDEX_VERSION:
+        raise ValueError(f"{path}: unsupported index version {version}")
+    if k < 1 or n < 0 or len(raw) < _INDEX_HEADER.size + 8 * n:
+        raise ValueError(f"{path}: bad index header k={k} n={n}")
+    offsets = np.frombuffer(raw, dtype=">i8", count=n,
+                            offset=_INDEX_HEADER.size)
+    return offsets.astype(np.int64), k, crc
 
 
 def unpack_bits(payload: np.ndarray, bits: int) -> np.ndarray:
@@ -189,15 +282,35 @@ def build_tree(freqs: np.ndarray) -> np.ndarray:
     return tree
 
 
-def encode_bytes(data) -> HuffFile:
-    """Compress bytes with a Huffman tree built from their frequencies."""
-    data = np.ascontiguousarray(np.frombuffer(bytes(data), dtype=np.uint8)
-                                if isinstance(data, (bytes, bytearray))
-                                else data, dtype=np.uint8).ravel()
+def as_u8(data) -> np.ndarray:
+    """Bytes or an array as a flat contiguous uint8 array."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(bytes(data), dtype=np.uint8)
+    return np.ascontiguousarray(data, dtype=np.uint8).ravel()
+
+
+def require_codes(hist: np.ndarray, present: np.ndarray) -> None:
+    """Raise ValueError if a symbol of the byte histogram ``hist`` has no
+    code in the tree (``present``, from ``tree_codes``)."""
+    missing = np.nonzero((hist > 0) & ~present)[0]
+    if missing.size:
+        raise ValueError(f"tree has no code for symbols {missing.tolist()}")
+
+
+def encode_bytes(data, tree: np.ndarray | None = None,
+                 block_symbols: int | None = None) -> HuffFile:
+    """Compress bytes with ``tree``, or with a Huffman tree built from
+    their frequencies.  ``block_symbols``: also attach the `.huffidx` block
+    index, an offset every ``block_symbols`` symbols (``write_index``
+    persists it)."""
+    data = as_u8(data)
     if data.size == 0:
         raise ValueError("cannot encode empty input")
-    tree = build_tree(np.bincount(data, minlength=256))
-    code, length, _ = tree_codes(tree)
+    hist = np.bincount(data, minlength=256)
+    if tree is None:
+        tree = build_tree(hist)
+    code, length, present = tree_codes(tree)
+    require_codes(hist, present)
     lens = length[data].astype(np.int64)
     codes = code[data]
     offsets = np.cumsum(lens) - lens
@@ -208,5 +321,9 @@ def encode_bytes(data) -> HuffFile:
     for k in range(int(lens.max())):  # one scatter per code-bit position
         sel = lens > k
         bitarr[offsets[sel] + k] = (codes[sel] >> np.uint32(k)) & np.uint32(1)
+    index = None
+    if block_symbols is not None:
+        index = (build_block_index(lens, block_symbols), int(block_symbols))
     return HuffFile(tree=tree, bits=bits, uncompressed_size=int(data.size),
-                    payload=np.packbits(bitarr, bitorder="little"))
+                    payload=np.packbits(bitarr, bitorder="little"),
+                    index=index)

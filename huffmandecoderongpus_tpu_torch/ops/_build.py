@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
            "k1_scan.cu", "k3_fix.cu", "candidate_scan.cu", "lane_scan.cu",
-           "oneshot.cu")
+           "oneshot.cu", "e1_pack.cu", "e2_compact.cu", "e3_place.cu")
 HEADERS = ("widescan.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -37,6 +37,7 @@ LANEDFA_TAB_WORDS = 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # wmat, tab, lim, sym, val, cntmap, exmap, mrowmap,
     # G, steps_w, B, H, steps, steps_p, SEG, md, C0, C1, NS, stream
@@ -61,6 +62,12 @@ _SIGNATURES = {
     # gmap, goff, tot, entry, stamps,
     # G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp, stream
     "ws_oneshot": [_P] * 16 + [_I] * 14 + [_P],
+    # data, lo, hi, nval, gran, gval, cnt, bits, K, G, stream
+    "ws_e1_pack": [_P] * 8 + [_I] * 2 + [_P],
+    # gran, gval, out, rows, G, ORP, stream
+    "ws_e2_compact": [_P] * 3 + [_I] * 3 + [_P],
+    # shifted, word_off, occ, out, G, ORP, n_out, stream
+    "ws_e3_place": [_P] * 4 + [_I] * 2 + [_LL, _P],
 }
 
 _lock = threading.Lock()

@@ -8,8 +8,11 @@ on a machine without jax it runs without the suite's conftest:
 Every stream's decode path is checked kernel by kernel: K1-K4 for min code
 length >= 2, the 1-bit K1'/K3' with K2/K4 for md = 1, the fused one-shot
 kernel for the small streams ``lane_wide`` routes to it, and the lane-DFA
-candidate and lane scans for the streams the wide program refuses.
-Tolerance: bit-exact (integer outputs).
+candidate and lane scans for the streams the wide program refuses.  The
+encoder's E1-E3 are checked on the staging of the test shapes and on
+hand-made lanes (granules shared by up to 16 lanes, trailing empty lanes,
+counts reaching ORP), and ``encode_lanes`` and the ``encode`` command
+byte-equal to the host encoder.  Tolerance: bit-exact (integer outputs).
 """
 
 import numpy as np
@@ -18,12 +21,15 @@ import torch
 
 from huffmandecoderongpus_tpu import native
 from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
-from huffmandecoderongpus_tpu_torch.ops import candidate_scan, k1_scan
+from huffmandecoderongpus_tpu_torch.ops import candidate_scan, e1_pack
+from huffmandecoderongpus_tpu_torch.ops import e2_compact, e3_place, encode
+from huffmandecoderongpus_tpu_torch.ops import encode_ops, k1_scan
 from huffmandecoderongpus_tpu_torch.ops import k1_scan2, k2_compose, k3_fix
 from huffmandecoderongpus_tpu_torch.ops import k3_fix2, k4_compact
 from huffmandecoderongpus_tpu_torch.ops import lane_scan, lanedfa_decode
 from huffmandecoderongpus_tpu_torch.ops import oneshot, widescan
-from torch_streams import MD1_SHAPES, SHAPES, fuzz, fuzz_any, make, text_like
+from torch_streams import MD1_SHAPES, SHAPES, fib_tree_data, fuzz, fuzz_any
+from torch_streams import make, placed_lanes, text_like
 
 pytestmark = pytest.mark.cuda
 
@@ -113,7 +119,8 @@ def test_lanedfa_kernels_match_plain(cuda, name):
 
 
 KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
-                  k3_fix, candidate_scan, lane_scan, oneshot)
+                  k3_fix, candidate_scan, lane_scan, oneshot, e1_pack,
+                  e2_compact, e3_place)
 
 
 def _launched(fn):
@@ -246,3 +253,119 @@ def test_cli_decode_on_cuda(cuda, tmp_path, capsys):
     raw.tofile(rawf)
     main(["decode", str(src), "--device", "cuda", "--verify", str(rawf)])
     assert "lane_wide" in capsys.readouterr().out
+
+
+def _encode_kernels_match_plain(st):
+    """E1, E2, shift and E3 on staged inputs, each kernel against its plain
+    version on the same CUDA tensors; returns the kernels' payload and
+    counts."""
+    p = st["plan"]
+    args = (st["data3"], st["lo"], st["hi"], st["nval"])
+    got = e1_pack.e1_pack(*args)
+    want = e1_pack.e1_pack_ref(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    gran, gval, cnt, bits = want
+    d = e2_compact.e2_compact(gran, gval, ORP=p["ORP"])
+    assert torch.equal(d, e2_compact.e2_compact_ref(gran, gval, ORP=p["ORP"]))
+    shift, word_off, occ = encode.lane_offsets(bits)
+    shifted = encode.shift_lanes(d, cnt, shift)
+    kw = dict(NROWS=p["NROWS"])
+    e3a = (shifted, word_off, occ)
+    out = e3_place.e3_place(*e3a, **kw)
+    assert torch.equal(out, e3_place.e3_place_ref(*e3a, **kw))
+    return out, cnt
+
+
+@pytest.mark.parametrize("lanes", [None, 128])
+@pytest.mark.parametrize("name", sorted(SHAPES) + sorted(MD1_SHAPES))
+def test_encode_kernels_match_plain(cuda, name, lanes):
+    raw, hf = make(name)
+    st = encode.stage_encode_inputs(raw, lanes=lanes, device=cuda)
+    out, cnt = _encode_kernels_match_plain(st)
+    if int(cnt.max()) < st["plan"]["ORP"]:
+        got = encode.payload_bytes(out, hf.bits).cpu().numpy()
+        np.testing.assert_array_equal(got, hf.payload)
+
+
+@pytest.mark.parametrize("lane_bits", [
+    [5, 1, 2, 3, 1, 40] + [0] * 122,  # 1-3-bit lanes, 122 empty lanes
+    [1] * 40 + [300, 17, 2] + [0] * 85,  # one granule shared by 16 lanes
+    list(range(1, 129)) * 2,
+])
+def test_e3_shared_granules_on_cuda(cuda, lane_bits):
+    shifted, W, occ, _a, gran = placed_lanes(np.random.default_rng(1),
+                                             lane_bits, 128)
+    n = gran.size
+    NROWS = (-(-n // 128) + 9) // 8 * 8
+    args = [torch.from_numpy(x).to(cuda) for x in (shifted, W, occ)]
+    got = e3_place.e3_place(*args, NROWS=NROWS)
+    assert torch.equal(got, e3_place.e3_place_ref(*args, NROWS=NROWS))
+    flat = got.reshape(-1).cpu().numpy()
+    np.testing.assert_array_equal(flat[:n], gran)
+    assert not flat[n:].any()
+
+
+def test_encode_kernels_overflow_and_empty_lanes(cuda):
+    # a tail lane of 24-bit codes overflows ORP: E2 drops its ranks past
+    # ORP and E3 clamps it to its row, both as their plain versions do;
+    # 40 symbols over 128 lanes leave most lanes empty
+    raw, tree = fib_tree_data(np.random.default_rng(0), 600)
+    st = encode.stage_encode_inputs(raw, tree=tree, lanes=128, device=cuda)
+    _out, cnt = _encode_kernels_match_plain(st)
+    assert int(cnt.max()) >= st["plan"]["ORP"]
+    st = encode.stage_encode_inputs(raw[:40], tree=tree, lanes=128,
+                                    device=cuda)
+    assert int((st["nval"] == 0).sum()) == 88
+    _encode_kernels_match_plain(st)
+
+
+#: case -> E1, E2 and E3 launches and retries of one encode_lanes: fib600
+#: overflows a lane's dense row (E2 and E3 run again with a larger ORP),
+#: fib30's 29-bit codes go to encode_device (no E1-E3)
+ENCODE_ROUTES = {"fib600": (dict(e1_pack=1, e2_compact=2, e3_place=2), 1),
+                 "fib30": ({}, 1)}
+
+
+@pytest.mark.parametrize("case", ["text", "ns2", "md1", "random", "fib40",
+                                  "fib600", "fib30"])
+def test_encode_lanes_on_cuda(cuda, case):
+    if case == "fib30":
+        raw, tree = fib_tree_data(np.random.default_rng(0), 50, n_sym=30)
+        lanes = None
+    elif case.startswith("fib"):
+        raw, tree = fib_tree_data(np.random.default_rng(0), int(case[3:]))
+        lanes = 128
+    else:
+        raw, tree, lanes = make(case, seed=4)[0], None, None
+    tries = encode.device_retries
+    got, ran = _launched(lambda: encode.encode_lanes(raw, tree=tree,
+                                                     lanes=lanes,
+                                                     device=cuda))
+    assert (ran, encode.device_retries - tries) == ENCODE_ROUTES.get(
+        case, (dict(e1_pack=1, e2_compact=1, e3_place=1), 0))
+    want = encode_bytes(raw, tree=tree)
+    assert got.bits == want.bits
+    np.testing.assert_array_equal(got.payload, want.payload)
+    np.testing.assert_array_equal(got.tree, want.tree)
+    dev = encode_ops.encode_device(raw, tree=tree, device=cuda)
+    np.testing.assert_array_equal(dev.payload, want.payload)
+
+
+def test_cli_encode_on_cuda(cuda, tmp_path, capsys):
+    from huffmandecoderongpus_tpu.huffio.format import write_huff
+    from huffmandecoderongpus_tpu_torch.harness.cli import main
+
+    raw = text_like(np.random.default_rng(6), 200_000)
+    src = tmp_path / "x.bin"
+    raw.tofile(src)
+    _, ran = _launched(lambda: main(["encode", str(src), "--index", "4096"]))
+    assert ran == dict(e1_pack=1, e2_compact=1, e3_place=1)
+    assert "index every 4096 symbols" in capsys.readouterr().out
+    write_huff(tmp_path / "want.huff", encode_bytes(raw))
+    huff = tmp_path / "x.bin.huff"
+    assert huff.read_bytes() == (tmp_path / "want.huff").read_bytes()
+    assert (tmp_path / "x.bin.huffidx").exists()
+    dst = tmp_path / "x.out"
+    main(["decode", str(huff), str(dst)])
+    np.testing.assert_array_equal(np.fromfile(dst, dtype=np.uint8), raw)

@@ -105,3 +105,93 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                          timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("block_symbols", [None, 1, 1000, 4096])
+def test_encode_with_tree_and_index_matches_jax(block_symbols):
+    # a tree built from other data's frequencies, and the block index
+    raw, _ = make("text")
+    tree = jtree.build_tree(np.bincount(make("text", seed=1)[0],
+                                        minlength=256) + 1)
+    got = huffio.encode_bytes(raw, tree=tree, block_symbols=block_symbols)
+    want = jencoder.encode_bytes(raw, tree=tree, block_symbols=block_symbols)
+    np.testing.assert_array_equal(got.tree, want.tree)
+    np.testing.assert_array_equal(got.payload, want.payload)
+    assert got.bits == want.bits
+    if block_symbols is None:
+        assert got.index is None and want.index is None
+    else:
+        np.testing.assert_array_equal(got.index[0], want.index[0])
+        assert got.index[1] == want.index[1] == block_symbols
+
+
+def test_encode_missing_symbol_raises_like_jax():
+    raw = np.array([1, 2, 3, 9], dtype=np.uint8)
+    tree = jtree.build_tree(np.bincount([1, 2, 3], minlength=256))
+    for enc in (huffio.encode_bytes, jencoder.encode_bytes):
+        with pytest.raises(ValueError, match=r"no code for symbols \[9\]"):
+            enc(raw, tree=tree)
+
+
+@pytest.mark.parametrize("name", ["text", "ns2", "md1"])
+def test_write_huff_matches_jax(tmp_path, name):
+    raw, hf = make(name)
+    got = huffio.encode_bytes(raw)
+    huffio.write_huff(tmp_path / "port.huff", got)
+    jformat.write_huff(tmp_path / "jax.huff", hf)
+    assert (tmp_path / "port.huff").read_bytes() == (
+        tmp_path / "jax.huff").read_bytes()
+    assert got.file_bytes() == hf.file_bytes()
+    assert got.nodes == hf.nodes
+    back = huffio.read_huff(tmp_path / "port.huff")
+    np.testing.assert_array_equal(back.payload, got.payload)
+
+
+@pytest.mark.parametrize("block_symbols", [1, 777, 4096])
+def test_sidecar_writer_matches_jax(tmp_path, block_symbols):
+    from huffmandecoderongpus_tpu.huffio import sidecar as jsidecar
+
+    raw, _ = make("random")
+    got = huffio.encode_bytes(raw, block_symbols=block_symbols)
+    want = jencoder.encode_bytes(raw, block_symbols=block_symbols)
+    huff = tmp_path / "x.huff"
+    assert huffio.index_path(huff) == jsidecar.index_path(huff)
+    lens = jtree.tree_codes(want.tree)[1][raw]
+    np.testing.assert_array_equal(
+        huffio.build_block_index(lens, block_symbols),
+        jsidecar.build_block_index(lens, block_symbols))
+    assert huffio.payload_binding(got.bits, got.uncompressed_size,
+                                  got.payload) == jsidecar.payload_binding(
+        want.bits, want.uncompressed_size, want.payload)
+    meta = dict(bits=got.bits, uncompressed_size=got.uncompressed_size,
+                payload=got.payload)
+    huffio.write_index(tmp_path / "port.huffidx", *got.index, **meta)
+    jsidecar.write_index(tmp_path / "jax.huffidx", *want.index, **meta)
+    assert (tmp_path / "port.huffidx").read_bytes() == (
+        tmp_path / "jax.huffidx").read_bytes()
+    offsets, k, crc = huffio.read_index(tmp_path / "jax.huffidx")
+    j_offsets, j_k, j_crc = jsidecar.read_index(tmp_path / "jax.huffidx")
+    np.testing.assert_array_equal(offsets, j_offsets)
+    assert (k, crc) == (j_k, j_crc)
+    # the JAX reader accepts the port's sidecar as bound to its payload
+    jformat.write_huff(huff, want)
+    huffio.write_index(huffio.index_path(huff), *got.index, **meta)
+    loaded = jformat.read_huff(huff)
+    np.testing.assert_array_equal(loaded.index[0], want.index[0])
+
+
+@pytest.mark.parametrize("corrupt,match", [
+    (lambda b: b"HIDY" + b[4:], "magic"),
+    (lambda b: b[:4] + (1).to_bytes(4, "big") + b[8:], "version"),
+    (lambda b: b[:-1], "bad index header"),
+])
+def test_read_index_rejects_malformed(tmp_path, corrupt, match):
+    raw, _ = make("text")
+    hf = huffio.encode_bytes(raw, block_symbols=100)
+    path = tmp_path / "x.huffidx"
+    huffio.write_index(path, *hf.index, bits=hf.bits,
+                       uncompressed_size=hf.uncompressed_size,
+                       payload=hf.payload)
+    path.write_bytes(corrupt(path.read_bytes()))
+    with pytest.raises(ValueError, match=match):
+        huffio.read_index(path)

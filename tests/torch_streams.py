@@ -147,3 +147,48 @@ def as_numpy(st):
     """A staging dict with its arrays (JAX or torch) taken as numpy."""
     return {k: (np.asarray(v) if hasattr(v, "shape") else v)
             for k, v in st.items()}
+
+
+def fib_tree_data(rng, n_deep, n_sym=26, body=16000):
+    """(raw, tree): a tree built from Fibonacci weights over ``n_sym``
+    symbols (its deepest codes 24 bits at 26 symbols) and a body drawn from
+    those weights followed by ``n_deep`` copies of the deepest symbol, so
+    the encoder's tail lanes carry far more granules than the mean
+    (``tests/test_pallas_encode.py``'s overflow stream)."""
+    from huffmandecoderongpus_tpu.huffio.tree import build_tree
+
+    fib = [1, 1]
+    while len(fib) < n_sym:
+        fib.append(fib[-1] + fib[-2])
+    counts = np.array(fib[::-1], dtype=np.int64)  # symbol 0 most common
+    head = rng.choice(np.arange(n_sym, dtype=np.uint8), size=body,
+                      p=counts / counts.sum()).astype(np.uint8)
+    raw = np.concatenate([head, np.full(n_deep, n_sym - 1, dtype=np.uint8)])
+    freqs = np.zeros(256, dtype=np.int64)
+    freqs[:n_sym] = counts
+    return raw, build_tree(freqs)
+
+
+def placed_lanes(rng, lane_bits, ORP):
+    """E3's inputs for lanes of ``lane_bits`` code bits cut from one random
+    bit stream, as shift_lanes would give them: (shifted (G, ORP) int32,
+    word_off (G,) int32, occ (G,) int32, shift (G,) int64, granules) where
+    ``granules`` (n,) int64 is the whole stream's u16 granules, what E3
+    must assemble."""
+    L = np.asarray(lane_bits, dtype=np.int64)
+    P = np.cumsum(L) - L
+    total = int(L.sum())
+    n = -(-total // 16)
+    bits = rng.integers(0, 2, size=n * 16).astype(np.int64)
+    bits[total:] = 0
+    gran = (bits.reshape(n, 16) << np.arange(16)).sum(axis=1)
+    a, W = P & 15, P >> 4
+    occ = np.where(L > 0, ((a + L - 1) >> 4) + 1, 0)
+    idx = W[:, None] + np.arange(ORP)[None, :]
+    lo = np.clip(P[:, None] - 16 * idx, 0, 16)
+    hi = np.clip((P + L)[:, None] - 16 * idx, 0, 16)
+    mask = np.where(hi > lo, ((1 << hi) - 1) & ~((1 << lo) - 1), 0)
+    keep = np.arange(ORP)[None, :] < np.minimum(occ, ORP)[:, None]
+    shifted = np.where(keep, gran[np.minimum(idx, n - 1)] & mask, 0)
+    return (shifted.astype(np.int32), W.astype(np.int32),
+            occ.astype(np.int32), a, gran)
