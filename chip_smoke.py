@@ -21,6 +21,10 @@ seeded streams, drawn in this order from one generator:
       splitting)
       (f)-(i) are under ONESHOT_MAX_BITS and one-shot eligible, so
       lane_wide decodes each in one launch of the fused kernel
+  then, drawn after them: five paper1-sized text streams over 84, 64, 96,
+  72 and 90 symbols (each its own tree) and a book2-sized text stream
+  (610,856 bytes); (a), (b) and (i) encoded again with a `.huffidx` index of
+  512, 1024 and 512 symbols a block, and (c) with one of 4096;
   and two encoder streams off the first plan: Fibonacci weights over 26
   symbols (24-bit deepest codes) with a tail run of the deepest symbol, at
   128 lanes, whose tail lanes overflow their dense rows, so encode_lanes
@@ -37,8 +41,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               and (b), k1_scan/K2/k3_fix/K4 on (c), candidate_scan/
               lane_scan on (d), the one-shot kernel on (f)-(i) (its whole
               dense rows, counts and total), the encoder's E1/E2/E3 on the
-              staging of (a), (b), (c), (e) and (f); bit-exact (tolerance
-              0), with both times from CUDA events
+              staging of (a), (b), (c), (e) and (f); K1's main scan
+              (k1_main) on the indexed (a), (b) and (i), the indexed lane
+              scan on the indexed (a) and (c); the batched K1/K3
+              (k1_scan2_c01, k3_fix2_c01) on the five small streams and on
+              (f), (g) and the book2-sized one; bit-exact (tolerance 0),
+              with both times from CUDA events
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
@@ -57,13 +65,32 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               input; the overflow stream re-runs E2 and E3 on the card
               (E1 once, E2 and E3 twice, one retry) and the long-code
               stream goes to encode_device (no E1-E3, one retry), both
-              byte-equal; encode_device on (a) is byte-equal.  For (a)-(c): the encode program's median time
-              (CUDA events) and split by kernel (torch.profiler), and the
-              walls (host clock) of the histogram and tree, the whole
-              staging, encode_lanes, encode_device and the host
-              encode_bytes
-  5. result   one JSON line for the kernels (times, launches, error, and
-              the bound: the bytes each must move at 3.35 TB/s), the card,
+              byte-equal; encode_device on (a) is byte-equal.  For
+              (a)-(c): the encode program's median time (CUDA events) and
+              split by kernel (torch.profiler), and the walls (host clock)
+              of the histogram and tree, the whole staging, encode_lanes,
+              encode_device and the host encode_bytes.
+              The indexed route, each decode counted on its own:
+              decode_widescan_indexed on the indexed (a), (b) and (i)
+              launches k1_main and K4 once each and nothing else; the
+              encode command writes (a) with --index 512, and
+              get_decoder("lane_dfa") on the file read back with its
+              sidecar launches the indexed lane scan alone; (c)'s index is
+              refused by the wide program (EnvelopeError) and lane_dfa
+              decodes it through the scan; the indexed program timed
+              against the discovery program and split by kernel
+              (torch.profiler), with the walls of both.
+              The batch route: decode_widescan_batch on the five small
+              streams, and with auto_split=False on (f), (g) and the
+              book2-sized one, launches k1_scan2_c01, K2, k3_fix2_c01 and
+              K4 once each; with (a) added and auto_split on, (a) decodes
+              alone through K1-K4; a batch holding (h) (255 states),
+              auto_split=False, raises EnvelopeError; each batch program
+              and each member's routed solo program timed (CUDA events),
+              the batch program split by kernel, and the walls of both
+  5. result   one JSON line for the sixteen kernels (times, launches,
+              error, and the bound: the bytes each must move at 3.35 TB/s),
+              the card,
               then the last line {"ok": true, "device": {...}}
 """
 
@@ -94,6 +121,15 @@ PAPER1_BYTES = 53_161
 NEWS_BYTES = 377_109
 ALPHA_BYTES = 256 << 10
 UNIFORM12_BYTES = 400_000
+#: the indexed streams and their index's symbols a block; the md = 1 stream
+#: whose index the wide program refuses and lane_dfa decodes
+INDEXED = {"a": 512, "b": 1024, "i": 512}
+INDEXED_MD1 = ("c", 4096)
+#: the batch streams: five paper1-sized text streams over these alphabet
+#: sizes, and a book2-sized text stream with (f) and (g) (the JAX package's
+#: ``batch`` suite: paper1, news, book2)
+BATCH_SYMBOLS = (84, 64, 96, 72, 90)
+BOOK2_BYTES = 610_856
 #: the card's memory rate (bytes/s): NVIDIA's data sheet, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
 TIMED_RUNS = 25
@@ -113,6 +149,9 @@ _CSRC = "huffmandecoderongpus_tpu_torch/csrc/"
 _PWS = "huffmandecoderongpus_tpu/ops/pallas_widescan.py:"
 _PLD = "huffmandecoderongpus_tpu/ops/pallas_lanedfa.py:"
 _PEN = "huffmandecoderongpus_tpu/ops/pallas_encode.py:"
+#: phase-3 results of the indexed and batch checks are keyed by these
+IDX = {k: f"{k}@{K}" for k, K in (*INDEXED.items(), INDEXED_MD1)}
+BATCH5, TRIO = "five small", "paper1+news+book2"
 #: name -> (CUDA source, the TPU kernel it replaces, the stream whose times
 #: the result line reports)
 KERNELS = {
@@ -129,7 +168,16 @@ KERNELS = {
     "e1_pack": (_CSRC + "e1_pack.cu", _PEN + "92", "a"),
     "e2_compact": (_CSRC + "e2_compact.cu", _PEN + "195", "a"),
     "e3_place": (_CSRC + "e3_place.cu", _PEN + "308", "a"),
+    "k1_main": (_CSRC + "k1_main.cu", _PWS + "819", IDX["a"]),
+    "lane_scan_indexed": (_CSRC + "lane_scan_indexed.cu", _PLD + "393",
+                          IDX["a"]),
+    "k1_scan2_c01": (_CSRC + "k1_scan2_c01.cu", _PWS + "762", TRIO),
+    "k3_fix2_c01": (_CSRC + "k3_fix2_c01.cu", _PWS + "1449", TRIO),
 }
+#: the kernels of the indexed wide program and of the batched program,
+#: once each a decode
+INDEXED_PATH = ("k1_main", "k4_compact")
+BATCH_PATH = ("k1_scan2_c01", "k2_compose", "k3_fix2_c01", "k4_compact")
 #: the encoder's kernels, which encode_lanes must launch once each
 ENCODE_PATH = ("e1_pack", "e2_compact", "e3_place")
 #: the streams whose staging phase 3 runs E1-E3 on, and those whose
@@ -162,12 +210,15 @@ DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "oneshot": ("oneshot_kernel",),
                   "e1_pack": ("e1_pack_kernel",),
                   "e2_compact": ("e2_compact_kernel",),
-                  "e3_place": ("e3_place_kernel",)}
+                  "e3_place": ("e3_place_kernel",),
+                  "k1_main": ("k1_main_kernel",),
+                  "k1_scan2_c01": ("k1_scan2_c01_kernel",),
+                  "k3_fix2_c01": ("k3_fix2_c01_kernel",)}
 
 
-def text_like(rng, n):
-    z = 1.0 / np.arange(1, TEXT_SYMBOLS + 1) ** 1.1
-    return rng.choice(np.arange(32, 32 + TEXT_SYMBOLS, dtype=np.uint8),
+def text_like(rng, n, symbols=TEXT_SYMBOLS):
+    z = 1.0 / np.arange(1, symbols + 1) ** 1.1
+    return rng.choice(np.arange(32, 32 + symbols, dtype=np.uint8),
                       size=n, p=z / z.sum()).astype(np.uint8)
 
 
@@ -452,6 +503,302 @@ def check_encoder(torch, name, raw, hf, dev):
     return rows
 
 
+def check_indexed(torch, name, raw, hf, dev):
+    """Phase 3 on an indexed stream: K1's main scan (``k1_main``) against
+    its plain version on the indexed staging, then K4 and the trim by the
+    index counts.  Returns and raises as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import k1_main, k4_compact
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    st = ws.stage_widescan_indexed(hf, *hf.index, device=dev)
+    p = st["plan"]
+    print(f"[kernels] {name}: {hf.bits} bits, {st['nb']} blocks, G={p['G']} "
+          f"steps_p={p['steps_p']} SEG={p['SEG']} md={st['md']} "
+          f"NS={st['NS']} ORP={p['ORP']}", flush=True)
+    wmat = ws.normalize_lane_words(st["raw"], st["sh"]).t().contiguous()
+    kw = dict(steps_p=p["steps_p"], md=st["md"], C0=st["C0"], C1=st["C1"],
+              NS=st["NS"])
+    rows = {}
+    sym, val = comparer(torch, name, rows)(
+        "k1_main", lambda: k1_main.k1_main(wmat, st["tab"], st["lim"], **kw),
+        lambda: k1_main.k1_main_ref(wmat, st["tab"], st["lim"], **kw),
+        (wmat, st["tab"], st["lim"]))
+    denseT = k4_compact.k4_compact(sym, val, ORP=p["ORP"])
+    counts = torch.from_numpy(st["counts"]).to(dev)
+    mask = torch.arange(p["ORP"], device=dev)[None, :] < counts[:, None]
+    if not np.array_equal(denseT[mask].cpu().numpy(), raw):
+        raise AssertionError(f"{name}: the indexed kernels decoded wrong")
+    print(f"[kernels] {name}: k1_main bit-exact; stream decoded", flush=True)
+    return rows
+
+
+def check_lanedfa_indexed(torch, name, raw, hf, dev):
+    """Phase 3 of the indexed lane scan on a stream's index, in lane_dfa's
+    geometry (one lane per block): kernel against plain version, sym on
+    every row.  Returns and raises as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import lane_scan_indexed as lsi
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    st = ld.stage_lanedfa_indexed(hf, hf.index[0], device=dev, tiled=False)
+    B, G = st["bits"].shape
+    print(f"[kernels] {name}: indexed lane scan G={G} B={B}", flush=True)
+    args = (st["bits"], st["tab"], st["lane_len"])
+    rows = {}
+    sym, valid = comparer(torch, name, rows)(
+        "lane_scan_indexed", lambda: lsi.lane_scan_indexed(*args),
+        lambda: lsi.lane_scan_indexed_ref(*args), args)
+    if not np.array_equal(sym.t()[valid.t() > 0].cpu().numpy(), raw):
+        raise AssertionError(f"{name}: the indexed lane scan decoded wrong")
+    print(f"[kernels] {name}: lane_scan_indexed bit-exact; stream decoded",
+          flush=True)
+    return rows
+
+
+def check_batch(torch, name, raws, hfs, dev):
+    """Phase 3 on a batch: the batched K1 and K3 (per-stream tables)
+    against their plain versions on the batch staging, K2 and K4 between
+    them, and every member's bytes.  Returns and raises as
+    check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import (
+        batch,
+        k1_scan2_c01,
+        k2_compose,
+        k3_fix2_c01,
+        k4_compact,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    st = batch.stage_batch_inputs(hfs, device=dev)
+    p = st["plan"]
+    H, md = st["H"], st["md"]
+    print(f"[kernels] {name}: {len(hfs)} streams, G={p['G']} B={p['B']} "
+          f"H={H} md={md} ORP={p['ORP']} lanes {st['g_live']} of "
+          f"{st['g_pad']}", flush=True)
+    wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+    tabs, c01, bs = st["tabs"], st["c01"], st["bstream"]
+    k1a = dict(B=p["B"], H=H, steps=p["steps"], steps_p=p["steps_p"],
+               SEG=p["SEG"], md=md)
+    rows = {}
+    compare = comparer(torch, name, rows)
+    sym, val, cntmap, exmap, mrowmap = compare(
+        "k1_scan2_c01",
+        lambda: k1_scan2_c01.k1_scan2_c01(wmat, tabs, st["lim"], c01, bs,
+                                          **k1a),
+        lambda: k1_scan2_c01.k1_scan2_c01_ref(wmat, tabs, st["lim"], c01, bs,
+                                              **k1a),
+        (wmat, tabs, st["lim"], c01, bs))
+    exmap[:, list(st["last_live"])] = 0
+    entry, _tot = k2_compose.k2_compose(exmap, 0)
+    cut, cut_slot = ws.fix_rows(entry, mrowmap, st["lim"], H, md)
+    kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=md)
+    s_k, v_k = sym.clone(), val.clone()
+    s_p, v_p = sym.clone(), val.clone()
+    msym, mval = compare(
+        "k3_fix2_c01",
+        lambda: k3_fix2_c01.k3_fix2_c01(wmat, tabs, entry, cut, cut_slot, s_k,
+                                        v_k, c01, bs, **kw),
+        lambda: k3_fix2_c01.k3_fix2_c01_ref(wmat, tabs, entry, cut, cut_slot,
+                                            s_p, v_p, c01, bs, **kw),
+        (), moved=k3_moved(tabs, cut, cut_slot) + nbytes(c01, bs))
+    denseT = k4_compact.k4_compact(msym, mval, ORP=p["ORP"])
+    n = ws.select_h(cntmap, entry, H)
+    mask = torch.arange(p["ORP"], device=dev)[None, :] < n[:, None]
+    for k, raw in enumerate(raws):
+        g0, gk = st["g0"][k], st["g_pad"][k]
+        if not np.array_equal(denseT[g0:g0 + gk][mask[g0:g0 + gk]].cpu()
+                              .numpy(), raw):
+            raise AssertionError(f"{name}: member {k} decoded wrong")
+    print(f"[kernels] {name}: k1_scan2_c01 and k3_fix2_c01 bit-exact; every "
+          "member decoded", flush=True)
+    return rows
+
+
+def counted(torch, mods, fn):
+    """fn()'s result and the kernels it launched, the counts of ``mods``
+    set to 0 just before and read just after."""
+    for m in mods.values():
+        m.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: m.launches for n, m in mods.items() if m.launches}
+
+
+def expect(what, ok, ran, path):
+    """Raise unless ``ok`` and the launches ``ran`` are ``path``."""
+    print(f"[slice] {what}: equal to the input: {ok}; launches {ran}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{what}: decoded bytes differ")
+    if ran != path:
+        raise AssertionError(f"{what}: launched {ran}, expected {path}")
+
+
+def drive_indexed(torch, mods, hfs, idx, dev, card):
+    """Phase 4 of the indexed route: decode_widescan_indexed on the indexed
+    (a), (b) and (i); the encode command's (a) with --index 512 read back
+    and decoded by lane_dfa; (c)'s index refused by the wide program and
+    decoded by lane_dfa; then the indexed and the discovery programs'
+    times.  Raises on any failure; returns the launches summed."""
+    import tempfile
+
+    from huffmandecoderongpus_tpu_torch.harness import cli
+    from huffmandecoderongpus_tpu_torch.huffio import read_huff
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    total = dict.fromkeys(mods, 0)
+
+    def add(ran):
+        for n, c in ran.items():
+            total[n] += c
+
+    for k in INDEXED:
+        name, r, h = idx[k]
+        out, ran = counted(torch, mods, lambda h=h: ws.decode_widescan_indexed(
+            h, *h.index, device=DEVICE))
+        expect(f"decode_widescan_indexed {name}", np.array_equal(out, r),
+               ran, dict.fromkeys(INDEXED_PATH, 1))
+        add(ran)
+    name, r, h = idx["a"]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = pathlib.Path(tmp) / "a.bin"
+        r.tofile(src)
+        cli.main(["encode", str(src), "--index", str(INDEXED["a"])])
+        back = read_huff(str(src) + ".huff")
+    if back.index is None or not np.array_equal(back.index[0], h.index[0]):
+        raise AssertionError("the encode command's sidecar did not load or "
+                             "differs from the host index")
+    out, ran = counted(torch, mods, lambda: get_decoder(
+        "lane_dfa", device=DEVICE)(back))
+    expect(f"lane_dfa on {name} read back with its sidecar",
+           np.array_equal(out, r), ran, {"lane_scan_indexed": 1})
+    add(ran)
+    name, r, h = idx[INDEXED_MD1[0]]
+    try:
+        ws.decode_widescan_indexed(h, *h.index, device=DEVICE)
+        raise AssertionError(f"{name}: the wide program took an md=1 index")
+    except ws.EnvelopeError as e:
+        print(f"[slice] decode_widescan_indexed {name}: EnvelopeError ({e})",
+              flush=True)
+    out, ran = counted(torch, mods, lambda: get_decoder(
+        "lane_dfa", device=DEVICE)(h))
+    expect(f"lane_dfa {name}", np.array_equal(out, r), ran,
+           {"lane_scan_indexed": 1})
+    add(ran)
+
+    for k in INDEXED:
+        name, r, h = idx[k]
+        st = ws.stage_widescan_indexed(h, *h.index, device=dev)
+        sd = ws.stage_widescan_inputs(h, device=dev)
+        fns = {"indexed": lambda st=st: ws.wide_decode_indexed_program(
+                   st["raw"], st["sh"], st["tab"], st["lim"],
+                   **ws.indexed_args(st)),
+               "discovery": lambda sd=sd: ws.wide_decode_program(
+                   sd["words"], sd["tab"], sd["lim"], **ws.program_args(sd))}
+        med = {}
+        for route, fn in fns.items():
+            ts = cuda_ms(torch, fn, WARMUP + TIMED_RUNS)[WARMUP:]
+            med[route] = (statistics.median(ts), min(ts))
+        walls = {"indexed": wall_ms(torch, lambda h=h: ws.decode_widescan_indexed(
+                     h, *h.index, device=dev)),
+                 "discovery": wall_ms(torch, lambda h=h: ws.decode_widescan(
+                     h, device=dev, oneshot=False))}
+        print(f"[slice] {name}: device program median over {TIMED_RUNS} runs "
+              + "  ".join(f"{rt} {m:.4f} ms (min {mn:.4f})"
+                          for rt, (m, mn) in med.items())
+              + f"; G indexed {st['plan']['G']} (steps_p "
+              f"{st['plan']['steps_p']}), discovery {sd['plan']['G']} (B "
+              f"{sd['plan']['B']}); decode wall median over {WALL_RUNS} runs "
+              + "  ".join(f"{rt} {m:.4f} ms (min {mn:.4f})"
+                          for rt, (m, mn) in walls.items())
+              + f"; card {card}", flush=True)
+        split = device_breakdown(torch, fns["indexed"])
+        print(f"[slice] {name}: indexed program device ms (profiler) "
+              + "  ".join(f"{n} {v:.4f}" for n, v in split.items()),
+              flush=True)
+    return total
+
+
+def drive_batch(torch, mods, hfs, small, trio, dev, card):
+    """Phase 4 of the batch route: the five small streams in one program
+    (auto-split keeps them together), (f), (g) and the book2-sized one with
+    auto_split=False, (a) plus the five small ones with auto_split (a
+    solo), a batch holding (h) refused; then the batch programs' times and
+    each member's routed solo program and walls.  Raises on any failure;
+    returns the launches summed."""
+    from huffmandecoderongpus_tpu_torch.ops import batch, oneshot
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    total = dict.fromkeys(mods, 0)
+
+    def run(what, members, path, **kw):
+        raws = [r for _n, r, _h in members]
+        outs, ran = counted(torch, mods, lambda: batch.decode_widescan_batch(
+            [h for _n, _r, h in members], device=DEVICE, **kw))
+        ok = len(outs) == len(raws) and all(
+            np.array_equal(o, r) for o, r in zip(outs, raws))
+        expect(what, ok, ran, path)
+        for n, c in ran.items():
+            total[n] += c
+
+    run(f"decode_widescan_batch {BATCH5}", small,
+        dict.fromkeys(BATCH_PATH, 1))
+    run(f"decode_widescan_batch {TRIO}, auto_split=False", trio,
+        dict.fromkeys(BATCH_PATH, 1), auto_split=False)
+    run(f"decode_widescan_batch (a) + {BATCH5}, auto_split", [hfs["a"]]
+        + small, dict(k1_scan2=1, k3_fix2=1, k1_scan2_c01=1, k3_fix2_c01=1,
+                      k2_compose=2, k4_compact=2))
+    try:  # (h) is past BATCH_SOLO_BITS: auto-split would decode it alone
+        batch.decode_widescan_batch([h for _n, _r, h in small]
+                                    + [hfs["h"][2]], device=DEVICE,
+                                    auto_split=False)
+        raise AssertionError("a batch holding (h) was not refused")
+    except ws.EnvelopeError as e:
+        print(f"[slice] decode_widescan_batch {BATCH5} + (h): EnvelopeError "
+              f"({e})", flush=True)
+
+    for what, members in ((BATCH5, small), (TRIO, trio)):
+        hl = [h for _n, _r, h in members]
+        st = batch.stage_batch_inputs(hl, device=dev)
+
+        def program(st=st):
+            return batch.batch_decode_program(*batch.batch_inputs(st),
+                                              **batch.batch_args(st))
+
+        ts = cuda_ms(torch, program, WARMUP + TIMED_RUNS)[WARMUP:]
+        solo = []
+        for h in hl:  # the program decode_widescan routes the member to
+            s2 = ws.stage_widescan_inputs(h, device=dev)
+            if h.bits < ws.ONESHOT_MAX_BITS and oneshot.oneshot_eligible(s2):
+                fn = (lambda s2=s2: oneshot.oneshot_program(
+                    s2["words"], s2["tab"], s2["lim"],
+                    **oneshot.program_args(s2)))
+            else:
+                fn = (lambda s2=s2: ws.wide_decode_program(
+                    s2["words"], s2["tab"], s2["lim"],
+                    **ws.program_args(s2)))
+            solo.append(statistics.median(
+                cuda_ms(torch, fn, WARMUP + TIMED_RUNS)[WARMUP:]))
+        wall_b = wall_ms(torch, lambda hl=hl: batch.decode_widescan_batch(
+            hl, device=dev, auto_split=False))
+        wall_s = [wall_ms(torch, lambda h=h: ws.decode_widescan(h, device=dev))
+                  for h in hl]
+        print(f"[slice] {what}: batch program median {statistics.median(ts):.4f}"
+              f" ms (min {min(ts):.4f}) over {TIMED_RUNS} runs, G="
+              f"{st['plan']['G']} B={st['plan']['B']}; solo programs "
+              + " + ".join(f"{t:.4f}" for t in solo)
+              + f" = {sum(solo):.4f} ms; walls median batch "
+              f"{wall_b[0]:.4f} ms, solo "
+              + " + ".join(f"{w[0]:.4f}" for w in wall_s)
+              + f" = {sum(w[0] for w in wall_s):.4f} ms; card {card}",
+              flush=True)
+        split = device_breakdown(torch, program)
+        print(f"[slice] {what}: batch program device ms (profiler) "
+              + "  ".join(f"{n} {v:.4f}" for n, v in split.items()),
+              flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -470,13 +817,17 @@ def main() -> int:
     from huffmandecoderongpus_tpu_torch.ops import (
         _build,
         candidate_scan,
+        k1_main,
         k1_scan,
         k1_scan2,
+        k1_scan2_c01,
         k2_compose,
         k3_fix,
         k3_fix2,
+        k3_fix2_c01,
         k4_compact,
         lane_scan,
+        lane_scan_indexed,
         oneshot,
     )
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
@@ -485,7 +836,9 @@ def main() -> int:
             "k3_fix2": k3_fix2, "k4_compact": k4_compact,
             "k1_scan": k1_scan, "k3_fix": k3_fix,
             "candidate_scan": candidate_scan, "lane_scan": lane_scan,
-            "oneshot": oneshot}
+            "oneshot": oneshot, "k1_main": k1_main,
+            "lane_scan_indexed": lane_scan_indexed,
+            "k1_scan2_c01": k1_scan2_c01, "k3_fix2_c01": k3_fix2_c01}
     dev = torch.device(DEVICE)
 
     # ---- 1. device ----------------------------------------------------------
@@ -522,12 +875,31 @@ def main() -> int:
     streams["i"] = ("400KB uniform over 12", uniform12(rng, UNIFORM12_BYTES))
     hfs = {k: (f"{k} {name}", r, encode_bytes(r))
            for k, (name, r) in streams.items()}
+    small = []
+    for j, n_sym in enumerate(BATCH_SYMBOLS):
+        r = text_like(rng, PAPER1_BYTES, n_sym)
+        small.append((f"paper1-sized text over {n_sym} symbols", r,
+                      encode_bytes(r)))
+    r = text_like(rng, BOOK2_BYTES)
+    trio = [hfs["f"], hfs["g"], ("book2-sized text", r, encode_bytes(r))]
+    idx = {k: (f"{k} {streams[k][0]}, index every {K} symbols",
+               streams[k][1], encode_bytes(streams[k][1], block_symbols=K))
+           for k, K in (*INDEXED.items(), INDEXED_MD1)}
     checked = {k: check_kernels(torch, *hfs[k], dev) for k in "abc"}
     checked["d"] = check_lanedfa(torch, *hfs["d"], dev)
     for k in ONESHOT:
         checked[k] = check_oneshot(torch, *hfs[k], dev)
     for k in ENCODE_CHECKED:
         checked.setdefault(k, {}).update(check_encoder(torch, *hfs[k], dev))
+    for k in INDEXED:
+        checked[IDX[k]] = check_indexed(torch, *idx[k], dev)
+    for k in ("a", INDEXED_MD1[0]):
+        checked.setdefault(IDX[k], {}).update(
+            check_lanedfa_indexed(torch, *idx[k], dev))
+    for what, members in ((BATCH5, small), (TRIO, trio)):
+        checked[what] = check_batch(torch, what,
+                                    [r for _n, r, _h in members],
+                                    [h for _n, _r, h in members], dev)
 
     # ---- 4. the slice through the registry ----------------------------------
     def drive(decoder, k):
@@ -536,13 +908,10 @@ def main() -> int:
         the kernels of its path each launched once.  Returns the counts."""
         name, r, h = hfs[k]
         paths = PATHS if decoder == "lane_wide" else ONESHOT_PATHS
-        for m in mods.values():
-            m.launches = 0
         t0 = time.perf_counter()
-        out = get_decoder(decoder, device=DEVICE)(h)
-        torch.cuda.synchronize()
+        out, ran = counted(torch, mods, lambda: get_decoder(
+            decoder, device=DEVICE)(h))
         wall = time.perf_counter() - t0
-        ran = {n: m.launches for n, m in mods.items() if m.launches}
         ok = np.array_equal(out, r)
         print(f"[slice] {decoder} {name}: {r.size} bytes, {h.bits} bits, "
               f"first decode {wall:.3f} s wall, equal to the input: {ok}; "
@@ -561,7 +930,8 @@ def main() -> int:
     print(f"[slice] launches on the decode paths: {launches}; (d) fell back "
           "to the lane-DFA chain after the wide program, (f)-(i) took the "
           "one-shot alone", flush=True)
-    if min(launches.values()) < 1:
+    lane_wide = {n for path in PATHS.values() for n in path}
+    if min(launches[n] for n in lane_wide) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     for k in ONESHOT_PATHS:
         drive("lane_oneshot", k)
@@ -596,6 +966,13 @@ def main() -> int:
         print(f"[slice] {name}: decode wall median {med:.4f} ms over "
               f"{WALL_RUNS} runs (min {mn:.4f}), staging to host bytes; "
               f"card {card}", flush=True)
+    # the indexed and batch routes, each decode counted on its own
+    for route in (drive_indexed(torch, mods, hfs, idx, dev, card),
+                  drive_batch(torch, mods, hfs, small, trio, dev, card)):
+        for n, c in route.items():
+            launches[n] += c
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
     # the encoder's launches are counted apart from the decode paths' check
     launches.update(drive_encoder(torch, hfs, dev, card))
 

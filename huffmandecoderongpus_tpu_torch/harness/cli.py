@@ -2,11 +2,14 @@
 
     python -m huffmandecoderongpus_tpu_torch encode x.bin [x.huff] [--index K]
     python -m huffmandecoderongpus_tpu_torch decode x.huff [out.bin]
+        [--decoder NAME]
 
 ``encode`` compresses a file with the lane-parallel encoder
 (``ops.encode.encode_lanes``) into ``x.huff`` (default: the input's name
 plus ``.huff``), with ``--index K`` also a ``.huffidx`` sidecar of every
-K-th symbol's bit offset, and prints a summary line.  ``decode`` writes the
+K-th symbol's bit offset, and prints a summary line.  ``decode`` reads the
+file and its verified sidecar, decodes with ``--decoder`` (default
+``lane_wide``; ``lane_dfa`` decodes through a sidecar) and writes the
 decoded bytes (to stdout without an output path).  With ``--verify RAW`` it
 instead byte-compares the decode with the raw file and then times it: the
 minimum wall time over the checked run and ``--repeats`` more.  Both run on
@@ -77,6 +80,8 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "kernels' plain versions)")
+    p.add_argument("--decoder", default="lane_wide",
+                   help="decode: the registry's decoder (default lane_wide)")
     p.add_argument("--index", type=int, metavar="K", default=None,
                    help="encode: also write a .huffidx sidecar every K "
                         "symbols")
@@ -92,7 +97,7 @@ def main(argv=None) -> None:
         encode(src, dst, ns.index, ns.device)
         return
     hf = read_huff(src)
-    dec = get_decoder("lane_wide", device=ns.device)
+    dec = get_decoder(ns.decoder, device=ns.device)
     if ns.verify:
         verify_and_time(dec, hf, np.fromfile(ns.verify, dtype=np.uint8), src,
                         ns.repeats)

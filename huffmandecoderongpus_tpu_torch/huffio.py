@@ -16,8 +16,9 @@ the stream being ``(payload[p//8] >> (p%8)) & 1``.  A 0-bit descends
 Sidecar layout (``<name>.huffidx``, big-endian like the container): magic
 ``b"HIDX"``; int32 version (2), block_symbols K, n_blocks and a crc32
 binding the index to (bits, uncompressed_size, payload); then n_blocks
-int64 bit offsets, of symbols 0, K, 2K, ...  The reader here does not load
-sidecars: nothing in the port decodes by an index yet.
+int64 bit offsets, of symbols 0, K, 2K, ...  ``read_huff`` loads the
+sidecar beside a `.huff` and checks its binding; a missing, corrupt or
+stale one leaves ``index`` None.
 """
 
 from __future__ import annotations
@@ -75,8 +76,10 @@ class HuffFile:
         return 4 + _HEADER.size + 9 * self.nodes + self.payload_bytes
 
 
-def read_huff(path) -> HuffFile:
-    """Parse a `.huff` file; raises ValueError on a malformed one."""
+def read_huff(path, load_index: bool = True) -> HuffFile:
+    """Parse a `.huff` file; raises ValueError on a malformed one.  With
+    ``load_index``, a verified ``<path>idx`` sidecar becomes ``index``
+    (``find_index``)."""
     with open(path, "rb") as f:
         raw = f.read()
     if raw[:4] != MAGIC:
@@ -100,8 +103,12 @@ def read_huff(path) -> HuffFile:
     validate_tree(tree, what=str(path))
     payload = np.frombuffer(raw, dtype=np.uint8, count=nbytes,
                             offset=off + 9 * nodes).copy()
+    index = None
+    if load_index:
+        index = find_index(path, bits=bits, uncompressed_size=size,
+                           payload=payload)
     return HuffFile(tree=tree, bits=bits, uncompressed_size=size,
-                    payload=payload)
+                    payload=payload, index=index)
 
 
 def write_huff(path, hf: HuffFile) -> None:
@@ -171,6 +178,23 @@ def read_index(path) -> tuple[np.ndarray, int, int]:
     offsets = np.frombuffer(raw, dtype=">i8", count=n,
                             offset=_INDEX_HEADER.size)
     return offsets.astype(np.int64), k, crc
+
+
+def find_index(huff_path, *, bits: int, uncompressed_size: int,
+               payload: np.ndarray) -> tuple[np.ndarray, int] | None:
+    """``(offsets, block_symbols)`` of the sidecar beside a `.huff` file, or
+    None when there is none, it is unreadable or of another version, or its
+    binding crc does not match (bits, uncompressed_size, payload)."""
+    p = index_path(huff_path)
+    if not p.exists():
+        return None
+    try:
+        offsets, k, crc = read_index(p)
+    except (ValueError, struct.error, OSError):
+        return None
+    if crc != payload_binding(bits, uncompressed_size, payload):
+        return None
+    return offsets, k
 
 
 def unpack_bits(payload: np.ndarray, bits: int) -> np.ndarray:

@@ -8,6 +8,7 @@ from huffmandecoderongpus_tpu_torch.models import register
 from huffmandecoderongpus_tpu_torch.ops.lanedfa import EnvelopeError
 from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import (
     decode_lanedfa,
+    decode_lanedfa_indexed,
     decode_lanedfa_tiled,
 )
 from huffmandecoderongpus_tpu_torch.ops.oneshot import decode_oneshot
@@ -16,12 +17,15 @@ from huffmandecoderongpus_tpu_torch.ops.widescan import decode_widescan
 
 @register("lane_dfa", backend="cuda")
 def lane_dfa(hf, param=None, *, device) -> np.ndarray:
-    """Lane-parallel bit DFA with candidate discovery
-    (ops/lanedfa_decode.py, the JAX package's XLA geometry).  ``param``
-    optionally sets the lane count."""
-    if getattr(hf, "index", None) is not None:
-        raise EnvelopeError("a .huffidx sidecar needs the indexed path "
-                            "(ROADMAP Queue 1 item 7)")
+    """Lane-parallel bit DFA (ops/lanedfa_decode.py, the JAX package's XLA
+    geometry): through the `.huffidx` block index when the HuffFile carries
+    one (one lane per block, no entry discovery), else with candidate
+    discovery.  ``param`` optionally sets the discovery path's lane
+    count."""
+    index = getattr(hf, "index", None)
+    if index is not None:
+        offsets, k = index
+        return decode_lanedfa_indexed(hf, offsets, k, device=device)
     return decode_lanedfa(hf, device=device, lanes=param)
 
 
@@ -39,7 +43,9 @@ def lane_wide(hf, param=None, *, device) -> np.ndarray:
     (ops/oneshot.py), the others through the K1-K4 CUDA kernels (the 1-bit
     K1/K3 for min code length 1), and the lane-DFA chain for the streams
     outside their envelope; on the CPU the kernels' plain torch versions.
-    ``param`` optionally sets the lane count."""
+    A `.huffidx` index is not used, as in the JAX package
+    (``decode_widescan_indexed`` takes it through the ops API).  ``param``
+    optionally sets the lane count."""
     return decode_widescan(hf, device=device, lanes=param)
 
 

@@ -26,7 +26,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
            "k1_scan.cu", "k3_fix.cu", "candidate_scan.cu", "lane_scan.cu",
-           "oneshot.cu", "e1_pack.cu", "e2_compact.cu", "e3_place.cu")
+           "oneshot.cu", "e1_pack.cu", "e2_compact.cu", "e3_place.cu",
+           "k1_main.cu", "lane_scan_indexed.cu", "k1_scan2_c01.cu",
+           "k3_fix2_c01.cu")
 HEADERS = ("widescan.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -68,6 +70,16 @@ _SIGNATURES = {
     "ws_e2_compact": [_P] * 3 + [_I] * 3 + [_P],
     # shifted, word_off, occ, out, G, ORP, n_out, stream
     "ws_e3_place": [_P] * 4 + [_I] * 2 + [_LL, _P],
+    # wmat, tab, lim, sym, val, G, steps_w, steps_p, md, C0, C1, NS, stream
+    "ws_k1_main": [_P] * 5 + [_I] * 7 + [_P],
+    # bits, tab, lane_len, sym, valid, G, B, tab_words, stream
+    "ws_lane_scan_indexed": [_P] * 5 + [_I] * 3 + [_P],
+    # wmat, tabs, lim, c01, bstream, sym, val, cntmap, exmap, mrowmap,
+    # G, steps_w, B, H, steps, steps_p, SEG, md, stream
+    "ws_k1_scan2_c01": [_P] * 10 + [_I] * 8 + [_P],
+    # wmat, tabs, ent, cut, cutsl, c01, bstream, sym, val,
+    # G, steps_w, steps_p, SEG, md, stream
+    "ws_k3_fix2_c01": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
 """K1: chunked main scan + self-synchronizing candidate discovery.
 
 Replaces ``huffmandecoderongpus_tpu/ops/pallas_widescan.py`` ``k1_scan2`` /
-``_k1_kernel2`` (md >= 2 trees; the batched ``c01``/``tab_bounds`` variants
-and ``discover=False`` are not ported).  CUDA source: ``csrc/k1_scan2.cu``.
+``_k1_kernel2`` (md >= 2 trees).  CUDA source: ``csrc/k1_scan2.cu``.  The
+batched ``c01``/``tab_bounds`` variant is ``k1_scan2_c01.py`` and
+``discover=False`` is ``k1_main.py``.
 
 Every lane walks its B bits (plus an H-bit halo into the next lane) two bits
 per step through the quad table: the main chain (entry offset 0) writes the
@@ -77,9 +78,11 @@ def k1_scan2(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1, NS):
 
 
 def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
-                 NS):
+                 NS, tbase=0):
     """Plain torch K1: vectorized over lanes (and chains), a Python loop
-    over chunk rows.
+    over chunk rows.  ``C0``/``C1`` are ints or per-lane (G,) tensors, and
+    ``tbase`` each lane's offset into a stack of tables (the batched
+    decode's per-stream tables, ``k1_scan2_c01``).
 
     Three passes over the whole lane, each finishing before the next starts:
     the main chain (its per-row post-chunk state, -1 once it has exited,
@@ -117,7 +120,8 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
     nib = torch.zeros((cells_p, G), **i64)
     for i in range(nrows):
         jbit, b0, b1, valid, rc = rows(i)
-        e = torch.where(valid, quad_entry(tabf, NS, node0, b0, b1), 0)
+        e = torch.where(valid, quad_entry(tabf, NS, node0, b0, b1, tbase),
+                        0)
         emit, pos, sym, node0 = decode_entry(e, NS, rc)
         emit = emit * (1 - done0)
         exiting = emit * (jbit + pos + 1 >= B)
@@ -139,7 +143,7 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
     lcn = torch.empty((nrows, NL, G), **i64)
     for i in range(nrows):
         jbit, b0, b1, valid, rc = rows(i)
-        e = torch.where(valid, quad_entry(tabf, NS, node, b0, b1), 0)
+        e = torch.where(valid, quad_entry(tabf, NS, node, b0, b1, tbase), 0)
         emit, pos, _, nst = decode_entry(e, NS, rc)
         alive = 1 - (rec & 1)
         started = (jbit >= srow).to(torch.int64)
@@ -173,7 +177,7 @@ def k1_scan2_ref(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1,
     cum = torch.zeros_like(node)
     for i in range(nrows if NF else 0):
         jbit, b0, b1, valid, rc = rows(i)
-        e = torch.where(valid, quad_entry(tabf, NS, node, b0, b1), 0)
+        e = torch.where(valid, quad_entry(tabf, NS, node, b0, b1, tbase), 0)
         emit, pos, _, nst = decode_entry(e, NS, rc)
         alive = 1 - (rec & 1)
         started = (jbit >= frow).to(torch.int64)

@@ -1,8 +1,8 @@
 """K3: fix scan + splice for lanes whose true entry offset is nonzero.
 
 Replaces ``huffmandecoderongpus_tpu/ops/pallas_widescan.py`` ``k3_fix2`` /
-``_k3_kernel2`` (the batched ``c01`` variant is not ported).  CUDA source:
-``csrc/k3_fix2.cu``.
+``_k3_kernel2``.  CUDA source: ``csrc/k3_fix2.cu``.  The batched ``c01``
+variant is ``k3_fix2_c01.py``.
 
 A lane with entry ``ent > 0`` re-decodes from bit ``ent`` (an odd entry
 starts mid-chunk: that chunk is a root step on its second bit) up to its
@@ -58,9 +58,10 @@ def k3_fix2(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, C0,
 
 
 def k3_fix2_ref(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md,
-                C0, C1, NS):
+                C0, C1, NS, tbase=0):
     """Plain torch K3 (in place): vectorized over lanes, a Python loop over
-    chunk rows up to the last segment any lane's cut reaches."""
+    chunk rows up to the last segment any lane's cut reaches.  ``C0``/``C1``
+    and ``tbase`` as in ``k1_scan2_ref``."""
     G = ent.shape[0]
     dev = ent.device
     nseg = min(-(-int(cut.max().clamp(min=0)) // SEG), steps_p // SEG)
@@ -77,7 +78,8 @@ def k3_fix2_ref(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md,
         b0, b1 = b0s[i], b1s[i]
         rc = torch.where(b1 > 0, C1, C0)
         started = jbit >= ent64
-        e = torch.where(started, quad_entry(tabf, NS, node, b0, b1), 0)
+        e = torch.where(started, quad_entry(tabf, NS, node, b0, b1, tbase),
+                        0)
         emit, pos, s, nfull = decode_entry(e, NS, rc)
         node = torch.where(started, nfull, node)
         node = torch.where(ent64 == jbit + 1, rc, node)

@@ -2,8 +2,9 @@
 
 Port of ``decode_lanedfa_pallas`` (``huffmandecoderongpus_tpu/ops/
 pallas_lanedfa.py``, candidate discovery) and of ``decode_lanedfa`` and
-``_compose`` (``ops/lanedfa.py``, without the sidecar ``entries``).  The
-decode cuts the stream into G lanes of B bits, each column of the bit
+``_compose`` (``ops/lanedfa.py``, without the sidecar ``entries``), and of
+the sidecar decodes ``decode_lanedfa_indexed`` (``ops/lanedfa.py``) and
+``decode_lanedfa_indexed_pallas``.  The discovery decode cuts the stream into G lanes of B bits, each column of the bit
 matrix (``lanedfa.bits_matrix``) holding its lane's bits and H more:
 
   candidate_scan  H chains per lane from every entry offset -> cnt, exit
@@ -13,7 +14,9 @@ matrix (``lanedfa.bits_matrix``) holding its lane's bits and H more:
 and the host keeps the valid symbols, lane by lane.  The JAX package runs
 the two scans as Pallas kernels, or, for streams under ``LANE_TILE * H``
 bits, as XLA scans that compute the same; the port runs both geometries
-through the one pair of kernel wrappers.
+through the one pair of kernel wrappers.  With a `.huffidx` block index
+each block is a lane that starts at the root and ends at its exact length,
+so one scan (``lane_scan_indexed``) decodes it, in either geometry.
 """
 
 from __future__ import annotations
@@ -22,7 +25,11 @@ import numpy as np
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops.candidate_scan import candidate_scan
+from huffmandecoderongpus_tpu_torch.huffio import unpack_bits
 from huffmandecoderongpus_tpu_torch.ops.lane_scan import lane_scan
+from huffmandecoderongpus_tpu_torch.ops.lane_scan_indexed import (
+    lane_scan_indexed,
+)
 from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     LANE_TILE,
     bits_matrix,
@@ -125,8 +132,73 @@ def _decode(hf, st: dict, check_size: bool) -> np.ndarray:
     if check_size and total != hf.uncompressed_size:
         raise RuntimeError(
             f"decoded {total} symbols, header says {hf.uncompressed_size}")
+    return _emitted(hf, sym, valid, check_size)
+
+
+def _emitted(hf, sym, valid, check_size: bool) -> np.ndarray:
+    """The valid symbols of (sym, valid) (rows, G), lane by lane, on the
+    host."""
     out = sym.t()[valid.t() > 0].cpu().numpy()
     if check_size and out.size != hf.uncompressed_size:
         raise RuntimeError(
             f"emitted {out.size} symbols, header says {hf.uncompressed_size}")
     return out
+
+
+def stage_lanedfa_indexed(hf, offsets, *, device, tiled=True) -> dict:
+    """The indexed scan's inputs: the bit matrix ``bits`` (B, G) uint8,
+    column g the bits of index block g from its offset on (zero past the
+    stream end), the padded table ``tab`` and the block lengths
+    ``lane_len`` (G,) int32, on ``device``; B is the longest block.
+    ``tiled`` pads the lanes to whole ``LANE_TILE`` multiples with
+    zero-length lanes (``decode_lanedfa_indexed_pallas``'s geometry), else
+    G is the number of blocks (``decode_lanedfa_indexed``'s).  Raises
+    ValueError for offsets not increasing from 0."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    G0 = offsets.shape[0]
+    lens = np.append(offsets[1:], hf.bits) - offsets
+    if np.any(lens < 0) or (G0 and offsets[0] != 0):
+        raise ValueError("corrupt block index: offsets not increasing from 0")
+    B = int(lens.max(initial=1))
+    G = -(-G0 // LANE_TILE) * LANE_TILE if tiled else G0
+    offs = np.zeros(G, dtype=np.int64)
+    offs[:G0] = offsets
+    lane_len = np.zeros(G, dtype=np.int32)
+    lane_len[:G0] = lens
+    flat = np.zeros(hf.bits + B, dtype=np.uint8)
+    flat[:hf.bits] = unpack_bits(hf.payload, hf.bits)
+    mat = flat[offs[None, :] + np.arange(B, dtype=np.int64)[:, None]]
+    dfa = build_lane_dfa(hf.tree)
+    return dict(bits=torch.from_numpy(mat).to(device),
+                tab=torch.from_numpy(pad_table(dfa.entry)).to(device),
+                lane_len=torch.from_numpy(lane_len).to(device))
+
+
+def decode_lanedfa_indexed(hf, offsets, block_symbols: int, *, device,
+                           check_size=True) -> np.ndarray:
+    """Sidecar decode in the JAX package's XLA geometry (one lane per index
+    block): no entry discovery, each block scanned from the root to its
+    exact length.  ``block_symbols`` is the index's; the scan needs only
+    the offsets."""
+    del block_symbols
+    return _decode_indexed(hf, offsets, device, False, check_size)
+
+
+def decode_lanedfa_indexed_tiled(hf, offsets, block_symbols: int, *, device,
+                                 check_size=True) -> np.ndarray:
+    """Sidecar decode in the JAX package's Pallas geometry
+    (``decode_lanedfa_indexed_pallas``): the lanes padded to whole
+    ``LANE_TILE`` multiples; under ``LANE_TILE // 4`` blocks,
+    ``decode_lanedfa_indexed``'s geometry, as there."""
+    if np.asarray(offsets).shape[0] < LANE_TILE // 4:
+        return decode_lanedfa_indexed(hf, offsets, block_symbols,
+                                      device=device, check_size=check_size)
+    return _decode_indexed(hf, offsets, device, True, check_size)
+
+
+def _decode_indexed(hf, offsets, device, tiled: bool,
+                    check_size: bool) -> np.ndarray:
+    device = require_device(device)
+    st = stage_lanedfa_indexed(hf, offsets, device=device, tiled=tiled)
+    sym, valid = lane_scan_indexed(st["bits"], st["tab"], st["lane_len"])
+    return _emitted(hf, sym, valid, check_size)

@@ -36,10 +36,12 @@ def chunk_rows(wmat: torch.Tensor, nrows: int):
     return (w >> sh) & 1, (w >> (sh + 1)) & 1
 
 
-def quad_entry(tab: torch.Tensor, NS: int, node, b0, b1):
+def quad_entry(tab: torch.Tensor, NS: int, node, b0, b1, base=0):
     """16-bit chunk entry of state ``node`` for chunk bits (b0, b1);
-    ``tab`` is the (2 * NS * 128,) int64 flattened quad table."""
-    idx = (b0 * NS + (node >> 7)) * 128 + (node & 127)
+    ``tab`` is the (2 * NS * 128,) int64 flattened quad table, or several
+    stacked, each lane's starting at its ``base`` (G,) (a batch's
+    per-stream tables)."""
+    idx = base + (b0 * NS + (node >> 7)) * 128 + (node & 127)
     return (tab[idx] >> (b1 << 4)) & 0xFFFF
 
 

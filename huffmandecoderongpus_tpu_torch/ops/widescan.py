@@ -21,13 +21,23 @@ one launch (``oneshot.py``).  A stream outside the program's envelope
 (staging raises :class:`EnvelopeError`) or a lane overflowing its dense row
 decodes through the lane-DFA chain (``lanedfa.decode_lanedfa_tiled``) on the
 same device; nothing else falls back.
+
+With a `.huffidx` block index, ``decode_widescan_indexed`` runs the indexed
+program instead: every block is a lane starting at the DFA root, so the lane
+words are aligned on the device (``normalize_lane_words``), K1 runs its main
+scan alone (``k1_main``) and K4 compacts; no K2 or K3, and the counts come
+from the index.  ``lane_wide`` does not take this route, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from huffmandecoderongpus_tpu_torch.ops.k1_main import k1_main
 from huffmandecoderongpus_tpu_torch.ops.k1_scan import k1_scan
 from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import k1_scan2
 from huffmandecoderongpus_tpu_torch.ops.k2_compose import k2_compose
@@ -45,6 +55,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import (
     decode_lanedfa_tiled,
     require_device,
 )
+from huffmandecoderongpus_tpu_torch.ops.quad import CELL, to_i32, u32
 
 MAX_STATES = 127  # compact-entry limit: the state field is 7 bits
 MAX_STATES_WIDE = 1023  # LaneDFA STATE_MASK bound; wide entries hold 15 bits
@@ -136,16 +147,13 @@ def pack_quad_tables(dfa: LaneDFA):
     return out.astype(np.uint32).view(np.int32), C[0], C[1], NS
 
 
-def payload_lane_words(payload: np.ndarray, bits: int, G: int,
-                       B: int) -> np.ndarray:
-    """(G, B//32) int32 lane-major payload words: word w of lane g holds
-    stream bits [g*B + 32w, g*B + 32w + 32), LSB-first.  Bits at or past the
-    stream end are zero (the kernels' per-lane limit is the pad test)."""
-    if B % 32:
-        raise ValueError("lane bits must be whole 32-bit words")
-    nbytes = G * B // 8
+def _stream_buffer(payload: np.ndarray, bits: int, nbytes: int,
+                   limit: int) -> np.ndarray:
+    """(nbytes,) uint8: the first ``limit`` payload bytes, then zeros; bits
+    at or past the stream end are zero (the kernels' per-lane limit is the
+    pad test)."""
     buf = np.zeros(nbytes, dtype=np.uint8)
-    nb = min(int(payload.size), nbytes)
+    nb = min(int(payload.size), limit)
     buf[:nb] = payload[:nb]
     full, rem = divmod(bits, 8)
     if full < nb:
@@ -154,6 +162,18 @@ def payload_lane_words(payload: np.ndarray, bits: int, G: int,
             buf[full + 1:nb] = 0
         else:
             buf[full:nb] = 0
+    return buf
+
+
+def payload_lane_words(payload: np.ndarray, bits: int, G: int,
+                       B: int) -> np.ndarray:
+    """(G, B//32) int32 lane-major payload words: word w of lane g holds
+    stream bits [g*B + 32w, g*B + 32w + 32), LSB-first, zero past the
+    stream end."""
+    if B % 32:
+        raise ValueError("lane bits must be whole 32-bit words")
+    nbytes = G * B // 8
+    buf = _stream_buffer(payload, bits, nbytes, nbytes)
     return buf.view("<u4").view(np.int32).reshape(G, B // 32)
 
 
@@ -235,17 +255,29 @@ def stage_widescan_inputs(hf, *, device, lanes=None):
 
 
 def from_jax_staging(st: dict, device) -> dict:
-    """The port's staged tensors from the JAX package's
-    ``stage_widescan_inputs`` result, its arrays given as numpy
-    (``tabw``, ``words``, ``lim2``) beside the plan scalars."""
+    """The port's staged tensors from a staging dict of the JAX package,
+    its arrays given as numpy beside the plan scalars: that of
+    ``stage_widescan_inputs`` (``tabw``, ``words``, ``lim2``), of
+    ``stage_widescan_indexed`` (``raw``/``sh`` for ``words``, with the
+    index ``counts`` and ``nb``) or of ``stage_batch_inputs`` (``tab_bounds``
+    and ``c01``: per-stream tables, see ``batch.from_jax_batch``)."""
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
 
-    return dict(plan=dict(st["plan"]), dfa=st["dfa"], H=st["H"], md=st["md"],
-                chunk2=st["chunk2"], C0=st["C0"], C1=st["C1"], NS=st["NS"],
-                tab=t(st["tabw"]), words=t(st["words"]),
-                lim=t(st["lim2"]).reshape(-1))
+    if "tab_bounds" in st:
+        from huffmandecoderongpus_tpu_torch.ops.batch import from_jax_batch
+
+        return from_jax_batch(st, device)
+    out = dict(plan=dict(st["plan"]), H=st["H"], md=st["md"], C0=st["C0"],
+               C1=st["C1"], NS=st["NS"], tab=t(st["tabw"]),
+               lim=t(st["lim2"]).reshape(-1))
+    if "raw" in st:  # indexed
+        out.update(raw=t(st["raw"]), sh=t(st["sh"]),
+                   counts=np.asarray(st["counts"]), nb=st["nb"])
+        return out
+    out.update(dfa=st["dfa"], chunk2=st["chunk2"], words=t(st["words"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +395,137 @@ def decode_widescan(hf, *, device, lanes=None, check_size=True,
     if int(n.max()) > ORP:  # a lane overflowed its dense row
         return decode_lanedfa_tiled(hf, device=device, check_size=check_size)
     mask = torch.arange(ORP, device=device)[None, :] < n[:, None]
+    out = denseT[mask].cpu().numpy()
+    if check_size and out.size != hf.uncompressed_size:
+        raise RuntimeError(
+            f"emitted {out.size} symbols, header says {hf.uncompressed_size}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Indexed decode: the `.huffidx` sidecar's blocks are the lanes
+
+
+def indexed_lane_words(payload: np.ndarray, bits: int, offsets: np.ndarray,
+                       BW: int):
+    """(raw, sh): (len(offsets), BW+1) int32 word rows, row g the payload
+    words from word offsets[g] // 32 on, and the in-word shifts offsets[g] %
+    32 (G,) int32, which ``normalize_lane_words`` applies on the device."""
+    nw = (bits + 31) // 32
+    buf = _stream_buffer(payload, bits, (nw + BW + 2) * 4, nw * 4)
+    words = buf.view("<u4").view(np.int32)
+    base = (offsets >> 5).astype(np.int64)
+    raw = words[base[:, None] + np.arange(BW + 1, dtype=np.int64)[None, :]]
+    return np.ascontiguousarray(raw), (offsets & 31).astype(np.int32)
+
+
+def normalize_lane_words(raw: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
+    """(G, BW) int32 words whose bit 0 is each lane's first stream bit,
+    from the raw word rows (G, BW+1) int32 and shifts (G,) int32: logical
+    shifts of the uint32 bit patterns, on the input's device."""
+    u = u32(raw)
+    s = sh.to(torch.int64)[:, None]
+    lo = u[:, :-1] >> s
+    hi = torch.where(s == 0, 0, (u[:, 1:] << (32 - s)) & 0xFFFFFFFF)
+    return to_i32(lo | hi)
+
+
+def stage_widescan_indexed(hf, offsets, block_symbols: int, *, device,
+                           lane_multiple: int = 1024) -> dict:
+    """Stage the indexed decode: every index block is one lane starting at
+    the DFA root, so no discovery, composition or fix scan runs, and the
+    per-lane symbol counts (``counts``, host numpy) are exact.  Raises
+    EnvelopeError outside the program's envelope (more than 1023 states,
+    md = 1, fewer than 128 blocks, blocks over 1024 symbols) and ValueError
+    for an index that does not fit the stream.
+
+    ``lane_multiple``: the lane count is padded to a multiple of it (at
+    least 1024), as the JAX package's sharded runner asks for."""
+    dfa = build_lane_dfa(hf.tree)
+    H = max(dfa.height, 1)
+    md = max(dfa.min_depth, 1)
+    n_states = dfa.entry.shape[0] // 2
+    if n_states > MAX_STATES_WIDE:
+        raise EnvelopeError("tree exceeds the wide quad-table state limit")
+    if md < 2:
+        raise EnvelopeError("indexed widescan needs min code length >= 2")
+    offsets = np.asarray(offsets, dtype=np.int64)
+    nb = offsets.shape[0]
+    if nb < 128:
+        raise EnvelopeError("too few index blocks for the wide program")
+    if block_symbols > 1024:
+        raise EnvelopeError("index blocks too long for the wide program")
+    lens = np.append(offsets[1:], hf.bits) - offsets
+    if np.any(lens < 0) or offsets[0] != 0:
+        raise ValueError("corrupt block index: offsets not increasing from 0")
+    UNROLL = 4 * md
+    SEG = math.lcm(CELL * md, 32)
+    steps_p = -(-int(lens.max(initial=1)) // SEG) * SEG
+    BW = -(-steps_p // 32)
+    lane_multiple = max(int(lane_multiple), 1024)
+    G = max(lane_multiple, -(-nb // lane_multiple) * lane_multiple)
+    R = G // 128
+    # the JAX plan's row-group block (a TPU grid constant, kept so staged
+    # plans compare equal)
+    RB = 32 if R % 32 == 0 else (16 if R % 16 == 0 else 8)
+    if SEG > 96:
+        RB = min(RB, 16)
+    counts = np.zeros(G, dtype=np.int32)
+    counts[:nb] = block_symbols
+    counts[nb - 1] = hf.uncompressed_size - (nb - 1) * block_symbols
+    if counts[nb - 1] < 0 or counts[:nb].max(initial=0) > block_symbols:
+        raise ValueError("block index inconsistent with the header")
+    # ORP >= block_symbols: an indexed lane cannot overflow its dense row
+    ORP = -(-block_symbols // 128) * 128
+    tab, C0, C1, NS = pack_quad_tables(dfa)
+    offs_p = np.zeros(G, dtype=np.int64)
+    offs_p[:nb] = offsets
+    raw, sh = indexed_lane_words(hf.payload, hf.bits, offs_p, BW)
+    lim = np.zeros(G, dtype=np.int32)
+    lim[:nb] = lens
+    return dict(plan=dict(B=steps_p, steps=steps_p, steps_p=steps_p, SEG=SEG,
+                          UNROLL=UNROLL, G=G, RB=RB, ORP=ORP),
+                H=H, md=md, C0=C0, C1=C1, NS=NS,
+                tab=torch.from_numpy(tab).to(device),
+                raw=torch.from_numpy(raw).to(device),
+                sh=torch.from_numpy(sh).to(device),
+                lim=torch.from_numpy(lim).to(device), counts=counts, nb=nb)
+
+
+def wide_decode_indexed_program(raw, sh, tab, lim, *, steps_p, md, ORP, C0,
+                                C1, NS):
+    """The indexed decode: align the lane words, transpose them into the
+    (BW, G) word matrix (no halo rows: a lane ends where its block ends),
+    K1's main scan alone (``k1_main``), K4.  Returns denseT (G, ORP)
+    uint8."""
+    wmat = normalize_lane_words(raw, sh).t().contiguous()
+    sym, val = k1_main(wmat, tab, lim, steps_p=steps_p, md=md, C0=C0, C1=C1,
+                       NS=NS)
+    return k4_compact(sym, val, ORP=ORP)
+
+
+def indexed_args(st: dict) -> dict:
+    """Keyword arguments of wide_decode_indexed_program for an indexed
+    staging."""
+    p = st["plan"]
+    return dict(steps_p=p["steps_p"], md=st["md"], ORP=p["ORP"], C0=st["C0"],
+                C1=st["C1"], NS=st["NS"])
+
+
+def decode_widescan_indexed(hf, offsets, block_symbols: int, *, device,
+                            check_size=True) -> np.ndarray:
+    """Decode a HuffFile through its `.huffidx` block index on ``device``
+    to host bytes: the blocks are the lanes, the program is K1's main scan
+    and K4, and each lane is trimmed to its count from the index.  Raises
+    EnvelopeError outside the indexed envelope (callers take another
+    route)."""
+    device = require_device(device)
+    st = stage_widescan_indexed(hf, offsets, block_symbols, device=device)
+    denseT = wide_decode_indexed_program(st["raw"], st["sh"], st["tab"],
+                                         st["lim"], **indexed_args(st))
+    counts = torch.from_numpy(st["counts"]).to(device)
+    mask = torch.arange(st["plan"]["ORP"], device=device)[None, :] < \
+        counts[:, None]
     out = denseT[mask].cpu().numpy()
     if check_size and out.size != hf.uncompressed_size:
         raise RuntimeError(

@@ -12,7 +12,10 @@ candidate and lane scans for the streams the wide program refuses.  The
 encoder's E1-E3 are checked on the staging of the test shapes and on
 hand-made lanes (granules shared by up to 16 lanes, trailing empty lanes,
 counts reaching ORP), and ``encode_lanes`` and the ``encode`` command
-byte-equal to the host encoder.  Tolerance: bit-exact (integer outputs).
+byte-equal to the host encoder.  The sidecar-indexed route (K1's main scan
+``k1_main``, the indexed lane scan) and the batched route (``k1_scan2_c01``,
+``k3_fix2_c01``) are checked kernel by kernel and end to end with their
+launch counts.  Tolerance: bit-exact (integer outputs).
 """
 
 import numpy as np
@@ -21,15 +24,18 @@ import torch
 
 from huffmandecoderongpus_tpu import native
 from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
-from huffmandecoderongpus_tpu_torch.ops import candidate_scan, e1_pack
+from huffmandecoderongpus_tpu_torch.ops import batch, candidate_scan, e1_pack
 from huffmandecoderongpus_tpu_torch.ops import e2_compact, e3_place, encode
-from huffmandecoderongpus_tpu_torch.ops import encode_ops, k1_scan
-from huffmandecoderongpus_tpu_torch.ops import k1_scan2, k2_compose, k3_fix
-from huffmandecoderongpus_tpu_torch.ops import k3_fix2, k4_compact
-from huffmandecoderongpus_tpu_torch.ops import lane_scan, lanedfa_decode
-from huffmandecoderongpus_tpu_torch.ops import oneshot, widescan
-from torch_streams import MD1_SHAPES, SHAPES, fib_tree_data, fuzz, fuzz_any
-from torch_streams import make, placed_lanes, text_like
+from huffmandecoderongpus_tpu_torch.ops import encode_ops, k1_main, k1_scan
+from huffmandecoderongpus_tpu_torch.ops import k1_scan2, k1_scan2_c01
+from huffmandecoderongpus_tpu_torch.ops import k2_compose, k3_fix, k3_fix2
+from huffmandecoderongpus_tpu_torch.ops import k3_fix2_c01, k4_compact
+from huffmandecoderongpus_tpu_torch.ops import lane_scan, lane_scan_indexed
+from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode, oneshot
+from huffmandecoderongpus_tpu_torch.ops import widescan
+from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, fib_tree_data
+from torch_streams import fuzz, fuzz_any, make, make_batch, make_indexed
+from torch_streams import placed_lanes, text_like
 
 pytestmark = pytest.mark.cuda
 
@@ -120,7 +126,8 @@ def test_lanedfa_kernels_match_plain(cuda, name):
 
 KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
                   k3_fix, candidate_scan, lane_scan, oneshot, e1_pack,
-                  e2_compact, e3_place)
+                  e2_compact, e3_place, k1_main, lane_scan_indexed,
+                  k1_scan2_c01, k3_fix2_c01)
 
 
 def _launched(fn):
@@ -369,3 +376,113 @@ def test_cli_encode_on_cuda(cuda, tmp_path, capsys):
     dst = tmp_path / "x.out"
     main(["decode", str(huff), str(dst)])
     np.testing.assert_array_equal(np.fromfile(dst, dtype=np.uint8), raw)
+
+
+@pytest.mark.parametrize("case", INDEXED)
+def test_indexed_kernels_match_plain(cuda, case):
+    raw, hf = make_indexed(case)
+    offsets, k = hf.index
+    st = widescan.stage_widescan_indexed(hf, offsets, k, device=cuda)
+    args = widescan.indexed_args(st)
+    wmat = widescan.normalize_lane_words(st["raw"], st["sh"]).t().contiguous()
+    kw = dict(steps_p=args["steps_p"], md=args["md"], C0=args["C0"],
+              C1=args["C1"], NS=args["NS"])
+    got = k1_main.k1_main(wmat, st["tab"], st["lim"], **kw)
+    want = k1_main.k1_main_ref(wmat, st["tab"], st["lim"], **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for tiled in (False, True):  # lane_dfa's geometry, the tiled one
+        ls = lanedfa_decode.stage_lanedfa_indexed(hf, offsets, device=cuda,
+                                                  tiled=tiled)
+        a = (ls["bits"], ls["tab"], ls["lane_len"])
+        got = lane_scan_indexed.lane_scan_indexed(*a)
+        want = lane_scan_indexed.lane_scan_indexed_ref(*a)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        sym, valid = got
+        np.testing.assert_array_equal(sym.t()[valid.t() > 0].cpu().numpy(),
+                                      raw)
+
+
+@pytest.mark.parametrize("case", INDEXED)
+def test_indexed_decode_on_cuda(cuda, case):
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+
+    raw, hf = make_indexed(case)
+    offsets, k = hf.index
+    routes = (
+        (lambda: widescan.decode_widescan_indexed(hf, offsets, k,
+                                                  device=cuda),
+         dict(k1_main=1, k4_compact=1)),
+        (lambda: get_decoder("lane_dfa", device=cuda)(hf),
+         dict(lane_scan_indexed=1)),
+        (lambda: lanedfa_decode.decode_lanedfa_indexed_tiled(
+            hf, offsets, k, device=cuda), dict(lane_scan_indexed=1)),
+    )
+    for fn, path in routes:
+        out, ran = _launched(fn)
+        assert ran == path
+        np.testing.assert_array_equal(out, raw)
+
+
+def test_indexed_md1_refused_and_scanned(cuda):
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+
+    raw = make("md1")[0]
+    hf = encode_bytes(raw, block_symbols=4096)
+    with pytest.raises(widescan.EnvelopeError):
+        widescan.decode_widescan_indexed(hf, *hf.index, device=cuda)
+    out, ran = _launched(lambda: get_decoder("lane_dfa", device=cuda)(hf))
+    assert ran == dict(lane_scan_indexed=1)
+    np.testing.assert_array_equal(out, raw)
+
+
+@pytest.mark.parametrize("case", BATCHES)
+def test_batch_kernels_match_plain(cuda, case):
+    raws, hfs = make_batch(case)
+    st = batch.stage_batch_inputs(hfs, device=cuda)
+    p = st["plan"]
+    H, md = st["H"], st["md"]
+    wmat = widescan.words_matrix(st["words"], -(-p["steps_p"] // 32))
+    a = (wmat, st["tabs"], st["lim"], st["c01"], st["bstream"])
+    k1 = dict(B=p["B"], H=H, steps=p["steps"], steps_p=p["steps_p"],
+              SEG=p["SEG"], md=md)
+    got = k1_scan2_c01.k1_scan2_c01(*a, **k1)
+    want = k1_scan2_c01.k1_scan2_c01_ref(*a, **k1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    sym, val, cntmap, exmap, mrowmap = want
+    exmap[:, list(st["last_live"])] = 0
+    entry, _tot = k2_compose.k2_compose(exmap, 0)
+    cut, cut_slot = widescan.fix_rows(entry, mrowmap, st["lim"], H, md)
+    kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=md)
+    fa = (wmat, st["tabs"], entry, cut, cut_slot)
+    s, v = k3_fix2_c01.k3_fix2_c01(*fa, sym.clone(), val.clone(), st["c01"],
+                                   st["bstream"], **kw)
+    rs, rv = k3_fix2_c01.k3_fix2_c01_ref(*fa, sym.clone(), val.clone(),
+                                         st["c01"], st["bstream"], **kw)
+    assert torch.equal(s, rs) and torch.equal(v, rv)
+
+
+@pytest.mark.parametrize("case", BATCHES)
+def test_batch_decode_on_cuda(cuda, case):
+    raws, hfs = make_batch(case)
+    outs, ran = _launched(lambda: batch.decode_widescan_batch(
+        hfs, device=cuda, auto_split=False))
+    assert ran == dict(k1_scan2_c01=1, k2_compose=1, k3_fix2_c01=1,
+                       k4_compact=1)
+    for out, raw in zip(outs, raws):
+        np.testing.assert_array_equal(out, raw)
+
+
+def test_batch_auto_split_on_cuda(cuda, monkeypatch):
+    # the largest member decodes alone (the one-shot route), the others in
+    # one program
+    raws, hfs = make_batch("four")
+    monkeypatch.setattr(batch, "BATCH_SOLO_BITS", hfs[1].bits)
+    outs, ran = _launched(lambda: batch.decode_widescan_batch(hfs,
+                                                              device=cuda))
+    assert ran == dict(oneshot=1, k1_scan2_c01=1, k2_compose=1,
+                       k3_fix2_c01=1, k4_compact=1)
+    for out, raw in zip(outs, raws):
+        np.testing.assert_array_equal(out, raw)

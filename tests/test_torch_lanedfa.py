@@ -279,8 +279,16 @@ def test_registry_serves_lanedfa(name):
 
 
 def test_lane_dfa_refuses_sidecar():
+    # a valid sidecar index is decoded through (one lane per block, the
+    # indexed scan); one that does not fit its stream is refused, as the
+    # JAX lane_dfa refuses it
     raw = make("text")[0]
     hf = encode_bytes(raw, block_symbols=256)
     assert hf.index is not None
-    with pytest.raises(widescan.EnvelopeError, match="Queue 1 item 7"):
-        get_decoder("lane_dfa", device="cpu")(hf)
+    np.testing.assert_array_equal(get_decoder("lane_dfa", device="cpu")(hf),
+                                  raw)
+    bad = dataclasses.replace(hf, index=(hf.index[0][::-1].copy(), 256))
+    with pytest.raises(ValueError, match="corrupt block index"):
+        get_decoder("lane_dfa", device="cpu")(bad)
+    with pytest.raises(ValueError, match="corrupt block index"):
+        jlanedfa.decode_lanedfa_indexed(bad, *bad.index)

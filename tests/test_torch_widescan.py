@@ -304,6 +304,7 @@ def test_port_never_imports_jax(tmp_path):
         "import huffmandecoderongpus_tpu_torch.ops.widescan as ws\n"
         "import huffmandecoderongpus_tpu_torch.ops.lanedfa_decode\n"
         "import huffmandecoderongpus_tpu_torch.ops.oneshot\n"
+        "import huffmandecoderongpus_tpu_torch.ops.batch\n"
         "import chip_smoke\n"
         "raw = np.tile(np.arange(97, 105, dtype=np.uint8), 2000)\n"
         "md1 = np.where(np.arange(raw.size) % 5 == 0, raw, 0)\n"
@@ -312,6 +313,9 @@ def test_port_never_imports_jax(tmp_path):
         "                 'lane_dfa_pallas'):\n"
         "        out = get_decoder(name, device='cpu')(encode_bytes(r))\n"
         "        assert np.array_equal(out, r), name\n"
+        "out = get_decoder('lane_dfa', device='cpu')(\n"
+        "    encode_bytes(raw, block_symbols=512))\n"
+        "assert np.array_equal(out, raw)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] == 'huffmandecoderongpus_tpu']\n"

@@ -107,6 +107,52 @@ def make(name, seed=0):
     return raw, encode_bytes(raw)
 
 
+#: the indexed cases: text at 256 symbols a block, odd blocks of 129, md 3
+#: (SEG 96), 256 symbols (NS 2, md 6, SEG 96)
+INDEXED = ["text256", "text129", "md3", "ns2"]
+
+
+def make_indexed(case):
+    """(raw, HuffFile with its `.huffidx` index) of a named indexed case."""
+    rng = np.random.default_rng(7)
+    raw, k = {"text256": (text_like(rng, 40000), 256),
+              "text129": (text_like(rng, 40000), 129),
+              "md3": (odd_md(rng, 30000), 200),
+              "ns2": (full_alphabet(rng, 40000), 300)}[case]
+    return raw, encode_bytes(raw, block_symbols=k)
+
+
+def batch_text(rng, n, alphabet=8, skew=3.0):
+    """Bounded weight ratio (max/min <= skew + 1): no symbol reaches a
+    1-bit code, so the tree stays in the batch envelope
+    (``tests/test_batch.py``)."""
+    w = rng.random(alphabet) * skew + 1.0
+    return rng.choice(np.arange(alphabet, dtype=np.uint8), size=n,
+                      p=w / w.sum()).astype(np.uint8)
+
+
+#: the batch cases: two distinct trees; md 2 and 3 with a one-lane member;
+#: text-like trees of height 9 and 8; four members, one over two lane
+#: blocks
+BATCHES = ["two", "mixed", "text", "four"]
+
+
+def make_batch(case):
+    """(raws, HuffFiles) of a named batch."""
+    rng = np.random.default_rng(12)
+    if case == "two":
+        raws = [batch_text(rng, 9000), batch_text(rng, 12000, 16, 2.0)]
+    elif case == "mixed":
+        raws = [batch_text(rng, 30000), batch_text(rng, 20000, 64, 1.0),
+                np.tile(np.arange(8, dtype=np.uint8), 5)]
+    elif case == "text":
+        raws = [make("text")[0], make("text", seed=3)[0][:7000]]
+    else:
+        raws = [batch_text(rng, n, a) for n, a in
+                ((4000, 6), (60000, 16), (800, 32), (15000, 8))]
+    return raws, [encode_bytes(r) for r in raws]
+
+
 def fuzz(seed):
     """(raw, HuffFile, lanes) of a seeded random stream inside the port's
     envelope: 3-256 symbols, random skew and length, min code length >= 2
