@@ -45,8 +45,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               (k1_main) on the indexed (a), (b) and (i), the indexed lane
               scan on the indexed (a) and (c); the batched K1/K3
               (k1_scan2_c01, k3_fix2_c01) on the five small streams and on
-              (f), (g) and the book2-sized one; bit-exact (tolerance 0),
-              with both times from CUDA events
+              (f), (g) and the book2-sized one; the self-synchronizing
+              discovery's short candidate scan on the first round of (a)
+              and (d) in lane_dfa_sync's geometry (all five outputs), and
+              the lane scan cut at that round's W rows (its fix scan) from
+              the true entry offsets; the dense lane decode on (a) and (d)
+              in the tiled geometry from the entry offsets of
+              candidate_scan + compose, and the compaction on (d) from
+              cumsum(valid) and sym of the lane scan, each trimmed by its
+              counts to the input; bit-exact (tolerance 0), with both
+              times from CUDA events (and for the compaction the time of
+              torch.searchsorted + gather, the same function in library
+              calls)
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
@@ -87,8 +97,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               alone through K1-K4; a batch holding (h) (255 states),
               auto_split=False, raises EnvelopeError; each batch program
               and each member's routed solo program timed (CUDA events),
-              the batch program split by kernel, and the walls of both
-  5. result   one JSON line for the sixteen kernels (times, launches,
+              the batch program split by kernel, and the walls of both.
+              The sync route, each decode counted on its own:
+              get_decoder("lane_dfa_sync") on (a), (d) and (e) launches the
+              short candidate scan once a round, the lane scan once (and
+              once more for its fix scan), candidate_scan once (the tail
+              lane) and nothing else, with the rounds printed;
+              decode_lanedfa_tiled(discovery="sync") on (a) the same; the
+              dense pipeline on (a) and (d) (candidate_scan, compose,
+              lane_decode_dense) and the compaction pipeline on (d)
+              (candidate_scan, compose, lane_scan, compact), each kernel
+              once; then for (a) and (d) the device time of sync discovery
+              (0-chain to splice) beside candidate discovery and
+              candidate_scan alone (CUDA events), sync split by kernel,
+              and the walls of lane_dfa_sync and lane_dfa
+  5. result   one JSON line for the nineteen kernels (times, launches,
               error, and the bound: the bytes each must move at 3.35 TB/s),
               the card,
               then the last line {"ok": true, "device": {...}}
@@ -151,6 +174,8 @@ _PLD = "huffmandecoderongpus_tpu/ops/pallas_lanedfa.py:"
 _PEN = "huffmandecoderongpus_tpu/ops/pallas_encode.py:"
 #: phase-3 results of the indexed and batch checks are keyed by these
 IDX = {k: f"{k}@{K}" for k, K in (*INDEXED.items(), INDEXED_MD1)}
+#: and those of the sync discovery's checks (lane_dfa_sync's geometry)
+SYNC = {k: f"{k} sync" for k in "ad"}
 BATCH5, TRIO = "five small", "paper1+news+book2"
 #: name -> (CUDA source, the TPU kernel it replaces, the stream whose times
 #: the result line reports)
@@ -173,6 +198,11 @@ KERNELS = {
                           IDX["a"]),
     "k1_scan2_c01": (_CSRC + "k1_scan2_c01.cu", _PWS + "762", TRIO),
     "k3_fix2_c01": (_CSRC + "k3_fix2_c01.cu", _PWS + "1449", TRIO),
+    "short_candidate_scan": (
+        _CSRC + "short_candidate_scan.cu",
+        "huffmandecoderongpus_tpu/ops/lanedfa_sync.py:50", SYNC["d"]),
+    "lane_decode_dense": (_CSRC + "lane_decode_dense.cu", _PLD + "230", "d"),
+    "compact": (_CSRC + "compact.cu", _PLD + "520", "d"),
 }
 #: the kernels of the indexed wide program and of the batched program,
 #: once each a decode
@@ -197,6 +227,11 @@ PATHS = {
     "e": ("candidate_scan", "lane_scan"),
     **{k: ("oneshot",) for k in ONESHOT},
 }
+#: the streams lane_dfa_sync decodes in phase 4, and the kernels of the
+#: dense and the compaction pipelines, once each
+SYNC_DECODED = "ade"
+DENSE_PATH = ("candidate_scan", "lane_decode_dense")
+COMPACT_PATH = ("candidate_scan", "lane_scan", "compact")
 #: the kernels get_decoder("lane_oneshot") must launch, once each
 ONESHOT_PATHS = {"c": MD1_PATH, **{k: ("oneshot",) for k in ONESHOT}}
 
@@ -213,7 +248,13 @@ DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "e3_place": ("e3_place_kernel",),
                   "k1_main": ("k1_main_kernel",),
                   "k1_scan2_c01": ("k1_scan2_c01_kernel",),
-                  "k3_fix2_c01": ("k3_fix2_c01_kernel",)}
+                  "k3_fix2_c01": ("k3_fix2_c01_kernel",),
+                  # before candidate_scan: its name holds candidate_scan's
+                  "short_candidate_scan": ("short_candidate_scan_kernel",),
+                  "candidate_scan": ("candidate_scan_kernel",),
+                  "lane_scan": ("lane_scan_kernel",),
+                  "lane_decode_dense": ("lane_decode_dense_kernel",),
+                  "compact": ("lanedfa_compact_kernel",)}
 
 
 def text_like(rng, n, symbols=TEXT_SYMBOLS):
@@ -554,6 +595,142 @@ def check_lanedfa_indexed(torch, name, raw, hf, dev):
     return rows
 
 
+def short_scan_moved(torch, out, tab, B, N, W) -> int:
+    """Bytes the short candidate scan must move on these inputs: the bit and
+    0-chain rows each lane's chains read (row 0 through the last row any of
+    them reads), the table, and the five outputs (14 bytes a chain)."""
+    merged, exited, mrow, _cnt, ex = out
+    H, G = mrow.shape
+    lim = N - torch.arange(G, device=mrow.device, dtype=torch.int64) * B
+    end = lim.clamp(0, W)
+    last = torch.where(merged, mrow.long(),
+                       torch.where(exited, ex.long() + B - 1, end - 1))
+    rows = (last.amax(0) + 1).clamp(min=0)
+    return 2 * int(rows.sum()) + nbytes(tab) + 14 * H * G
+
+
+def check_sync(torch, name, raw, hf, dev):
+    """Phase 3 of the sync discovery on one stream, in lane_dfa_sync's
+    geometry: the first round's short candidate scan against its plain
+    version on the 0-chain's emissions, all five outputs, and the lane scan
+    cut at that round's W rows (the fix scan's shape) from the true entry
+    offsets.  Returns and raises as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import (
+        candidate_scan,
+        lane_scan,
+        lanedfa_sync,
+        short_candidate_scan,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    st = ld.stage_lanedfa(hf, device=dev, tiled=False)
+    bits, tab = st["bits"], st["tab"]
+    kw = dict(B=st["B"], H=st["H"], N=st["N"])
+    steps, G = bits.shape
+    W = min(max(lanedfa_sync.W0, st["H"] + 1), steps)
+    print(f"[kernels] {name}: sync geometry G={G} B={st['B']} H={st['H']}, "
+          f"first round W={W}", flush=True)
+    zero = torch.zeros(G, dtype=torch.int32, device=dev)
+    valid0 = lane_scan.lane_scan(bits, tab, zero, **kw)[1]
+    rows = {}
+    compare = comparer(torch, name, rows)
+
+    def short(scan):
+        return lambda: scan(bits, tab, valid0, W=W, **kw)
+
+    moved = short_scan_moved(torch, short(
+        short_candidate_scan.short_candidate_scan)(), tab, st["B"], st["N"], W)
+    merged, exited = compare(
+        "short_candidate_scan",
+        short(short_candidate_scan.short_candidate_scan),
+        short(short_candidate_scan.short_candidate_scan_ref), (), moved)[:2]
+    entry = ld.compose(*candidate_scan.candidate_scan(bits, tab, **kw))[0]
+    compare("lane_scan",
+            lambda: lane_scan.lane_scan(bits[:W], tab, entry, rows=W, **kw),
+            lambda: lane_scan.lane_scan_ref(bits[:W], tab, entry, rows=W,
+                                            **kw), (bits[:W], tab, entry))
+    print(f"[kernels] {name}: short_candidate_scan and the lane scan cut at "
+          f"W rows bit-exact; first round: {int(merged.sum())} chains merged"
+          f", {int(exited.sum())} exited, of {merged.numel()}", flush=True)
+    return rows
+
+
+def dense_staging(torch, hf, dev):
+    """The dense pipeline's inputs in the tiled geometry: the staged
+    matrix, the entry offsets from candidate_scan + compose, and the
+    output rows (the JAX test's bound, B // min code length + 2)."""
+    from huffmandecoderongpus_tpu_torch.ops import candidate_scan, lanedfa
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    st = ld.stage_lanedfa(hf, device=dev)
+    cnt, ex = candidate_scan.candidate_scan(st["bits"], st["tab"], B=st["B"],
+                                            H=st["H"], N=st["N"])
+    md = lanedfa.build_lane_dfa(hf.tree).min_depth
+    out_rows = min(st["B"] + st["H"], st["B"] // max(md, 1) + 2)
+    return st, ld.compose(cnt, ex)[0], out_rows
+
+
+def trimmed(torch, dense, counts):
+    """The dense rows below each lane's count, lane by lane, on the host."""
+    keep = (torch.arange(dense.shape[0], device=dense.device)[:, None]
+            < counts[None, :])
+    return dense.t()[keep.t()].cpu().numpy()
+
+
+def check_dense(torch, name, raw, hf, dev, with_compact):
+    """Phase 3 of the dense lane decode on one stream (and, with
+    ``with_compact``, of the compaction on the lane scan's emissions)
+    against the plain versions, each trimmed by its counts to the input.
+    The compaction's row also carries the time of torch.searchsorted +
+    gather on the same inputs.  Returns and raises as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import (
+        compact,
+        lane_decode_dense,
+        lane_scan,
+    )
+
+    st, entry, out_rows = dense_staging(torch, hf, dev)
+    bits, tab = st["bits"], st["tab"]
+    kw = dict(B=st["B"], H=st["H"], N=st["N"])
+    print(f"[kernels] {name}: dense decode G={bits.shape[1]} B={st['B']} "
+          f"H={st['H']} out_rows={out_rows}", flush=True)
+    rows = {}
+    compare = comparer(torch, name, rows)
+    dense, counts = compare(
+        "lane_decode_dense",
+        lambda: lane_decode_dense.lane_decode_dense(
+            bits, tab, entry, out_rows=out_rows, **kw),
+        lambda: lane_decode_dense.lane_decode_dense_ref(
+            bits, tab, entry, out_rows=out_rows, **kw), (bits, tab, entry))
+    if not np.array_equal(trimmed(torch, dense, counts), raw):
+        raise AssertionError(f"{name}: the dense decode decoded wrong")
+    print(f"[kernels] {name}: lane_decode_dense bit-exact; stream decoded",
+          flush=True)
+    if not with_compact:
+        return rows
+    sym, valid = lane_scan.lane_scan(bits, tab, entry, **kw)
+    cum = torch.cumsum(valid, 0, dtype=torch.int32)
+    (out,) = compare(
+        "compact", lambda: compact.compact(cum, sym, out_rows=out_rows),
+        lambda: compact.compact_ref(cum, sym, out_rows=out_rows), (cum, sym))
+    if (not torch.equal(out, dense)
+            or not np.array_equal(trimmed(torch, out, cum[-1]), raw)):
+        raise AssertionError(f"{name}: the compaction decoded wrong")
+    want = torch.arange(1, out_rows + 1, dtype=torch.int32,
+                        device=dev).expand(bits.shape[1], out_rows)
+    want = want.contiguous()
+
+    def library():  # the JAX kernel's binary search as two library calls
+        pos = torch.searchsorted(cum.t().contiguous(), want)
+        return sym.t().gather(1, pos.clamp_(max=cum.shape[0] - 1))
+
+    lib_ms = statistics.median(cuda_ms(torch, library, 20))
+    rows["compact"] += (lib_ms,)
+    print(f"[kernels] {name}: compact bit-exact, equal to the dense decode; "
+          f"torch.searchsorted + gather {lib_ms:.4f} ms", flush=True)
+    return rows
+
+
 def check_batch(torch, name, raws, hfs, dev):
     """Phase 3 on a batch: the batched K1 and K3 (per-stream tables)
     against their plain versions on the batch staging, K2 and K4 between
@@ -817,6 +994,7 @@ def main() -> int:
     from huffmandecoderongpus_tpu_torch.ops import (
         _build,
         candidate_scan,
+        compact,
         k1_main,
         k1_scan,
         k1_scan2,
@@ -826,9 +1004,11 @@ def main() -> int:
         k3_fix2,
         k3_fix2_c01,
         k4_compact,
+        lane_decode_dense,
         lane_scan,
         lane_scan_indexed,
         oneshot,
+        short_candidate_scan,
     )
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
 
@@ -838,7 +1018,9 @@ def main() -> int:
             "candidate_scan": candidate_scan, "lane_scan": lane_scan,
             "oneshot": oneshot, "k1_main": k1_main,
             "lane_scan_indexed": lane_scan_indexed,
-            "k1_scan2_c01": k1_scan2_c01, "k3_fix2_c01": k3_fix2_c01}
+            "k1_scan2_c01": k1_scan2_c01, "k3_fix2_c01": k3_fix2_c01,
+            "short_candidate_scan": short_candidate_scan,
+            "lane_decode_dense": lane_decode_dense, "compact": compact}
     dev = torch.device(DEVICE)
 
     # ---- 1. device ----------------------------------------------------------
@@ -900,6 +1082,10 @@ def main() -> int:
         checked[what] = check_batch(torch, what,
                                     [r for _n, r, _h in members],
                                     [h for _n, _r, h in members], dev)
+    for k in SYNC:
+        checked[SYNC[k]] = check_sync(torch, *hfs[k], dev)
+        checked[k].update(check_dense(torch, *hfs[k], dev,
+                                      with_compact=k == "d"))
 
     # ---- 4. the slice through the registry ----------------------------------
     def drive(decoder, k):
@@ -968,7 +1154,8 @@ def main() -> int:
               f"card {card}", flush=True)
     # the indexed and batch routes, each decode counted on its own
     for route in (drive_indexed(torch, mods, hfs, idx, dev, card),
-                  drive_batch(torch, mods, hfs, small, trio, dev, card)):
+                  drive_batch(torch, mods, hfs, small, trio, dev, card),
+                  drive_sync(torch, mods, hfs, dev, card)):
         for n, c in route.items():
             launches[n] += c
     if min(launches.values()) < 1:
@@ -979,19 +1166,142 @@ def main() -> int:
     # ---- 5. result ----------------------------------------------------------
     # each kernel's times from the stream named in KERNELS; its error over
     # every stream it was checked on; its bound from the bytes it must move
-    # (no single PyTorch call computes any of these functions)
+    # (no single PyTorch call computes any of these functions but the
+    # compaction, whose row carries searchsorted + gather)
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep_, stream=k,
              launches=launches[n],
              max_abs_err=max(c[n][0] for c in checked.values() if n in c),
              ms=checked[k][n][1], plain_ms=checked[k][n][2],
-             bound_ms=checked[k][n][3], bound_by="bytes", library_ms=None)
+             bound_ms=checked[k][n][3], bound_by="bytes",
+             library_ms=(checked[k][n] + (None,))[4])
         for n, (src, rep_, k) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def drive_sync(torch, mods, hfs, dev, card):
+    """Phase 4 of the sync route and the dense pipelines: lane_dfa_sync on
+    SYNC_DECODED (each round's short scan, the 0-chain and fix scans, the
+    tail lane's candidate scan), the tiled sync decode of (a), the dense
+    pipeline on (a) and (d) and the compaction pipeline on (d); then the
+    device times of both discoveries and the walls.  Raises on any
+    failure; returns the launches summed."""
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+    from huffmandecoderongpus_tpu_torch.ops import (
+        candidate_scan,
+        compact,
+        lane_decode_dense,
+        lane_scan,
+        lanedfa_sync,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    total = dict.fromkeys(mods, 0)
+
+    def add(ran):
+        for n, c in ran.items():
+            total[n] += c
+
+    def sync(what, r, fn):
+        r0, f0 = lanedfa_sync.rounds, lanedfa_sync.fix_scans
+        out, ran = counted(torch, mods, fn)
+        rounds = lanedfa_sync.rounds - r0
+        fixes = lanedfa_sync.fix_scans - f0
+        expect(f"{what} ({rounds} rounds, {fixes} fix scan)",
+               np.array_equal(out, r), ran,
+               dict(short_candidate_scan=rounds, lane_scan=1 + fixes,
+                    candidate_scan=1))
+        add(ran)
+
+    for k in SYNC_DECODED:
+        name, r, h = hfs[k]
+        sync(f"lane_dfa_sync {name}", r, lambda h=h: get_decoder(
+            "lane_dfa_sync", device=DEVICE)(h))
+    name, r, h = hfs["a"]
+    sync(f'decode_lanedfa_tiled(discovery="sync") {name}', r,
+         lambda: ld.decode_lanedfa_tiled(h, device=DEVICE, discovery="sync"))
+
+    for k in SYNC:
+        name, r, h = hfs[k]
+        st, entry, out_rows = dense_staging(torch, h, dev)
+        kw = dict(B=st["B"], H=st["H"], N=st["N"])
+        for m in mods.values():
+            m.launches = 0
+        # the dense pipeline: candidate scan, compose, dense decode, trim
+        cnt, ex = candidate_scan.candidate_scan(st["bits"], st["tab"], **kw)
+        entry = ld.compose(cnt, ex)[0]
+        dense, counts = lane_decode_dense.lane_decode_dense(
+            st["bits"], st["tab"], entry, out_rows=out_rows, **kw)
+        out = trimmed(torch, dense, counts)
+        ran = {n: m.launches for n, m in mods.items() if m.launches}
+        expect(f"dense pipeline {name}", np.array_equal(out, r), ran,
+               dict.fromkeys(DENSE_PATH, 1))
+        add(ran)
+        if k != "d":
+            continue
+        for m in mods.values():
+            m.launches = 0
+        cnt, ex = candidate_scan.candidate_scan(st["bits"], st["tab"], **kw)
+        entry = ld.compose(cnt, ex)[0]
+        sym, valid = lane_scan.lane_scan(st["bits"], st["tab"], entry, **kw)
+        cum = torch.cumsum(valid, 0, dtype=torch.int32)
+        out = trimmed(torch, compact.compact(cum, sym, out_rows=out_rows),
+                      cum[-1])
+        ran = {n: m.launches for n, m in mods.items() if m.launches}
+        expect(f"compaction pipeline {name}", np.array_equal(out, r), ran,
+               dict.fromkeys(COMPACT_PATH, 1))
+        add(ran)
+
+    for k in SYNC:
+        name, r, h = hfs[k]
+        st = ld.stage_lanedfa(h, device=dev, tiled=False)
+        bits, tab = st["bits"], st["tab"]
+        kw = dict(B=st["B"], H=st["H"], N=st["N"])
+        zero = torch.zeros(bits.shape[1], dtype=torch.int32, device=dev)
+
+        def sync_discovery(bits=bits, tab=tab, kw=kw, zero=zero):
+            sym0, valid0 = lane_scan.lane_scan(bits, tab, zero, **kw)
+            return lanedfa_sync.discover_and_splice(bits, tab, sym0, valid0,
+                                                    **kw)
+
+        def candidates(bits=bits, tab=tab, kw=kw):
+            entry = ld.compose(*candidate_scan.candidate_scan(bits, tab,
+                                                              **kw))[0]
+            return lane_scan.lane_scan(bits, tab, entry, **kw)
+
+        fns = {"sync": sync_discovery, "candidates": candidates,
+               "candidate_scan alone": lambda bits=bits, tab=tab, kw=kw: (
+                   candidate_scan.candidate_scan(bits, tab, **kw))}
+        r0 = lanedfa_sync.rounds
+        sync_discovery()
+        rounds = lanedfa_sync.rounds - r0
+        med = {}
+        for route, fn in fns.items():
+            ts = cuda_ms(torch, fn, WARMUP + TIMED_RUNS)[WARMUP:]
+            med[route] = (statistics.median(ts), min(ts))
+        walls = {dec: wall_ms(torch, lambda dec=dec, h=h: get_decoder(
+                     dec, device=dev)(h)) for dec in ("lane_dfa_sync",
+                                                      "lane_dfa")}
+        print(f"[slice] {name}: discovery device ms, median over "
+              f"{TIMED_RUNS} runs (sync geometry G={bits.shape[1]} "
+              f"B={st['B']}, {rounds} rounds): "
+              + "  ".join(f"{rt} {m:.4f} (min {mn:.4f})"
+                          for rt, (m, mn) in med.items())
+              + f"; walls median over {WALL_RUNS} runs, the host's bit matrix"
+              " most of each: "
+              + "  ".join(f"{d} {m:.4f} ms (min {mn:.4f})"
+                          for d, (m, mn) in walls.items())
+              + f"; card {card}", flush=True)
+        split = device_breakdown(torch, sync_discovery, ops_by_name=True)
+        print(f"[slice] {name}: sync discovery device ms (profiler) "
+              + "  ".join(f"{n} {v:.4f}" for n, v in sorted(
+                  split.items(), key=lambda kv: -kv[1])),
+              flush=True)
+    return total
 
 
 def drive_encoder(torch, hfs, dev, card):
@@ -1163,10 +1473,10 @@ def time_oneshot(torch, ws, oneshot, name, raw, hf, dev, card):
           + f"; sum {sum(phases.values()):.4f}", flush=True)
 
 
-def device_breakdown(torch, fn, runs=5):
+def device_breakdown(torch, fn, runs=5, ops_by_name=False):
     """Device time per call of ``fn`` (ms) by kernel, from torch.profiler:
-    the wide program's kernels by name, everything else (the torch ops
-    around them) together."""
+    the port's kernels by name, everything else (the torch ops around them)
+    together, or with ``ops_by_name`` each under its own kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1180,7 +1490,8 @@ def device_breakdown(torch, fn, runs=5):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         key = next((k for k, syms in DEVICE_SYMBOLS.items()
-                    if any(sym in e.key for sym in syms)), "torch ops")
+                    if any(sym in e.key for sym in syms)),
+                   e.key[:60] if ops_by_name else "torch ops")
         out[key] = out.get(key, 0.0) + e.self_device_time_total / runs / 1e3
     return out
 

@@ -11,6 +11,9 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import (
     decode_lanedfa_indexed,
     decode_lanedfa_tiled,
 )
+from huffmandecoderongpus_tpu_torch.ops.lanedfa_sync import (
+    decode_lanedfa_sync,
+)
 from huffmandecoderongpus_tpu_torch.ops.oneshot import decode_oneshot
 from huffmandecoderongpus_tpu_torch.ops.widescan import decode_widescan
 
@@ -27,6 +30,17 @@ def lane_dfa(hf, param=None, *, device) -> np.ndarray:
         offsets, k = index
         return decode_lanedfa_indexed(hf, offsets, k, device=device)
     return decode_lanedfa(hf, device=device, lanes=param)
+
+
+@register("lane_dfa_sync", backend="cuda")
+def lane_dfa_sync(hf, param=None, *, device) -> np.ndarray:
+    """Lane DFA with self-synchronizing entry discovery
+    (ops/lanedfa_sync.py, the JAX package's XLA geometry): the lane scan
+    from offset 0, short candidate scans until every chain merges or
+    exits, and a fix scan for the lanes entering elsewhere.  A `.huffidx`
+    index is not used, as in the JAX package.  ``param`` optionally sets
+    the lane count."""
+    return decode_lanedfa_sync(hf, device=device, lanes=param)
 
 
 @register("lane_dfa_pallas", backend="cuda")

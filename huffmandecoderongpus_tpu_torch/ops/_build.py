@@ -28,7 +28,8 @@ SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
            "k1_scan.cu", "k3_fix.cu", "candidate_scan.cu", "lane_scan.cu",
            "oneshot.cu", "e1_pack.cu", "e2_compact.cu", "e3_place.cu",
            "k1_main.cu", "lane_scan_indexed.cu", "k1_scan2_c01.cu",
-           "k3_fix2_c01.cu")
+           "k3_fix2_c01.cu", "short_candidate_scan.cu",
+           "lane_decode_dense.cu", "compact.cu")
 HEADERS = ("widescan.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -58,7 +59,7 @@ _SIGNATURES = {
     "ws_k3_fix": [_P] * 7 + [_I] * 4 + [_P],
     # bits, tab, cnt, ex, G, B, H, N, tab_words, stream
     "ws_candidate_scan": [_P] * 4 + [_I] * 5 + [_P],
-    # bits, tab, start, sym, valid, G, B, H, N, tab_words, stream
+    # bits, tab, start, sym, valid, G, B, rows, N, tab_words, stream
     "ws_lane_scan": [_P] * 5 + [_I] * 5 + [_P],
     # words, tab, lim, out, n, total, sym, val, cntmap, exmap, mrowmap,
     # gmap, goff, tot, entry, stamps,
@@ -80,6 +81,13 @@ _SIGNATURES = {
     # wmat, tabs, ent, cut, cutsl, c01, bstream, sym, val,
     # G, steps_w, steps_p, SEG, md, stream
     "ws_k3_fix2_c01": [_P] * 9 + [_I] * 5 + [_P],
+    # bits, tab, valid0, merged, exited, mrow, cnt, ex,
+    # G, B, H, N, W, tab_words, stream
+    "ws_short_candidate_scan": [_P] * 8 + [_I] * 6 + [_P],
+    # bits, tab, start, dense, counts, G, B, H, N, out_rows, tab_words, stream
+    "ws_lane_decode_dense": [_P] * 5 + [_I] * 6 + [_P],
+    # cum, sym, out, steps, G, out_rows, stream
+    "ws_compact": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -11,7 +11,10 @@ Lane g walks the fused table one bit row at a time from the root at row
 with j + 1 >= B is its last (it completes the last codeword that starts in
 the lane).  Outputs (B+H, G) uint8: ``valid`` marks the active rows that
 emit, and ``sym`` is the symbol field of every row's table entry (set on
-every row; only rows marked valid carry a decoded symbol).
+every row; only rows marked valid carry a decoded symbol).  With ``rows``
+the scan walks only the first ``rows`` bit rows: the fix scan of the
+self-synchronizing discovery (``_fix_scan`` of ``ops/lanedfa_sync.py``,
+the same rules cut at W rows).
 """
 
 from __future__ import annotations
@@ -29,36 +32,41 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
 launches = 0
 
 
-def lane_scan(bits_t, tab, start, *, B, H, N):
-    """(sym, valid) (B+H, G) uint8 from the bit matrix ``bits_t`` (B+H, G)
-    uint8, the padded fused table ``tab`` (n_chunks, 128) int32 and the
-    entry offsets ``start`` (G,) int32.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
+def lane_scan(bits_t, tab, start, *, B, H, N, rows=None):
+    """(sym, valid) (rows, G) uint8 from the bit matrix ``bits_t`` (rows, G)
+    uint8 (``rows`` B+H unless given), the padded fused table ``tab``
+    (n_chunks, 128) int32 and the entry offsets ``start`` (G,) int32.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel."""
     if bits_t.device.type == "cpu":
-        return lane_scan_ref(bits_t, tab, start, B=B, H=H, N=N)
+        return lane_scan_ref(bits_t, tab, start, B=B, H=H, N=N, rows=rows)
     global launches
     _build.require_cuda("lane_scan", bits_t, tab, start)
     steps, G = bits_t.shape
-    if (steps != B + H or bits_t.dtype != torch.uint8
+    if (steps != (B + H if rows is None else rows)
+            or bits_t.dtype != torch.uint8
             or start.dtype != torch.int32 or start.shape != (G,)
             or tab.numel() > _build.LANEDFA_TAB_WORDS):
-        raise ValueError("lane_scan: bits must be (B+H, G) uint8, start (G,) "
-                         "int32 and the table at most 16 chunks")
+        raise ValueError("lane_scan: bits must be (rows, G) uint8 (rows B+H "
+                         "unless given), start (G,) int32 and the table at "
+                         "most 16 chunks")
     sym = torch.empty((steps, G), dtype=torch.uint8, device=bits_t.device)
     valid = torch.empty((steps, G), dtype=torch.uint8, device=bits_t.device)
     rc = _build.get_lib().ws_lane_scan(
         _build.ptr(bits_t), _build.ptr(tab), _build.ptr(start),
-        _build.ptr(sym), _build.ptr(valid), G, B, H, N, tab.numel(),
+        _build.ptr(sym), _build.ptr(valid), G, B, steps, N, tab.numel(),
         _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "lane_scan")
     return sym, valid
 
 
-def lane_scan_ref(bits_t, tab, start, *, B, H, N):
+def lane_scan_ref(bits_t, tab, start, *, B, H, N, rows=None):
     """Plain torch lane scan: all lanes as one (G,) state, a Python loop
     over bit rows."""
     steps, G = bits_t.shape
+    if steps != (B + H if rows is None else rows):
+        raise ValueError("lane_scan: bits must have rows (B+H unless given) "
+                         "rows")
     dev = bits_t.device
     tabf = tab.reshape(-1).to(torch.int64)
     j0 = start.to(torch.int64)

@@ -1,17 +1,20 @@
 """Lane-DFA decode: the fallback chain of the wide-lane decoder.
 
 Port of ``decode_lanedfa_pallas`` (``huffmandecoderongpus_tpu/ops/
-pallas_lanedfa.py``, candidate discovery) and of ``decode_lanedfa`` and
+pallas_lanedfa.py``, either discovery) and of ``decode_lanedfa`` and
 ``_compose`` (``ops/lanedfa.py``, without the sidecar ``entries``), and of
 the sidecar decodes ``decode_lanedfa_indexed`` (``ops/lanedfa.py``) and
-``decode_lanedfa_indexed_pallas``.  The discovery decode cuts the stream into G lanes of B bits, each column of the bit
-matrix (``lanedfa.bits_matrix``) holding its lane's bits and H more:
+``decode_lanedfa_indexed_pallas``.  The discovery decode cuts the stream
+into G lanes of B bits, each column of the bit matrix
+(``lanedfa.bits_matrix``) holding its lane's bits and H more:
 
   candidate_scan  H chains per lane from every entry offset -> cnt, exit
   compose         exit maps -> each lane's entry offset, base and count
   lane_scan       each lane from its entry offset -> per-bit sym, valid
 
-and the host keeps the valid symbols, lane by lane.  The JAX package runs
+and the host keeps the valid symbols, lane by lane (``discovery="sync"``
+replaces the candidate scan with ``lanedfa_sync``'s discovery against the
+lane scan from offset 0).  The JAX package runs
 the two scans as Pallas kernels, or, for streams under ``LANE_TILE * H``
 bits, as XLA scans that compute the same; the port runs both geometries
 through the one pair of kernel wrappers.  With a `.huffidx` block index
@@ -113,14 +116,25 @@ def decode_lanedfa(hf, *, device, lanes=None, check_size=True) -> np.ndarray:
                                      tiled=False), check_size)
 
 
-def decode_lanedfa_tiled(hf, *, device, lanes=None,
-                         check_size=True) -> np.ndarray:
+def decode_lanedfa_tiled(hf, *, device, lanes=None, check_size=True,
+                         discovery="candidates") -> np.ndarray:
     """Lane-DFA decode in the JAX package's Pallas geometry
-    (``decode_lanedfa_pallas`` with candidate discovery); streams under
-    ``LANE_TILE * H`` bits take ``decode_lanedfa``'s, as there."""
+    (``decode_lanedfa_pallas``): ``discovery="candidates"`` runs the
+    candidate scan, ``"sync"`` the lane scan from offset 0 and the
+    self-synchronizing discovery (``lanedfa_sync.discover_and_splice``).
+    Streams under ``LANE_TILE * H`` bits take ``decode_lanedfa``'s geometry
+    and candidate discovery, as there."""
+    if discovery not in ("candidates", "sync"):
+        raise ValueError(f"unknown discovery {discovery!r}")
     device = require_device(device)
-    return _decode(hf, stage_lanedfa(hf, device=device, lanes=lanes),
-                   check_size)
+    st = stage_lanedfa(hf, device=device, lanes=lanes)
+    if discovery == "sync" and st["N"] >= LANE_TILE * st["H"]:
+        from huffmandecoderongpus_tpu_torch.ops.lanedfa_sync import (
+            decode_staged_sync,
+        )
+
+        return decode_staged_sync(hf, st, check_size)
+    return _decode(hf, st, check_size)
 
 
 def _decode(hf, st: dict, check_size: bool) -> np.ndarray:

@@ -15,7 +15,11 @@ counts reaching ORP), and ``encode_lanes`` and the ``encode`` command
 byte-equal to the host encoder.  The sidecar-indexed route (K1's main scan
 ``k1_main``, the indexed lane scan) and the batched route (``k1_scan2_c01``,
 ``k3_fix2_c01``) are checked kernel by kernel and end to end with their
-launch counts.  Tolerance: bit-exact (integer outputs).
+launch counts, and so is the self-synchronizing discovery (the short
+candidate scan, the lane scan cut at W rows) of ``lane_dfa_sync``; the
+dense lane decode and the compaction are checked against their plain
+versions and through the dense pipeline.  Tolerance: bit-exact (integer
+outputs).
 """
 
 import numpy as np
@@ -24,14 +28,17 @@ import torch
 
 from huffmandecoderongpus_tpu import native
 from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
-from huffmandecoderongpus_tpu_torch.ops import batch, candidate_scan, e1_pack
+from huffmandecoderongpus_tpu_torch.ops import batch, candidate_scan, compact
+from huffmandecoderongpus_tpu_torch.ops import e1_pack
 from huffmandecoderongpus_tpu_torch.ops import e2_compact, e3_place, encode
 from huffmandecoderongpus_tpu_torch.ops import encode_ops, k1_main, k1_scan
 from huffmandecoderongpus_tpu_torch.ops import k1_scan2, k1_scan2_c01
 from huffmandecoderongpus_tpu_torch.ops import k2_compose, k3_fix, k3_fix2
 from huffmandecoderongpus_tpu_torch.ops import k3_fix2_c01, k4_compact
 from huffmandecoderongpus_tpu_torch.ops import lane_scan, lane_scan_indexed
-from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode, oneshot
+from huffmandecoderongpus_tpu_torch.ops import lane_decode_dense, lanedfa
+from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode, lanedfa_sync
+from huffmandecoderongpus_tpu_torch.ops import oneshot, short_candidate_scan
 from huffmandecoderongpus_tpu_torch.ops import widescan
 from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, fib_tree_data
 from torch_streams import fuzz, fuzz_any, make, make_batch, make_indexed
@@ -127,7 +134,8 @@ def test_lanedfa_kernels_match_plain(cuda, name):
 KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
                   k3_fix, candidate_scan, lane_scan, oneshot, e1_pack,
                   e2_compact, e3_place, k1_main, lane_scan_indexed,
-                  k1_scan2_c01, k3_fix2_c01)
+                  k1_scan2_c01, k3_fix2_c01, short_candidate_scan,
+                  lane_decode_dense, compact)
 
 
 def _launched(fn):
@@ -486,3 +494,119 @@ def test_batch_auto_split_on_cuda(cuda, monkeypatch):
                        k3_fix2_c01=1, k4_compact=1)
     for out, raw in zip(outs, raws):
         np.testing.assert_array_equal(out, raw)
+
+
+SYNC = [("text", 16), ("abcd", 1), ("md1abab", 7), ("ns2", 16),
+        ("random", 16), ("md3", None)]
+
+
+@pytest.mark.parametrize("name,lanes", SYNC)
+def test_sync_kernels_match_plain(cuda, name, lanes):
+    # the sync geometry: the 0-chain, every round's short candidate scan,
+    # and the lane scan cut at W rows from the true entry offsets
+    raw, hf = make(name)
+    st = lanedfa_decode.stage_lanedfa(hf, device=cuda, lanes=lanes,
+                                      tiled=False)
+    bits, tab = st["bits"], st["tab"]
+    kw = dict(B=st["B"], H=st["H"], N=st["N"])
+    steps, G = bits.shape
+    zero = torch.zeros(G, dtype=torch.int32, device=cuda)
+    sym0, valid0 = lane_scan.lane_scan(bits, tab, zero, **kw)
+    for g, w in zip((sym0, valid0), lane_scan.lane_scan_ref(bits, tab, zero,
+                                                            **kw)):
+        assert torch.equal(g, w)
+    W = min(max(lanedfa_sync.W0, st["H"] + 1), steps)
+    for w_rows in sorted({W, min(2 * W, steps), steps}):
+        got = short_candidate_scan.short_candidate_scan(
+            bits, tab, valid0, W=w_rows, **kw)
+        want = short_candidate_scan.short_candidate_scan_ref(
+            bits, tab, valid0, W=w_rows, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    cnt, ex = candidate_scan.candidate_scan_ref(bits, tab, **kw)
+    entry = lanedfa_decode.compose(cnt, ex)[0]
+    for w_rows in (W, steps):
+        got = lane_scan.lane_scan(bits[:w_rows], tab, entry, rows=w_rows,
+                                  **kw)
+        want = lane_scan.lane_scan_ref(bits[:w_rows], tab, entry,
+                                       rows=w_rows, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name,lanes", SYNC)
+def test_lane_dfa_sync_on_cuda(cuda, name, lanes):
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+
+    raw, hf = make(name)
+    r0, f0 = lanedfa_sync.rounds, lanedfa_sync.fix_scans
+    out, ran = _launched(lambda: get_decoder("lane_dfa_sync", device=cuda)(
+        hf, lanes))
+    rounds = lanedfa_sync.rounds - r0
+    fixes = lanedfa_sync.fix_scans - f0
+    # one short scan a round, the 0-chain and the fix scan, the tail column
+    assert ran == dict(short_candidate_scan=rounds, lane_scan=1 + fixes,
+                       candidate_scan=1)
+    np.testing.assert_array_equal(out, raw)
+    # the same rounds as the plain versions on the CPU
+    r1 = lanedfa_sync.rounds
+    np.testing.assert_array_equal(lanedfa_sync.decode_lanedfa_sync(
+        hf, device="cpu", lanes=lanes), raw)
+    assert lanedfa_sync.rounds - r1 == rounds
+
+
+@pytest.mark.parametrize("name", ["text", "ns2", "md1"])
+def test_tiled_sync_on_cuda(cuda, name):
+    raw, hf = make(name)
+    r0 = lanedfa_sync.rounds
+    out, ran = _launched(lambda: lanedfa_decode.decode_lanedfa_tiled(
+        hf, device=cuda, discovery="sync"))
+    assert ran["short_candidate_scan"] == lanedfa_sync.rounds - r0 >= 1
+    assert ran["candidate_scan"] == 1 and 1 <= ran["lane_scan"] <= 2
+    np.testing.assert_array_equal(out, raw)
+
+
+def _dense_inputs(hf, dev):
+    st = lanedfa_decode.stage_lanedfa(hf, device=dev)
+    kw = dict(B=st["B"], H=st["H"], N=st["N"])
+    cnt, ex = candidate_scan.candidate_scan(st["bits"], st["tab"], **kw)
+    entry = lanedfa_decode.compose(cnt, ex)[0]
+    md = lanedfa.build_lane_dfa(hf.tree).min_depth
+    out_rows = min(st["B"] + st["H"], st["B"] // max(md, 1) + 2)
+    return st, kw, entry, out_rows
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES) + sorted(MD1_SHAPES))
+def test_dense_kernels_match_plain(cuda, name):
+    raw, hf = make(name)
+    st, kw, entry, out_rows = _dense_inputs(hf, cuda)
+    a = (st["bits"], st["tab"], entry)
+    for rows in (out_rows, 7):  # counts past out_rows in the second
+        dense, counts = lane_decode_dense.lane_decode_dense(
+            *a, out_rows=rows, **kw)
+        rdense, rcounts = lane_decode_dense.lane_decode_dense_ref(
+            *a, out_rows=rows, **kw)
+        assert torch.equal(dense, rdense) and torch.equal(counts, rcounts)
+    dense, counts = lane_decode_dense.lane_decode_dense(
+        *a, out_rows=out_rows, **kw)
+    keep = torch.arange(out_rows, device=cuda)[:, None] < counts[None, :]
+    np.testing.assert_array_equal(dense.t()[keep.t()].cpu().numpy(), raw)
+    sym, valid = lane_scan.lane_scan(*a, **kw)
+    cum = torch.cumsum(valid, 0, dtype=torch.int32)
+    got = compact.compact(cum, sym, out_rows=out_rows)
+    assert torch.equal(got, compact.compact_ref(cum, sym, out_rows=out_rows))
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.parametrize("steps,G,out_rows", [(77, 1024, 40), (50, 100, 30),
+                                              (200, 1, 200), (64, 130, 0)])
+def test_compact_matches_plain(cuda, steps, G, out_rows):
+    rng = np.random.default_rng(steps + G)
+    valid = torch.from_numpy(rng.random((steps, G)) < 0.5).to(cuda)
+    cum = torch.cumsum(valid, 0, dtype=torch.int32)
+    sym = torch.from_numpy(rng.integers(0, 256, (steps, G),
+                                        np.uint8)).to(cuda)
+    got, ran = _launched(lambda: compact.compact(cum, sym,
+                                                 out_rows=out_rows))
+    assert ran == {"compact": 1}
+    assert torch.equal(got, compact.compact_ref(cum, sym, out_rows=out_rows))

@@ -273,7 +273,8 @@ def test_registry():
     assert dec.device == "cpu" and dec.backend == "cuda"
     np.testing.assert_array_equal(dec(hf, 512), native.simple_decode(hf))
     assert set(all_decoders(device="cpu")) == {
-        "lane_wide", "lane_oneshot", "lane_dfa", "lane_dfa_pallas"}
+        "lane_wide", "lane_oneshot", "lane_dfa", "lane_dfa_pallas",
+        "lane_dfa_sync"}
     with pytest.raises(TypeError):
         get_decoder("lane_wide")  # the device is never picked implicitly
 
@@ -305,12 +306,15 @@ def test_port_never_imports_jax(tmp_path):
         "import huffmandecoderongpus_tpu_torch.ops.lanedfa_decode\n"
         "import huffmandecoderongpus_tpu_torch.ops.oneshot\n"
         "import huffmandecoderongpus_tpu_torch.ops.batch\n"
+        "import huffmandecoderongpus_tpu_torch.ops.lanedfa_sync\n"
+        "import huffmandecoderongpus_tpu_torch.ops.lane_decode_dense\n"
+        "import huffmandecoderongpus_tpu_torch.ops.compact\n"
         "import chip_smoke\n"
         "raw = np.tile(np.arange(97, 105, dtype=np.uint8), 2000)\n"
         "md1 = np.where(np.arange(raw.size) % 5 == 0, raw, 0)\n"
         "for r in (raw, md1.astype(np.uint8), raw[:300]):\n"
         "    for name in ('lane_wide', 'lane_oneshot', 'lane_dfa',\n"
-        "                 'lane_dfa_pallas'):\n"
+        "                 'lane_dfa_pallas', 'lane_dfa_sync'):\n"
         "        out = get_decoder(name, device='cpu')(encode_bytes(r))\n"
         "        assert np.array_equal(out, r), name\n"
         "out = get_decoder('lane_dfa', device='cpu')(\n"
