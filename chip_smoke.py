@@ -111,9 +111,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               (0-chain to splice) beside candidate discovery and
               candidate_scan alone (CUDA events), sync split by kernel,
               and the walls of lane_dfa_sync and lane_dfa
-  5. result   one JSON line for the nineteen kernels (times, launches,
-              error, and the bound: the bytes each must move at 3.35 TB/s),
-              the card,
+  5. probes   the four probe kernels (probe_inc, probe_arith, probe_gather,
+              k4_stripped) against their plain versions at every shape of
+              the scripts/ sites they replace (the chained gathers also on
+              seeded inputs whose rows differ), bit-exact, with kernel,
+              plain and library times and their bounds (bytes, or integer
+              ops and shared-memory loads at the card's peak rates and its
+              maximum SM clock); then the six probe programs
+              (probes.run: dispatch, k1fixed on (f) and (a), k4 on (a),
+              gather, vpu, vpu2), the probe kernels' launch counts set to
+              0 just before and read just after, each kernel launched and
+              no line WRONG; then the prof command's breakdown of (a)
+              widescan and (d) lanedfa, every stage present and >= 0
+  6. result   one JSON line for the twenty-three kernels (times, launches,
+              error, and the bound: the bytes each must move at 3.35 TB/s,
+              or the operations it does), the card,
               then the last line {"ok": true, "device": {...}}
 """
 
@@ -128,19 +140,24 @@ import time
 
 import numpy as np
 
+from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+from huffmandecoderongpus_tpu_torch.probes.streams import (
+    KJV_BYTES,
+    PAPER1_BYTES,
+    text_like,
+)
+
 SEED = 0
-#: a kjv-sized stream: the size of kjv.txt, Zipf(1.1) over 84 symbols,
-#: which gives kjv's tree shape (min code length 2, height 9, 83 states)
-KJV_BYTES = 5_504_597
-TEXT_SYMBOLS = 84
+#: the text streams are ``probes.streams.text_like``: Zipf(1.1) over 84
+#: symbols, kjv's tree shape (min code length 2, height 9, 83 states); (a)
+#: and (d) at the size of kjv.txt (KJV_BYTES)
 WIDE_BYTES = 8 << 20
 #: stream (d): bytes [RUN_START, RUN_END) of a kjv-sized stream set to its
 #: most frequent byte
 RUN_START, RUN_END, RUN_BYTE = 2_621_440, 2_883_584, 32
 TINY_BYTES = 2000
-#: the one-shot streams (f)-(i): paper1- and news-sized text, 256 KiB over
-#: all 256 symbols, 400,000 bytes uniform over 12 symbols
-PAPER1_BYTES = 53_161
+#: the one-shot streams (f)-(i): paper1- (PAPER1_BYTES) and news-sized
+#: text, 256 KiB over all 256 symbols, 400,000 bytes uniform over 12 symbols
 NEWS_BYTES = 377_109
 ALPHA_BYTES = 256 << 10
 UNIFORM12_BYTES = 400_000
@@ -155,6 +172,14 @@ BATCH_SYMBOLS = (84, 64, 96, 72, 90)
 BOOK2_BYTES = 610_856
 #: the card's memory rate (bytes/s): NVIDIA's data sheet, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
+#: the card's peak rates an SM a clock for the operation-bound probes: a
+#: 32-bit integer instruction a lane at the FP32 lanes' rate (128: each of
+#: the four sub-partitions issues one warp instruction a clock, and the
+#: compiler sends integer adds to the FMA pipe as IMAD beside the 64 INT32
+#: lanes; 132 SMs x 128 x 1.98 GHz is 33.5 T a second, half the 67 TFLOP/s
+#: float32 peak, which counts an FMA as two), and a 4-byte shared-memory
+#: load (32 banks a clock)
+OPS_PER_SM_CLOCK = {"int32": 128, "shared loads": 32}
 TIMED_RUNS = 25
 WARMUP = 3
 WALL_RUNS = 10
@@ -203,6 +228,18 @@ KERNELS = {
         "huffmandecoderongpus_tpu/ops/lanedfa_sync.py:50", SYNC["d"]),
     "lane_decode_dense": (_CSRC + "lane_decode_dense.cu", _PLD + "230", "d"),
     "compact": (_CSRC + "compact.cu", _PLD + "520", "d"),
+}
+#: the probe kernels: name -> (CUDA source, the script site it replaces, the
+#: start of the shape whose numbers the result line reports)
+PROBE_KERNELS = {
+    "probe_inc": (_CSRC + "probe_inc.cu", "scripts/hw_dispatch.py:52",
+                  "(8,128)"),
+    "probe_arith": (_CSRC + "probe_arith.cu", "scripts/probe_vpu2.py:62",
+                    "xor3 P=8"),
+    "probe_gather": (_CSRC + "probe_gather.cu", "scripts/probe_gather.py:26",
+                     "axis1 (256,1536)"),
+    "k4_stripped": (_CSRC + "k4_stripped.cu", "scripts/hw_k4probe.py:120",
+                    "prefix"),
 }
 #: the kernels of the indexed wide program and of the batched program,
 #: once each a decode
@@ -257,12 +294,6 @@ DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "compact": ("lanedfa_compact_kernel",)}
 
 
-def text_like(rng, n, symbols=TEXT_SYMBOLS):
-    z = 1.0 / np.arange(1, symbols + 1) ** 1.1
-    return rng.choice(np.arange(32, 32 + symbols, dtype=np.uint8),
-                      size=n, p=z / z.sum()).astype(np.uint8)
-
-
 def full_alphabet(rng, n):
     w = rng.random(256) ** 3 + 1e-4
     return rng.choice(np.arange(256, dtype=np.uint8), size=n,
@@ -301,20 +332,6 @@ def fib_stream(rng, build_tree, n_sym):
     freqs = np.zeros(256, dtype=np.int64)
     freqs[:n_sym] = counts
     return raw, build_tree(freqs)
-
-
-def cuda_ms(torch, fn, runs):
-    """Per-run device times (ms) of ``fn`` from CUDA events."""
-    out = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
-    return out
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -359,8 +376,8 @@ def comparer(torch, name, rows):
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = max_abs_err(torch, got, want)
-        ms = statistics.median(cuda_ms(torch, kernel, 20))
-        plain_ms = statistics.median(cuda_ms(torch, plain, 2))
+        ms = statistics.median(event_ms(kernel, 20))
+        plain_ms = statistics.median(event_ms(plain, 2))
         if moved is None:
             moved = nbytes(*inputs, *got)
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -724,7 +741,7 @@ def check_dense(torch, name, raw, hf, dev, with_compact):
         pos = torch.searchsorted(cum.t().contiguous(), want)
         return sym.t().gather(1, pos.clamp_(max=cum.shape[0] - 1))
 
-    lib_ms = statistics.median(cuda_ms(torch, library, 20))
+    lib_ms = statistics.median(event_ms(library, 20))
     rows["compact"] += (lib_ms,)
     print(f"[kernels] {name}: compact bit-exact, equal to the dense decode; "
           f"torch.searchsorted + gather {lib_ms:.4f} ms", flush=True)
@@ -874,7 +891,7 @@ def drive_indexed(torch, mods, hfs, idx, dev, card):
                    sd["words"], sd["tab"], sd["lim"], **ws.program_args(sd))}
         med = {}
         for route, fn in fns.items():
-            ts = cuda_ms(torch, fn, WARMUP + TIMED_RUNS)[WARMUP:]
+            ts = event_ms(fn, WARMUP + TIMED_RUNS)[WARMUP:]
             med[route] = (statistics.median(ts), min(ts))
         walls = {"indexed": wall_ms(torch, lambda h=h: ws.decode_widescan_indexed(
                      h, *h.index, device=dev)),
@@ -942,7 +959,7 @@ def drive_batch(torch, mods, hfs, small, trio, dev, card):
             return batch.batch_decode_program(*batch.batch_inputs(st),
                                               **batch.batch_args(st))
 
-        ts = cuda_ms(torch, program, WARMUP + TIMED_RUNS)[WARMUP:]
+        ts = event_ms(program, WARMUP + TIMED_RUNS)[WARMUP:]
         solo = []
         for h in hl:  # the program decode_widescan routes the member to
             s2 = ws.stage_widescan_inputs(h, device=dev)
@@ -955,7 +972,7 @@ def drive_batch(torch, mods, hfs, small, trio, dev, card):
                     s2["words"], s2["tab"], s2["lim"],
                     **ws.program_args(s2)))
             solo.append(statistics.median(
-                cuda_ms(torch, fn, WARMUP + TIMED_RUNS)[WARMUP:]))
+                event_ms(fn, WARMUP + TIMED_RUNS)[WARMUP:]))
         wall_b = wall_ms(torch, lambda hl=hl: batch.decode_widescan_batch(
             hl, device=dev, auto_split=False))
         wall_s = [wall_ms(torch, lambda h=h: ws.decode_widescan(h, device=dev))
@@ -1131,7 +1148,7 @@ def main() -> int:
                 return ws.wide_decode_program(s2["words"], s2["tab"],
                                               s2["lim"], **args)
 
-            ts = cuda_ms(torch, program, WARMUP + TIMED_RUNS)
+            ts = event_ms(program, WARMUP + TIMED_RUNS)
             med = statistics.median(ts[WARMUP:])
             q = s2["plan"]
             print(f"[slice] {name}: device program median {med:.4f} ms over "
@@ -1163,19 +1180,34 @@ def main() -> int:
     # the encoder's launches are counted apart from the decode paths' check
     launches.update(drive_encoder(torch, hfs, dev, card))
 
-    # ---- 5. result ----------------------------------------------------------
+    # ---- 5. the probes: their kernels, the probe programs, prof ------------
+    probe_rows = check_probe_kernels(torch, hfs, dev)
+    launches.update(drive_probes(torch, hfs, dev, card))
+
+    # ---- 6. result ----------------------------------------------------------
     # each kernel's times from the stream named in KERNELS; its error over
     # every stream it was checked on; its bound from the bytes it must move
     # (no single PyTorch call computes any of these functions but the
-    # compaction, whose row carries searchsorted + gather)
-    print(json.dumps({"kernels": [
-        dict(name=n, route="cuda", source=src, replaces=rep_, stream=k,
-             launches=launches[n],
-             max_abs_err=max(c[n][0] for c in checked.values() if n in c),
-             ms=checked[k][n][1], plain_ms=checked[k][n][2],
-             bound_ms=checked[k][n][3], bound_by="bytes",
-             library_ms=(checked[k][n] + (None,))[4])
-        for n, (src, rep_, k) in KERNELS.items()]}))
+    # compaction, whose row carries searchsorted + gather); the probe
+    # kernels' from the shape named in PROBE_KERNELS, their error over
+    # every shape, their bound from bytes or operations, and beside their
+    # time a launch their own time on the card (device_ms)
+    rows = [dict(name=n, route="cuda", source=src, replaces=rep_, stream=k,
+                 launches=launches[n],
+                 max_abs_err=max(c[n][0] for c in checked.values() if n in c),
+                 ms=checked[k][n][1], plain_ms=checked[k][n][2],
+                 bound_ms=checked[k][n][3], bound_by="bytes",
+                 library_ms=(checked[k][n] + (None,))[4])
+            for n, (src, rep_, k) in KERNELS.items()]
+    for n, (src, rep_, shape) in PROBE_KERNELS.items():
+        at = next(r for r in probe_rows[n] if r[0].startswith(shape))
+        rows.append(dict(name=n, route="cuda", source=src, replaces=rep_,
+                         stream=at[0], launches=launches[n],
+                         max_abs_err=max(r[1] for r in probe_rows[n]),
+                         ms=at[2], plain_ms=at[3], bound_ms=at[4],
+                         bound_by=at[5], library_ms=at[6],
+                         device_ms=at[7]))
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1281,7 +1313,7 @@ def drive_sync(torch, mods, hfs, dev, card):
         rounds = lanedfa_sync.rounds - r0
         med = {}
         for route, fn in fns.items():
-            ts = cuda_ms(torch, fn, WARMUP + TIMED_RUNS)[WARMUP:]
+            ts = event_ms(fn, WARMUP + TIMED_RUNS)[WARMUP:]
             med[route] = (statistics.median(ts), min(ts))
         walls = {dec: wall_ms(torch, lambda dec=dec, h=h: get_decoder(
                      dec, device=dev)(h)) for dec in ("lane_dfa_sync",
@@ -1397,7 +1429,7 @@ def drive_encoder(torch, hfs, dev, card):
             return encode.encode_program(*args, ORP=p["ORP"],
                                          NROWS=p["NROWS"])
 
-        ts = cuda_ms(torch, program, WARMUP + TIMED_RUNS)[WARMUP:]
+        ts = event_ms(program, WARMUP + TIMED_RUNS)[WARMUP:]
         med = statistics.median(ts)
         print(f"[slice] {name}: encode program median {med:.4f} ms over "
               f"{TIMED_RUNS} runs (min {min(ts):.4f}), {r.size / med / 1e6:.3f}"
@@ -1426,6 +1458,223 @@ def drive_encoder(torch, hfs, dev, card):
     return launches
 
 
+def check_probe_kernels(torch, hfs, dev):
+    """Phase 5, the probe kernels: P1-P4 against their plain versions at
+    every shape of the scripts' sites, bit-exact, each with its time a
+    launch (``harness.timing.launch_ms``: 20 launches between two events,
+    median of 5), the plain version's and, where one PyTorch call computes
+    the same function, that call's; and its bound, from the bytes it must
+    move or from the operations it does at the card's peak rate for them
+    (``OPS_PER_SM_CLOCK``, the SM count, the maximum SM clock).  Returns
+    {kernel: [(shape, err, ms, plain ms, bound ms, bound_by, library ms,
+    device ms)]} and raises on any difference.  The device ms is the
+    kernel's own time on the card (``torch.profiler``): back to back,
+    these small launches cost the host more than the card."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import launch_ms
+    from huffmandecoderongpus_tpu_torch.ops import (
+        k4_stripped,
+        probe_arith,
+        probe_gather,
+        probe_inc,
+    )
+    from huffmandecoderongpus_tpu_torch.probes import (
+        hw_k4probe,
+        probe_vpu,
+        probe_vpu2,
+    )
+    from huffmandecoderongpus_tpu_torch.probes import probe_gather as pgp
+    from huffmandecoderongpus_tpu_torch.probes._timing import (
+        device_ms,
+        sm_clock_mhz,
+        us,
+    )
+
+    clock_hz = sm_clock_mhz(dev)[1] * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[probe kernels] bounds at {sms} SMs x {clock_hz / 1e6:.0f} MHz "
+          f"(clocks.max.sm): {OPS_PER_SM_CLOCK}", flush=True)
+    rows = {}
+
+    def check(kname, shape, kernel, plain, inputs, ops=None, library=None):
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max_abs_err(torch, got, want)
+        ms = launch_ms(kernel, device=dev)
+        plain_ms = launch_ms(plain, device=dev, launches=1, trials=2,
+                             warmup=1)
+        lib_ms = None if library is None else launch_ms(library, device=dev)
+        own_ms = device_ms(kernel, dev)
+        if ops is None:
+            moved = nbytes(*inputs, *got)
+            bound, by = moved / HBM_BYTES_PER_S * 1e3, "bytes"
+            what = f"{moved} bytes"
+        else:
+            kind, n = ops
+            bound = n / (sms * OPS_PER_SM_CLOCK[kind] * clock_hz) * 1e3
+            by, what = "operations", f"{n} {kind} ops"
+        rows.setdefault(kname, []).append(
+            (shape, err, ms, plain_ms, bound, by, lib_ms, own_ms))
+        print(f"[probe kernels] {kname} {shape}: max_abs_err {err} "
+              f"(tolerance 0)  kernel {ms:.5f} ms (on the card "
+              f"{us(own_ms)})  plain {plain_ms:.4f} ms  "
+              f"bound {bound:.6f} ms ({what})"
+              + ("" if lib_ms is None else f"  library {lib_ms:.5f} ms"),
+              flush=True)
+        if err:
+            raise AssertionError(f"{kname} {shape} differs from its plain "
+                                 "version")
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    xp = torch.zeros((8, 128), **i32)
+    check("probe_inc", "(8,128)", lambda: probe_inc.probe_inc(xp),
+          lambda: probe_inc.probe_inc_ref(xp), (xp,), library=lambda: xp + 1)
+    xg = torch.arange(4 * 32 * 128, **i32).reshape(4, 32, 128)
+    check("probe_inc", "grid (4,32,128)", lambda: probe_inc.probe_grid(xg),
+          lambda: probe_inc.probe_grid_ref(xg), (xg,))
+
+    per_step = probe_arith.OPS_A_STEP
+    x = probe_vpu2.script_input(dev)
+    for P in probe_vpu2.CHAINS:
+        S = probe_vpu2.STEPS
+        check("probe_arith", f"xor3 P={P} S={S} (128,128)",
+              lambda P=P, S=S: probe_arith.probe_arith(x, body="xor3", S=S,
+                                                       P=P),
+              lambda P=P, S=S: probe_arith.probe_arith_ref(x, body="xor3",
+                                                           S=S, P=P),
+              (x,), ops=("int32", per_step["xor3"] * P * S * x.numel()))
+    for dt in (torch.int32, torch.int16):
+        xa = torch.ones((128, 128), dtype=dt, device=dev)
+        S = probe_vpu.STEPS
+        check("probe_arith", f"addxor S={S} (128,128) {dt}",
+              lambda xa=xa, S=S: probe_arith.probe_arith(xa, body="addxor",
+                                                         S=S),
+              lambda xa=xa, S=S: probe_arith.probe_arith_ref(
+                  xa, body="addxor", S=S),
+              (xa,), ops=("int32", per_step["addxor"] * S * xa.numel()))
+    xm = torch.arange(32 * 128, **i32).reshape(32, 128)
+    check("probe_arith", "mul3 S=64 (32,128)",
+          lambda: probe_arith.probe_arith(xm, body="mul3", S=64),
+          lambda: probe_arith.probe_arith_ref(xm, body="mul3", S=64),
+          (xm,), ops=("int32", per_step["mul3"] * 64 * xm.numel()))
+
+    for label, axis, tab_np, idx_np in pgp.cases():
+        tab = torch.from_numpy(tab_np).to(dev)
+        idx = torch.from_numpy(idx_np).to(dev)
+        k64 = idx.long()
+        check("probe_gather", label,
+              lambda tab=tab, idx=idx, axis=axis: probe_gather.probe_gather(
+                  tab, idx, axis=axis),
+              lambda tab=tab, idx=idx, axis=axis: (
+                  probe_gather.probe_gather_ref(tab, idx, axis=axis)),
+              (tab, idx),
+              library=lambda tab=tab, k64=k64, axis=axis: tab.gather(axis,
+                                                                     k64))
+    for dt in probe_vpu.I16_CASES:
+        tab, idx = probe_vpu.i16_case(dt, dev)
+        k64 = idx.to(torch.int32).long()
+        check("probe_gather", f"axis1 (16,128,{dt})",
+              lambda tab=tab, idx=idx: probe_gather.probe_gather(tab, idx,
+                                                                 axis=1),
+              lambda tab=tab, idx=idx: probe_gather.probe_gather_ref(
+                  tab, idx, axis=1), (tab, idx),
+              library=lambda tab=tab, k64=k64: tab.view(torch.int16).gather(
+                  1, k64))
+    for shape, shift, ax in probe_vpu.ROLLS:
+        xr = probe_vpu.roll_case(shape, dev)
+        check("probe_gather", f"roll {shape} s={shift} ax={ax}",
+              lambda xr=xr, shift=shift, ax=ax: probe_gather.probe_roll(
+                  xr, shift, axis=ax),
+              lambda xr=xr, shift=shift, ax=ax: probe_gather.probe_gather_ref(
+                  xr, probe_gather.roll_index(xr.shape, shift, ax, dev),
+                  axis=ax),
+              (xr,), library=lambda xr=xr, shift=shift, ax=ax: torch.roll(
+                  xr, shift, ax))
+    # the chains on the scripts' inputs (every chain a fixed point, a warp's
+    # loads conflict-free), then on seeded ones whose rows differ, where a
+    # wrong step count, row or broadcast shows
+    xp = probe_vpu2.permuted(dev)
+    for what, xc in (("", x), (" permuted", xp)):
+        for P in probe_vpu2.CHAINS:
+            S = probe_vpu2.STEPS
+            check("probe_gather", f"chain{what} P={P} S={S} (128,128)",
+                  lambda P=P, S=S, xc=xc: probe_gather.probe_gather_chain(
+                      xc, xc, P=P, S=S),
+                  lambda P=P, S=S, xc=xc: probe_gather.probe_gather_chain_ref(
+                      xc, xc, P=P, S=S),
+                  (xc,), ops=("shared loads", P * S * xc.numel()))
+    for what, (tab, idx) in (("", probe_vpu.chain_case(dev)),
+                             (" seeded", probe_vpu.chain_check_case(dev))):
+        S = probe_vpu.STEPS
+        check("probe_gather", f"chain broadcast{what} S={S} (128,128)",
+              lambda tab=tab, idx=idx, S=S: probe_gather.probe_gather_chain(
+                  tab, idx, P=1, S=S, broadcast=True),
+              lambda tab=tab, idx=idx, S=S: (
+                  probe_gather.probe_gather_chain_ref(tab, idx, P=1, S=S,
+                                                      broadcast=True)),
+              (tab, idx), ops=("shared loads", S * idx.numel()))
+
+    sym, val, ORP = hw_k4probe.k3_output(hfs["a"][2], dev)
+    for stage in k4_stripped.STAGES:
+        check("k4_stripped", f"{stage} (a) {tuple(sym.shape)} ORP={ORP}",
+              lambda stage=stage: k4_stripped.k4_stripped(sym, val, ORP=ORP,
+                                                          stage=stage),
+              lambda stage=stage: k4_stripped.k4_stripped_ref(
+                  sym, val, ORP=ORP, stage=stage), (sym, val))
+    return rows
+
+
+def drive_probes(torch, hfs, dev, card):
+    """Phase 5, the probe programs and the stage profiler: the six probes
+    (``probes.run``, their kernels' launch counts set to 0 just before and
+    read just after; each raises on a WRONG line), then ``prof`` on (a)
+    ``widescan`` and (d) ``lanedfa`` through the command's function on
+    their `.huff` files, each report's every key present and >= 0.
+    Returns the probe kernels' launches."""
+    import tempfile
+
+    from huffmandecoderongpus_tpu_torch import probes
+    from huffmandecoderongpus_tpu_torch.harness import cli
+    from huffmandecoderongpus_tpu_torch.huffio import write_huff
+    from huffmandecoderongpus_tpu_torch.ops import (
+        k4_stripped,
+        probe_arith,
+        probe_gather,
+        probe_inc,
+    )
+
+    mods = {"probe_inc": probe_inc, "probe_arith": probe_arith,
+            "probe_gather": probe_gather, "k4_stripped": k4_stripped}
+    streams = {k: hfs[k] for k in "af"}
+
+    def run_all():
+        for name, (_mod, script) in probes.PROBES.items():
+            print(f"[probes] {name} ({script}); card {card}", flush=True)
+            probes.run(name, DEVICE, streams=streams)
+
+    _, ran = counted(torch, mods, run_all)
+    print(f"[probes] launches of the probe kernels: {ran}", flush=True)
+    if set(ran) != set(mods):
+        raise AssertionError(f"a probe kernel was not launched: {ran}")
+
+    keys = {"widescan": ["k1_scan_discovery", "k2_compose", "k3_fix_splice",
+                         "k4_compact", "total"],
+            "lanedfa": ["host_bit_matrix", "candidate_scan", "compose",
+                        "main_scan", "host_compaction", "total"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, which in (("a", "widescan"), ("d", "lanedfa")):
+            name, _r, h = hfs[k]
+            path = str(pathlib.Path(tmp) / f"{k}.huff")
+            write_huff(path, h)
+            print(f"[prof] {name}; card {card}", flush=True)
+            report = cli.prof(path, which, None, DEVICE)
+            if list(report) != keys[which] or min(report.values()) < 0:
+                raise AssertionError(f"prof {which} on {name}: {report}")
+    return ran
+
+
 def wall_ms(torch, fn, runs=WALL_RUNS):
     """(median, min) host-clock ms of ``fn`` ending in a synchronize, over
     ``runs`` runs."""
@@ -1450,7 +1699,7 @@ def time_oneshot(torch, ws, oneshot, name, raw, hf, dev, card):
     for route, fn in (
             ("one-shot", lambda: oneshot.oneshot_program(*args, **kw1)),
             ("four-kernel", lambda: ws.wide_decode_program(*args, **kw4))):
-        ts = cuda_ms(torch, fn, WARMUP + TIMED_RUNS)[WARMUP:]
+        ts = event_ms(fn, WARMUP + TIMED_RUNS)[WARMUP:]
         med[route] = (statistics.median(ts), min(ts))
     wall = {route: wall_ms(torch, lambda o=o: ws.decode_widescan(
                 hf, device=dev, oneshot=o))

@@ -11,14 +11,16 @@ Layering (bottom-up):
   huffio    — `.huff` container reader and writer, Huffman trees, host
               encoder, `.huffidx` sidecar writer (numpy)
   csrc      — CUDA C++ kernels (K1-K4, their 1-bit versions, the fused
-              one-shot kernel, the lane-DFA scans; the encoder's E1-E3),
-              built with nvcc at first use
+              one-shot kernel, the lane-DFA scans; the encoder's E1-E3;
+              the hardware probes' kernels), built with nvcc at first use
   ops       — host staging (numpy), the torch device programs (decode and
               ``encode.encode_lanes``), the kernel wrappers (CUDA tensors
               launch the kernel, CPU tensors run the plain torch version)
   models    — the decoder registry (``lane_wide``, ``lane_oneshot``,
-              ``lane_dfa``, ``lane_dfa_pallas``)
-  harness   — the ``encode`` and ``decode`` command line
+              ``lane_dfa``, ``lane_dfa_pallas``, ``lane_dfa_sync``)
+  probes    — the hardware probes of ``scripts/``, on the card
+  harness   — timers, the stage profiler, and the ``encode``, ``decode``,
+              ``prof`` and ``probe`` command line
 
 This package never imports jax.
 """

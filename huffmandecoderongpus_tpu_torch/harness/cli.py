@@ -1,8 +1,13 @@
-"""Command line of the port: the ``encode`` and ``decode`` commands.
+"""Command line of the port: the ``encode``, ``decode``, ``prof`` and
+``probe`` commands.
 
     python -m huffmandecoderongpus_tpu_torch encode x.bin [x.huff] [--index K]
     python -m huffmandecoderongpus_tpu_torch decode x.huff [out.bin]
         [--decoder NAME]
+    python -m huffmandecoderongpus_tpu_torch prof x.huff [widescan|lanedfa]
+        [--lanes G]
+    python -m huffmandecoderongpus_tpu_torch probe
+        dispatch|k1fixed|k4|gather|vpu|vpu2
 
 ``encode`` compresses a file with the lane-parallel encoder
 (``ops.encode.encode_lanes``) into ``x.huff`` (default: the input's name
@@ -12,8 +17,14 @@ file and its verified sidecar, decodes with ``--decoder`` (default
 ``lane_wide``; ``lane_dfa`` decodes through a sidecar) and writes the
 decoded bytes (to stdout without an output path).  With ``--verify RAW`` it
 instead byte-compares the decode with the raw file and then times it: the
-minimum wall time over the checked run and ``--repeats`` more.  Both run on
-the card unless ``--device cpu`` is given.
+minimum wall time over the checked run and ``--repeats`` more.
+
+``prof`` prints the stage breakdown of one decode of a `.huff` file
+(``harness.profiling``: ``lanedfa`` by default, as the JAX ``prof``, or
+``widescan``).  ``probe`` runs one of the hardware probes (``probes``):
+on the card at its script's sizes, on the CPU at cut sizes.
+Every command runs on the card unless ``--device cpu`` is given, which runs
+the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -69,14 +80,33 @@ def encode(src: str, dst: str | None, index: int | None, device) -> None:
           + (f", index every {hf.index[1]} symbols" if hf.index else ""))
 
 
+def prof(src: str, which: str, lanes, device) -> dict:
+    """Print and return the stage breakdown of ``which`` ("widescan" or
+    "lanedfa") decoding the `.huff` file ``src``."""
+    from huffmandecoderongpus_tpu_torch.harness import profiling
+
+    fns = {"widescan": profiling.profile_widescan,
+           "lanedfa": profiling.profile_lanedfa}
+    if which not in fns:
+        raise SystemExit(f"prof: no breakdown {which!r}; one of "
+                         f"{sorted(fns)} (the speculative pipeline is not "
+                         "ported yet)")
+    report = fns[which](read_huff(src), lanes=lanes, device=device)
+    print(f"{which} stage breakdown on {src}:")
+    print(profiling.format_report(report))
+    return report
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="huffmandecoderongpus_tpu_torch",
         description="PyTorch/CUDA lane-parallel Huffman codec")
-    p.add_argument("command", choices=["encode", "decode"])
+    p.add_argument("command", choices=["encode", "decode", "prof", "probe"])
     p.add_argument("args", nargs="+",
                    help="encode: <input> [output.huff]; "
-                        "decode: <input.huff> [output]")
+                        "decode: <input.huff> [output]; "
+                        "prof: <input.huff> [widescan|lanedfa]; "
+                        "probe: <name>")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -89,10 +119,20 @@ def main(argv=None) -> None:
                    help="decode: compare with this raw file, then time it")
     p.add_argument("--repeats", type=int, default=REPEATS,
                    help="decode --verify: timed runs after the verified one")
+    p.add_argument("--lanes", type=int, metavar="G", default=None,
+                   help="prof: the lane count (default: the decoder's plan)")
     ns = p.parse_args(argv)
 
     src = ns.args[0]
     dst = ns.args[1] if len(ns.args) > 1 else None
+    if ns.command == "prof":
+        prof(src, dst or "lanedfa", ns.lanes, ns.device)
+        return
+    if ns.command == "probe":
+        from huffmandecoderongpus_tpu_torch import probes
+
+        probes.run(src, ns.device)
+        return
     if ns.command == "encode":
         encode(src, dst, ns.index, ns.device)
         return

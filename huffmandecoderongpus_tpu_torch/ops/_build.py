@@ -29,7 +29,8 @@ SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
            "oneshot.cu", "e1_pack.cu", "e2_compact.cu", "e3_place.cu",
            "k1_main.cu", "lane_scan_indexed.cu", "k1_scan2_c01.cu",
            "k3_fix2_c01.cu", "short_candidate_scan.cu",
-           "lane_decode_dense.cu", "compact.cu")
+           "lane_decode_dense.cu", "compact.cu", "probe_inc.cu",
+           "probe_arith.cu", "probe_gather.cu", "k4_stripped.cu")
 HEADERS = ("widescan.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -88,6 +89,18 @@ _SIGNATURES = {
     "ws_lane_decode_dense": [_P] * 5 + [_I] * 6 + [_P],
     # cum, sym, out, steps, G, out_rows, stream
     "ws_compact": [_P] * 3 + [_I] * 3 + [_P],
+    # x, out, n, stream
+    "ws_probe_inc": [_P] * 2 + [_LL, _P],
+    # x, out, work, steps, block_words, work_words, stream
+    "ws_probe_grid": [_P] * 3 + [_I] * 2 + [_LL, _P],
+    # x, out, n, S, body, P, bits, stream
+    "ws_probe_arith": [_P] * 2 + [_I] * 5 + [_P],
+    # tab, idx, out, R, W, Rt, Wt, axis, elem, stream
+    "ws_probe_gather": [_P] * 3 + [_I] * 6 + [_P],
+    # tab, init, out, R, C, P, S, broadcast, stream
+    "ws_probe_gather_chain": [_P] * 3 + [_I] * 5 + [_P],
+    # sym, nib, out, G, cells_p, ORP, prefix, stream
+    "ws_k4_stripped": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -315,21 +315,51 @@ def wide_decode_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md,
     """Full decode from lane words ``words`` (G, B//32) int32.  Returns
     (denseT (G, ORP) uint8, n (G,) int32, total int64 scalar tensor), all
     on the input's device.  ``chunk2`` picks the 2-bit kernels (quad
-    table, md >= 2) or the 1-bit ones (pair table, md = 1)."""
-    wmat = words_matrix(words, -(-steps_p // 32))
+    table, md >= 2) or the 1-bit ones (pair table, md = 1).  The stages
+    are ``stage_k1``, K2, ``stage_k3`` and K4, which the stage profiler
+    (``harness.profiling``) also runs one by one."""
+    kw = dict(H=H, steps_p=steps_p, SEG=SEG, md=md, chunk2=chunk2, C0=C0,
+              C1=C1, NS=NS)
+    wmat, sym, val, cntmap, exmap, mrowmap = stage_k1(
+        words, tab, lim, B=B, steps=steps, **kw)
+    entry, _tot = k2_compose(exmap, 0)
+    sym, val, n, total = stage_k3(wmat, tab, lim, entry, cntmap, mrowmap,
+                                  sym, val, **kw)
+    denseT = k4_compact(sym, val, ORP=ORP)
+    return denseT, n, total
+
+
+def _kernel_args(steps_p, SEG, md, chunk2, C0, C1, NS) -> dict:
     kw = dict(steps_p=steps_p, SEG=SEG, md=md, NS=NS)
     if chunk2:
         kw.update(C0=C0, C1=C1)
-    scan, fix = (k1_scan2, k3_fix2) if chunk2 else (k1_scan, k3_fix)
-    sym, val, cntmap, exmap, mrowmap = scan(
-        wmat, tab, lim, B=B, H=H, steps=steps, **kw)
-    entry, _tot = k2_compose(exmap, 0)
+    return kw
+
+
+def stage_k1(words, tab, lim, *, B, H, steps, steps_p, SEG, md, chunk2, C0,
+             C1, NS):
+    """The program's first stage: the halo'd word matrix and K1 (k1_scan2,
+    or k1_scan for md = 1).  Returns (wmat, sym, val, cntmap, exmap,
+    mrowmap)."""
+    wmat = words_matrix(words, -(-steps_p // 32))
+    scan = k1_scan2 if chunk2 else k1_scan
+    return (wmat, *scan(wmat, tab, lim, B=B, H=H, steps=steps,
+                        **_kernel_args(steps_p, SEG, md, chunk2, C0, C1, NS)))
+
+
+def stage_k3(wmat, tab, lim, entry, cntmap, mrowmap, sym, val, *, H, steps_p,
+             SEG, md, chunk2, C0, C1, NS):
+    """The stage after K2: the per-lane counts and their total
+    (``select_h``), the fix rows and K3 (k3_fix2, or k3_fix for md = 1),
+    which splices ``sym``/``val`` in place.  Returns (sym, val, n,
+    total)."""
     n = select_h(cntmap, entry, H)
     total = n.sum()
     cut, cut_slot = fix_rows(entry, mrowmap, lim, H, md)
-    sym, val = fix(wmat, tab, entry, cut, cut_slot, sym, val, **kw)
-    denseT = k4_compact(sym, val, ORP=ORP)
-    return denseT, n, total
+    fix = k3_fix2 if chunk2 else k3_fix
+    sym, val = fix(wmat, tab, entry, cut, cut_slot, sym, val,
+                   **_kernel_args(steps_p, SEG, md, chunk2, C0, C1, NS))
+    return sym, val, n, total
 
 
 def fix_rows(entry, mrowmap, lim, H: int, md: int):

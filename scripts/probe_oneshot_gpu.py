@@ -29,6 +29,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
+from huffmandecoderongpus_tpu_torch.harness.timing import event_ms  # noqa: E402
 from huffmandecoderongpus_tpu_torch.huffio import encode_bytes  # noqa: E402
 from huffmandecoderongpus_tpu_torch.ops import k1_scan2, oneshot  # noqa: E402
 from huffmandecoderongpus_tpu_torch.ops import widescan as ws  # noqa: E402
@@ -52,8 +53,7 @@ def streams():
 
 
 def median_ms(fn):
-    return statistics.median(cs.cuda_ms(torch, fn, cs.WARMUP + RUNS)[
-        cs.WARMUP:])
+    return statistics.median(event_ms(fn, cs.WARMUP + RUNS)[cs.WARMUP:])
 
 
 def split(args, kw):

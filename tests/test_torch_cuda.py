@@ -18,8 +18,11 @@ byte-equal to the host encoder.  The sidecar-indexed route (K1's main scan
 launch counts, and so is the self-synchronizing discovery (the short
 candidate scan, the lane scan cut at W rows) of ``lane_dfa_sync``; the
 dense lane decode and the compaction are checked against their plain
-versions and through the dense pipeline.  Tolerance: bit-exact (integer
-outputs).
+versions and through the dense pipeline.  The probe kernels (``probe_inc``,
+``probe_arith``, ``probe_gather``, ``k4_stripped``) are checked against
+their plain versions at the scripts' shapes and at odd ones, and the probe
+programs and the stage profiler run on the card.  Tolerance: bit-exact
+(integer outputs).
 """
 
 import numpy as np
@@ -40,6 +43,8 @@ from huffmandecoderongpus_tpu_torch.ops import lane_decode_dense, lanedfa
 from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode, lanedfa_sync
 from huffmandecoderongpus_tpu_torch.ops import oneshot, short_candidate_scan
 from huffmandecoderongpus_tpu_torch.ops import widescan
+from huffmandecoderongpus_tpu_torch.ops import k4_stripped, probe_arith
+from huffmandecoderongpus_tpu_torch.ops import probe_gather, probe_inc
 from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, fib_tree_data
 from torch_streams import fuzz, fuzz_any, make, make_batch, make_indexed
 from torch_streams import placed_lanes, text_like
@@ -135,7 +140,8 @@ KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
                   k3_fix, candidate_scan, lane_scan, oneshot, e1_pack,
                   e2_compact, e3_place, k1_main, lane_scan_indexed,
                   k1_scan2_c01, k3_fix2_c01, short_candidate_scan,
-                  lane_decode_dense, compact)
+                  lane_decode_dense, compact, probe_inc, probe_arith,
+                  probe_gather, k4_stripped)
 
 
 def _launched(fn):
@@ -610,3 +616,116 @@ def test_compact_matches_plain(cuda, steps, G, out_rows):
                                                  out_rows=out_rows))
     assert ran == {"compact": 1}
     assert torch.equal(got, compact.compact_ref(cum, sym, out_rows=out_rows))
+
+
+def _probe_cases():
+    """The probe kernels' cases, each a ``make_(dev)`` that returns (the
+    kernel's output, the plain version's) on seeded tensors on ``dev``."""
+    cases = []
+
+    def add(cid, make_):
+        cases.append(pytest.param(make_, id=cid))
+
+    def i32(shape, dev, seed=0, lo=-2**31, hi=2**31):
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    for shape in ((8, 128), (3, 5), (1000, 7)):
+        add(f"inc{shape}", lambda dev, shape=shape: (
+            lambda x: (probe_inc.probe_inc(x), probe_inc.probe_inc_ref(x)))(
+                i32(shape, dev)))
+    for shape in ((4, 32, 128), (3, 100, 7)):
+        add(f"grid{shape}", lambda dev, shape=shape: (
+            lambda x: (probe_inc.probe_grid(x), probe_inc.probe_grid_ref(x)))(
+                i32(shape, dev, 1)))
+    for body, P, S, dt in (("xor3", 1, 64, torch.int32),
+                           ("xor3", 4, 40, torch.int32),
+                           ("xor3", 8, 4000, torch.int32),
+                           ("xor3", 4, 0, torch.int32),
+                           ("addxor", 1, 48, torch.int32),
+                           ("addxor", 1, 2000, torch.int16),
+                           ("mul3", 1, 64, torch.int32)):
+        add(f"{body}-P{P}-S{S}-{dt}", lambda dev, body=body, P=P, S=S, dt=dt: (
+            lambda x: (probe_arith.probe_arith(x, body=body, S=S, P=P),
+                       probe_arith.probe_arith_ref(x, body=body, S=S, P=P)))(
+                i32((128, 128), dev, P, -30000, 30000).to(dt)))
+    for R, W, axis, dt in ((256, 1536, 1, torch.int32), (8, 128, 0, torch.int32),
+                           (8, 128, 0, torch.uint8), (16, 128, 1, torch.int16),
+                           (16, 128, 1, torch.uint16), (5, 33, 1, torch.uint8)):
+        def gather(dev, R=R, W=W, axis=axis, dt=dt):
+            rng = np.random.default_rng(R + W)
+            tab = torch.from_numpy(rng.integers(0, 200, (R, W)).astype(
+                np.int16)).to(dev).to(dt)
+            n = (R, W)[axis]
+            idx = torch.from_numpy(rng.integers(-2, n + 2, (R, W)).astype(
+                np.int32)).to(dev)
+            return (probe_gather.probe_gather(tab, idx, axis=axis),
+                    probe_gather.probe_gather_ref(tab, idx, axis=axis))
+        add(f"gather{R}x{W}-ax{axis}-{dt}", gather)
+    for P, S, bc in ((1, 4000, False), (4, 64, False), (8, 64, False),
+                     (1, 2000, True), (4, 33, True)):
+        def chain(dev, P=P, S=S, bc=bc):
+            x = i32((128, 128), dev, S, 0, 1 << 20)
+            tab = x[:8].contiguous() if bc else x
+            return (probe_gather.probe_gather_chain(tab, x, P=P, S=S,
+                                                    broadcast=bc),
+                    probe_gather.probe_gather_chain_ref(tab, x, P=P, S=S,
+                                                        broadcast=bc))
+        add(f"chain-P{P}-S{S}-bc{int(bc)}", chain)
+    for cells_p, G, ORP in ((128, 256, 256), (130, 256, 256), (1, 64, 128),
+                            (412, 8192, 384)):
+        for stage in k4_stripped.STAGES:
+            def k4(dev, cells_p=cells_p, G=G, ORP=ORP, stage=stage):
+                sym = i32((cells_p, G), dev, cells_p)
+                nib = i32((cells_p, G), dev, G, 0, 256).to(torch.uint8)
+                return (k4_stripped.k4_stripped(sym, nib, ORP=ORP, stage=stage),
+                        k4_stripped.k4_stripped_ref(sym, nib, ORP=ORP,
+                                                    stage=stage))
+            add(f"k4-{stage}-{cells_p}x{G}", k4)
+    return cases
+
+
+@pytest.mark.parametrize("make_", _probe_cases())
+def test_probe_kernels_match_plain(cuda, make_):
+    got, want = make_(cuda)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        if g.dtype == torch.uint16:  # compared as their int16 bits
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        assert torch.equal(g, w)
+
+
+def test_probe_kernels_count_their_launches(cuda):
+    x = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    _, ran = _launched(lambda: (
+        probe_inc.probe_inc(x), probe_inc.probe_grid(x[None]),
+        probe_arith.probe_arith(x, body="xor3", S=4, P=4),
+        probe_gather.probe_gather(x, x, axis=1),
+        probe_gather.probe_gather_chain(x, x, P=1, S=4),
+        k4_stripped.k4_stripped(x[:, :64].contiguous(),
+                                x[:, :64].to(torch.uint8), ORP=128,
+                                stage="prefix")))
+    assert ran == dict(probe_inc=2, probe_arith=1, probe_gather=2,
+                       k4_stripped=1)
+
+
+@pytest.mark.parametrize("name", ["dispatch", "k1fixed", "k4", "gather",
+                                  "vpu", "vpu2"])
+def test_probe_programs_on_cuda(cuda, name):
+    from huffmandecoderongpus_tpu_torch import probes
+
+    probes.run(name, cuda, steps=64, nbytes=200_000)
+
+
+@pytest.mark.parametrize("which", ["widescan", "lanedfa"])
+def test_profile_on_cuda(cuda, which):
+    from huffmandecoderongpus_tpu_torch.harness import profiling
+
+    _raw, hf = make("text")
+    fn = (profiling.profile_widescan if which == "widescan"
+          else profiling.profile_lanedfa)
+    report = fn(hf, reps=2, device=cuda)
+    assert report["total"] > 0 and min(report.values()) >= 0

@@ -8,14 +8,9 @@ import numpy as np
 
 from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
 from huffmandecoderongpus_tpu.huffio.tree import table_height, table_min_depth
-
-
-def text_like(rng, n, symbols=84):
-    """Zipf(1.1) over ``symbols`` byte values: a text-like tree (min code
-    length 2, height 9 at 84 symbols)."""
-    z = 1.0 / np.arange(1, symbols + 1) ** 1.1
-    return rng.choice(np.arange(32, 32 + symbols, dtype=np.uint8), size=n,
-                      p=z / z.sum()).astype(np.uint8)
+# Zipf(1.1) over ``symbols`` byte values: a text-like tree (min code length
+# 2, height 9 at 84 symbols), as the probes and chip_smoke.py draw it
+from huffmandecoderongpus_tpu_torch.probes.streams import text_like  # noqa: F401
 
 
 def random_bytes(rng, n):
