@@ -122,7 +122,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               gather, vpu, vpu2), the probe kernels' launch counts set to
               0 just before and read just after, each kernel launched and
               no line WRONG; then the prof command's breakdown of (a)
-              widescan and (d) lanedfa, every stage present and >= 0
+              widescan and (d) lanedfa, every stage present and >= 0; then
+              the host's split of a probe_inc launch (probes.hw_dispatch:
+              checks, output, library, stream, pointers, ctypes call,
+              launch, check, each timed over 1,000 calls), on the wrappers'
+              path and on one that makes a Python object at each step, and
+              the host's time a whole call of probe_inc, probe_gather and
+              probe_roll beside x + 1, torch.gather and torch.roll.
+              P1 and P3 are timed in turns with their PyTorch call (x + 1,
+              torch.gather, torch.roll), both also on the card (profiler)
   6. result   one JSON line for the twenty-three kernels (times, launches,
               error, and the bound: the bytes each must move at 3.35 TB/s,
               or the operations it does), the card,
@@ -1183,6 +1191,10 @@ def main() -> int:
     # ---- 5. the probes: their kernels, the probe programs, prof ------------
     probe_rows = check_probe_kernels(torch, hfs, dev)
     launches.update(drive_probes(torch, hfs, dev, card))
+    from huffmandecoderongpus_tpu_torch.probes import hw_dispatch
+    print("[launch] " + hw_dispatch.split_line(hw_dispatch.host_split(dev),
+                                               hw_dispatch.host_calls(dev))
+          + f"; card {card}", flush=True)
 
     # ---- 6. result ----------------------------------------------------------
     # each kernel's times from the stream named in KERNELS; its error over
@@ -1206,7 +1218,7 @@ def main() -> int:
                          max_abs_err=max(r[1] for r in probe_rows[n]),
                          ms=at[2], plain_ms=at[3], bound_ms=at[4],
                          bound_by=at[5], library_ms=at[6],
-                         device_ms=at[7]))
+                         device_ms=at[7], library_device_ms=at[8]))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1467,9 +1479,13 @@ def check_probe_kernels(torch, hfs, dev):
     move or from the operations it does at the card's peak rate for them
     (``OPS_PER_SM_CLOCK``, the SM count, the maximum SM clock).  Returns
     {kernel: [(shape, err, ms, plain ms, bound ms, bound_by, library ms,
-    device ms)]} and raises on any difference.  The device ms is the
-    kernel's own time on the card (``torch.profiler``): back to back,
-    these small launches cost the host more than the card."""
+    device ms, library device ms)]} and raises on any difference.  The
+    device ms is the kernel's own time on the card (``torch.profiler``):
+    back to back, these small launches cost the host more than the card.
+    Where a library call stands beside the kernel, the two are timed in
+    turns (kernel, library, kernel, library, ...; one trial of 20 launches
+    each, median of 5), and the library call's own time on the card is
+    taken too."""
     from huffmandecoderongpus_tpu_torch.harness.timing import launch_ms
     from huffmandecoderongpus_tpu_torch.ops import (
         k4_stripped,
@@ -1502,10 +1518,17 @@ def check_probe_kernels(torch, hfs, dev):
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = max_abs_err(torch, got, want)
-        ms = launch_ms(kernel, device=dev)
+        if library is None:
+            ms, lib_ms, lib_own = launch_ms(kernel, device=dev), None, None
+        else:
+            turns = ([], [])
+            for _ in range(5):
+                for t, fn in zip(turns, (kernel, library)):
+                    t.append(launch_ms(fn, device=dev, trials=1))
+            ms, lib_ms = (statistics.median(t) for t in turns)
+            lib_own = device_ms(library, dev)
         plain_ms = launch_ms(plain, device=dev, launches=1, trials=2,
                              warmup=1)
-        lib_ms = None if library is None else launch_ms(library, device=dev)
         own_ms = device_ms(kernel, dev)
         if ops is None:
             moved = nbytes(*inputs, *got)
@@ -1516,12 +1539,13 @@ def check_probe_kernels(torch, hfs, dev):
             bound = n / (sms * OPS_PER_SM_CLOCK[kind] * clock_hz) * 1e3
             by, what = "operations", f"{n} {kind} ops"
         rows.setdefault(kname, []).append(
-            (shape, err, ms, plain_ms, bound, by, lib_ms, own_ms))
+            (shape, err, ms, plain_ms, bound, by, lib_ms, own_ms, lib_own))
         print(f"[probe kernels] {kname} {shape}: max_abs_err {err} "
               f"(tolerance 0)  kernel {ms:.5f} ms (on the card "
               f"{us(own_ms)})  plain {plain_ms:.4f} ms  "
               f"bound {bound:.6f} ms ({what})"
-              + ("" if lib_ms is None else f"  library {lib_ms:.5f} ms"),
+              + ("" if lib_ms is None else f"  library {lib_ms:.5f} ms (on "
+                 f"the card {us(lib_own)}; in turns with the kernel)"),
               flush=True)
         if err:
             raise AssertionError(f"{kname} {shape} differs from its plain "
@@ -1587,9 +1611,8 @@ def check_probe_kernels(torch, hfs, dev):
         check("probe_gather", f"roll {shape} s={shift} ax={ax}",
               lambda xr=xr, shift=shift, ax=ax: probe_gather.probe_roll(
                   xr, shift, axis=ax),
-              lambda xr=xr, shift=shift, ax=ax: probe_gather.probe_gather_ref(
-                  xr, probe_gather.roll_index(xr.shape, shift, ax, dev),
-                  axis=ax),
+              lambda xr=xr, shift=shift, ax=ax: probe_gather.probe_roll_ref(
+                  xr, shift, axis=ax),
               (xr,), library=lambda xr=xr, shift=shift, ax=ax: torch.roll(
                   xr, shift, ax))
     # the chains on the scripts' inputs (every chain a fixed point, a warp's

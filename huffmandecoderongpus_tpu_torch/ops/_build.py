@@ -9,6 +9,16 @@ Building happens at first use, never at import.
 
 Every launcher returns ``cudaGetLastError()`` after its launch; ``check``
 turns a nonzero code into a ``RuntimeError``.
+
+The launch path, shared by every wrapper, makes no Python object a launch:
+``get_lib`` takes a lock only until the library has loaded (its launchers
+are typed once then), the wrappers hand ``ctypes`` each pointer as
+``data_ptr()`` and ``stream_ptr`` the stream as plain ints (``argtypes``
+makes them ``c_void_p``), the stream is read on every call from ``torch._C._cuda_getCurrentRawStream``
+where this torch has it (no ``torch.cuda.Stream`` is made), and
+``require_cuda`` asks each tensor ``is_contiguous``, ``is_cuda`` and
+``get_device`` (no ``torch.device`` is made).  ``probe dispatch`` prints
+what each part costs the host.
 """
 
 from __future__ import annotations
@@ -20,6 +30,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -95,8 +107,10 @@ _SIGNATURES = {
     "ws_probe_grid": [_P] * 3 + [_I] * 2 + [_LL, _P],
     # x, out, n, S, body, P, bits, stream
     "ws_probe_arith": [_P] * 2 + [_I] * 5 + [_P],
-    # tab, idx, out, R, W, Rt, Wt, axis, elem, stream
-    "ws_probe_gather": [_P] * 3 + [_I] * 6 + [_P],
+    # tab, idx, out, R, W, Rt, Wt, axis, elem, index type, stream
+    "ws_probe_gather": [_P] * 3 + [_I] * 7 + [_P],
+    # x, out, R, W, axis, elem, shift, stream
+    "ws_probe_roll": [_P] * 2 + [_I] * 5 + [_P],
     # tab, init, out, R, C, P, S, broadcast, stream
     "ws_probe_gather_chain": [_P] * 3 + [_I] * 5 + [_P],
     # sym, nib, out, G, cells_p, ORP, prefix, stream
@@ -105,6 +119,10 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+#: device index -> the raw pointer of its current stream
+_current_raw_stream = getattr(
+    torch._C, "_cuda_getCurrentRawStream",
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
 
 
 def nvcc() -> str:
@@ -175,20 +193,27 @@ def build() -> pathlib.Path:
     return out
 
 
-def get_lib() -> ctypes.CDLL:
-    """Load (building if needed) the kernel library."""
+def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
+                fn = getattr(lib, name)  # kept in the library's __dict__
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.ws_error_string.argtypes = [ctypes.c_int]
             lib.ws_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def get_lib() -> ctypes.CDLL:
+    """The kernel library, built and loaded at the first call.  Its
+    launchers are looked up and typed once, when it loads; after that this
+    takes no lock."""
+    lib = _lib
+    return _load() if lib is None else lib
 
 
 def check(rc: int, what: str) -> None:
@@ -198,23 +223,19 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def stream_ptr(t) -> ctypes.c_void_p:
-    """The current CUDA stream of ``t``'s device, as a ctypes pointer."""
-    import torch
-
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def stream_ptr(t) -> int:
+    """The current CUDA stream of ``t``'s device as an int (``ctypes``
+    makes it the launcher's pointer), read afresh on every call: a caller
+    may switch streams or capture a graph."""
+    return _current_raw_stream(t.get_device())
 
 
 def require_cuda(what: str, *tensors) -> None:
-    """Check that the kernel can take these tensors: CUDA, contiguous, on
-    one device."""
-    dev = tensors[0].device
+    """Check that the kernel can take these tensors: contiguous, CUDA, on
+    one device.  Raises ``ValueError``; nothing falls back."""
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{what}: all tensors must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+        if not t.is_cuda or t.get_device() != dev:
+            raise ValueError(f"{what}: all tensors must be on one CUDA device")

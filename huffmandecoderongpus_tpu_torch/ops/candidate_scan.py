@@ -46,7 +46,7 @@ def candidate_scan(bits_t, tab, *, B, H, N):
     cnt = torch.empty((H, G), dtype=torch.int32, device=bits_t.device)
     ex = torch.empty((H, G), dtype=torch.int32, device=bits_t.device)
     rc = _build.get_lib().ws_candidate_scan(
-        _build.ptr(bits_t), _build.ptr(tab), _build.ptr(cnt), _build.ptr(ex),
+        bits_t.data_ptr(), tab.data_ptr(), cnt.data_ptr(), ex.data_ptr(),
         G, B, H, N, tab.numel(), _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "candidate_scan")

@@ -35,8 +35,8 @@ def compact(cum, sym, *, out_rows):
         raise ValueError("compact: cum must be (steps, G) int32 and sym "
                          "(steps, G) uint8")
     out = torch.empty((out_rows, G), dtype=torch.uint8, device=cum.device)
-    rc = _build.get_lib().ws_compact(_build.ptr(cum), _build.ptr(sym),
-                                     _build.ptr(out), steps, G, out_rows,
+    rc = _build.get_lib().ws_compact(cum.data_ptr(), sym.data_ptr(),
+                                     out.data_ptr(), steps, G, out_rows,
                                      _build.stream_ptr(cum))
     launches += 1
     _build.check(rc, "compact")

@@ -46,8 +46,8 @@ def e1_pack(data3, lo, hi, nval):
     cnt = torch.empty(G, dtype=torch.int32, device=dev)
     bits = torch.empty(G, dtype=torch.int32, device=dev)
     rc = _build.get_lib().ws_e1_pack(
-        _build.ptr(data3), _build.ptr(lo), _build.ptr(hi), _build.ptr(nval),
-        _build.ptr(gran), _build.ptr(gval), _build.ptr(cnt), _build.ptr(bits),
+        data3.data_ptr(), lo.data_ptr(), hi.data_ptr(), nval.data_ptr(),
+        gran.data_ptr(), gval.data_ptr(), cnt.data_ptr(), bits.data_ptr(),
         K, G, _build.stream_ptr(data3))
     launches += 1
     _build.check(rc, "e1_pack")

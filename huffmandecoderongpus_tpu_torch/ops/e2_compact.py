@@ -36,7 +36,7 @@ def e2_compact(gran, gval, *, ORP):
                          "uint8, ORP >= 1")
     out = torch.empty((G, ORP), dtype=torch.int32, device=gran.device)
     rc = _build.get_lib().ws_e2_compact(
-        _build.ptr(gran), _build.ptr(gval), _build.ptr(out), rows, G, ORP,
+        gran.data_ptr(), gval.data_ptr(), out.data_ptr(), rows, G, ORP,
         _build.stream_ptr(gran))
     launches += 1
     _build.check(rc, "e2_compact")

@@ -46,8 +46,8 @@ def e3_place(shifted, word_off, occ, *, NROWS):
                          "all int32")
     out = torch.zeros((NROWS, 128), dtype=torch.int32, device=shifted.device)
     rc = _build.get_lib().ws_e3_place(
-        _build.ptr(shifted), _build.ptr(word_off), _build.ptr(occ),
-        _build.ptr(out), G, ORP, NROWS * 128, _build.stream_ptr(shifted))
+        shifted.data_ptr(), word_off.data_ptr(), occ.data_ptr(),
+        out.data_ptr(), G, ORP, NROWS * 128, _build.stream_ptr(shifted))
     launches += 1
     _build.check(rc, "e3_place")
     return out

@@ -51,8 +51,8 @@ def k1_main(wmat, tab, lim, *, steps_p, md, C0, C1, NS):
     sym = torch.empty((cells_p, G), dtype=torch.int32, device=wmat.device)
     val = torch.empty((cells_p, G), dtype=torch.uint8, device=wmat.device)
     rc = _build.get_lib().ws_k1_main(
-        _build.ptr(wmat), _build.ptr(tab), _build.ptr(lim), _build.ptr(sym),
-        _build.ptr(val), G, steps_w, steps_p, md, C0, C1, NS,
+        wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), sym.data_ptr(),
+        val.data_ptr(), G, steps_w, steps_p, md, C0, C1, NS,
         _build.stream_ptr(wmat))
     launches += 1
     _build.check(rc, "k1_main")

@@ -59,8 +59,8 @@ def k1_scan(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, NS):
     maps = [torch.empty((HP, G), dtype=torch.int32, device=dev)
             for _ in range(3)]
     rc = _build.get_lib().ws_k1_scan(
-        _build.ptr(wmat), _build.ptr(tab), _build.ptr(lim), _build.ptr(sym),
-        _build.ptr(val), *(_build.ptr(m) for m in maps),
+        wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), sym.data_ptr(),
+        val.data_ptr(), *(m.data_ptr() for m in maps),
         G, steps_w, B, H, steps, steps_p, NS, _build.stream_ptr(wmat))
     launches += 1
     _build.check(rc, "k1_scan")

@@ -68,8 +68,8 @@ def k1_scan2(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1, NS):
             for _ in range(3)]
     lib = _build.get_lib()
     rc = lib.ws_k1_scan2(
-        _build.ptr(wmat), _build.ptr(tab), _build.ptr(lim), _build.ptr(sym),
-        _build.ptr(val), *(_build.ptr(m) for m in maps),
+        wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), sym.data_ptr(),
+        val.data_ptr(), *(m.data_ptr() for m in maps),
         G, steps_w, B, H, steps, steps_p, SEG, md, C0, C1, NS,
         _build.stream_ptr(wmat))
     launches += 1

@@ -57,9 +57,9 @@ def k1_scan2_c01(wmat, tabs, lim, c01, bstream, *, B, H, steps, steps_p,
     maps = [torch.empty((HP, G), dtype=torch.int32, device=dev)
             for _ in range(3)]
     rc = _build.get_lib().ws_k1_scan2_c01(
-        _build.ptr(wmat), _build.ptr(tabs), _build.ptr(lim), _build.ptr(c01),
-        _build.ptr(bstream), _build.ptr(sym), _build.ptr(val),
-        *(_build.ptr(m) for m in maps), G, steps_w, B, H, steps, steps_p,
+        wmat.data_ptr(), tabs.data_ptr(), lim.data_ptr(), c01.data_ptr(),
+        bstream.data_ptr(), sym.data_ptr(), val.data_ptr(),
+        *(m.data_ptr() for m in maps), G, steps_w, B, H, steps, steps_p,
         SEG, md, _build.stream_ptr(wmat))
     launches += 1
     _build.check(rc, "k1_scan2_c01")

@@ -54,8 +54,8 @@ def k2_compose(exmap, start: int = 0):
     gmap = torch.empty((NGp, NE), dtype=torch.uint8, device=dev)
     goff = torch.empty(NGp, dtype=torch.int32, device=dev)
     rc = _build.get_lib().ws_k2_compose(
-        _build.ptr(exmap), _build.ptr(entry), _build.ptr(tot),
-        _build.ptr(gmap), _build.ptr(goff), G, HP, start, L, NGp,
+        exmap.data_ptr(), entry.data_ptr(), tot.data_ptr(),
+        gmap.data_ptr(), goff.data_ptr(), G, HP, start, L, NGp,
         _build.stream_ptr(exmap))
     launches += 1
     _build.check(rc, "k2_compose")

@@ -49,8 +49,8 @@ def k3_fix2(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, C0,
             or sym.shape != (steps_p // md // CELL, G)):
         raise ValueError("geometry outside the K3 kernel's bounds (see _plan)")
     rc = _build.get_lib().ws_k3_fix2(
-        _build.ptr(wmat), _build.ptr(tab), _build.ptr(ent), _build.ptr(cut),
-        _build.ptr(cut_slot), _build.ptr(sym), _build.ptr(val),
+        wmat.data_ptr(), tab.data_ptr(), ent.data_ptr(), cut.data_ptr(),
+        cut_slot.data_ptr(), sym.data_ptr(), val.data_ptr(),
         G, steps_w, steps_p, SEG, md, C0, C1, NS, _build.stream_ptr(wmat))
     launches += 1
     _build.check(rc, "k3_fix2")

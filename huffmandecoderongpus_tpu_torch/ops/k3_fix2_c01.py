@@ -39,9 +39,9 @@ def k3_fix2_c01(wmat, tabs, ent, cut, cut_slot, sym, val, c01, bstream, *,
             or bstream.shape != (G // BLOCK,) or c01.shape != (G,)):
         raise ValueError("geometry outside the batched K3 kernel's bounds")
     rc = _build.get_lib().ws_k3_fix2_c01(
-        _build.ptr(wmat), _build.ptr(tabs), _build.ptr(ent), _build.ptr(cut),
-        _build.ptr(cut_slot), _build.ptr(c01), _build.ptr(bstream),
-        _build.ptr(sym), _build.ptr(val), G, steps_w, steps_p, SEG, md,
+        wmat.data_ptr(), tabs.data_ptr(), ent.data_ptr(), cut.data_ptr(),
+        cut_slot.data_ptr(), c01.data_ptr(), bstream.data_ptr(),
+        sym.data_ptr(), val.data_ptr(), G, steps_w, steps_p, SEG, md,
         _build.stream_ptr(wmat))
     launches += 1
     _build.check(rc, "k3_fix2_c01")

@@ -34,7 +34,7 @@ def k4_compact(sym, val, *, ORP):
         raise ValueError("k4_compact: ORP must be a multiple of 128")
     out = torch.empty((G, ORP), dtype=torch.uint8, device=sym.device)
     rc = _build.get_lib().ws_k4_compact(
-        _build.ptr(sym), _build.ptr(val), _build.ptr(out), G, cells_p, ORP,
+        sym.data_ptr(), val.data_ptr(), out.data_ptr(), G, cells_p, ORP,
         _build.stream_ptr(sym))
     launches += 1
     _build.check(rc, "k4_compact")

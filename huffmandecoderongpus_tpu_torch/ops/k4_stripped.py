@@ -51,7 +51,7 @@ def k4_stripped(sym, nib, *, ORP, stage):
         raise ValueError(f"k4_stripped: G must be a multiple of {LANES}")
     out = torch.empty((G, ORP), dtype=torch.uint8, device=sym.device)
     rc = _build.get_lib().ws_k4_stripped(
-        _build.ptr(sym), _build.ptr(nib), _build.ptr(out), G, cells_p, ORP,
+        sym.data_ptr(), nib.data_ptr(), out.data_ptr(), G, cells_p, ORP,
         int(stage == "prefix"), _build.stream_ptr(sym))
     launches += 1
     _build.check(rc, "k4_stripped")

@@ -47,8 +47,8 @@ def lane_decode_dense(bits_t, tab, start, *, B, H, N, out_rows):
     dense = torch.empty((out_rows, G), dtype=torch.uint8, device=bits_t.device)
     counts = torch.empty(G, dtype=torch.int32, device=bits_t.device)
     rc = _build.get_lib().ws_lane_decode_dense(
-        _build.ptr(bits_t), _build.ptr(tab), _build.ptr(start),
-        _build.ptr(dense), _build.ptr(counts), G, B, H, N, out_rows,
+        bits_t.data_ptr(), tab.data_ptr(), start.data_ptr(),
+        dense.data_ptr(), counts.data_ptr(), G, B, H, N, out_rows,
         tab.numel(), _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "lane_decode_dense")

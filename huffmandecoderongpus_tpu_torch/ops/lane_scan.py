@@ -52,8 +52,8 @@ def lane_scan(bits_t, tab, start, *, B, H, N, rows=None):
     sym = torch.empty((steps, G), dtype=torch.uint8, device=bits_t.device)
     valid = torch.empty((steps, G), dtype=torch.uint8, device=bits_t.device)
     rc = _build.get_lib().ws_lane_scan(
-        _build.ptr(bits_t), _build.ptr(tab), _build.ptr(start),
-        _build.ptr(sym), _build.ptr(valid), G, B, steps, N, tab.numel(),
+        bits_t.data_ptr(), tab.data_ptr(), start.data_ptr(),
+        sym.data_ptr(), valid.data_ptr(), G, B, steps, N, tab.numel(),
         _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "lane_scan")

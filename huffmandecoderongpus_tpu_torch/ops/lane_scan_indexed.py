@@ -41,8 +41,8 @@ def lane_scan_indexed(bits_t, tab, lane_len):
     sym = torch.empty((B, G), dtype=torch.uint8, device=bits_t.device)
     valid = torch.empty((B, G), dtype=torch.uint8, device=bits_t.device)
     rc = _build.get_lib().ws_lane_scan_indexed(
-        _build.ptr(bits_t), _build.ptr(tab), _build.ptr(lane_len),
-        _build.ptr(sym), _build.ptr(valid), G, B, tab.numel(),
+        bits_t.data_ptr(), tab.data_ptr(), lane_len.data_ptr(),
+        sym.data_ptr(), valid.data_ptr(), G, B, tab.numel(),
         _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "lane_scan_indexed")

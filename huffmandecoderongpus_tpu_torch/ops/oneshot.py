@@ -134,10 +134,10 @@ def oneshot_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md, C0,
                empty(NE, torch.uint8),               # composite map
                empty(G, torch.int32)]                # entries
     rc = _build.get_lib().ws_oneshot(
-        _build.ptr(words), _build.ptr(tab), _build.ptr(lim),
-        _build.ptr(denseT), _build.ptr(n), _build.ptr(total),
-        *(_build.ptr(t) for t in scratch),
-        None if stamps is None else _build.ptr(stamps),
+        words.data_ptr(), tab.data_ptr(), lim.data_ptr(),
+        denseT.data_ptr(), n.data_ptr(), total.data_ptr(),
+        *(t.data_ptr() for t in scratch),
+        None if stamps is None else stamps.data_ptr(),
         G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp,
         _build.stream_ptr(words))
     launches += 1

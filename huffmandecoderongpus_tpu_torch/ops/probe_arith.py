@@ -52,7 +52,7 @@ def probe_arith(x, *, body, S, P=1):
     _build.require_cuda("probe_arith", x)
     out = torch.empty_like(x)
     rc = _build.get_lib().ws_probe_arith(
-        _build.ptr(x), _build.ptr(out), x.numel(), S, BODIES[body], P,
+        x.data_ptr(), out.data_ptr(), x.numel(), S, BODIES[body], P,
         8 * x.element_size(), _build.stream_ptr(x))
     launches += 1
     _build.check(rc, "probe_arith")

@@ -8,8 +8,10 @@ Replaces the gather and roll Pallas kernels of the hardware probes:
 
 One-shot: ``out[r, j] = tab[r, idx[r, j]]`` (axis 1) or ``tab[idx[r, j],
 j]`` (axis 0), as ``take_along_axis``, for int32, int16, uint16 and uint8
-tables; an index outside the table's axis reads its nearest end.  The roll
-is this gather with the index ``(j - shift) mod W`` built here.
+tables and int32, int16 and uint16 indices (read by the kernel as given);
+an index outside the table's axis reads its nearest end.  The roll is the
+kernel's roll mode: it computes each source position itself, so a roll is
+one launch with no index.
 
 Chained: P chains an element, ``c_i = (init + i) & (C - 1)``, then S steps
 of ``c_i = tab[row, c_i & (C - 1)]`` with ``row`` the element's own row, or
@@ -23,10 +25,12 @@ import torch
 from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.quad import to_i32
 
-#: kernel launches made by ``probe_gather`` and ``probe_gather_chain`` on
-#: CUDA tensors
+#: kernel launches made by ``probe_gather``, ``probe_roll`` and
+#: ``probe_gather_chain`` on CUDA tensors
 launches = 0
 ELEMENTS = (torch.int32, torch.int16, torch.uint16, torch.uint8)
+#: the index types the kernel reads, and the code its launcher takes
+INDEXES = {torch.int32: 0, torch.int16: 1, torch.uint16: 2}
 CHAINS = (1, 4, 8)
 
 
@@ -35,8 +39,9 @@ def _check_gather(tab, idx, axis):
         raise ValueError("probe_gather: 2-d tab and idx, axis 0 or 1")
     if tab.dtype not in ELEMENTS:
         raise ValueError(f"probe_gather: tab type {tab.dtype} not taken")
-    if idx.dtype.is_floating_point or idx.dtype == torch.bool:
-        raise ValueError("probe_gather: idx must be integer")
+    if idx.dtype not in INDEXES:
+        raise ValueError(f"probe_gather: idx type {idx.dtype} not taken; "
+                         "int32, int16 or uint16")
     other = 1 - axis
     if tab.shape[other] != idx.shape[other] or tab.shape[axis] == 0:
         raise ValueError("probe_gather: tab and idx differ off the axis")
@@ -45,17 +50,18 @@ def _check_gather(tab, idx, axis):
 def probe_gather(tab, idx, *, axis):
     """``take_along_axis(tab, idx, axis)`` of 2-d tensors, of tab's type and
     idx's shape.  CPU tensors run the plain version; CUDA tensors launch
-    the kernel (an index not int32 is cast first)."""
+    the kernel, which reads idx in its own type."""
     _check_gather(tab, idx, axis)
-    if tab.device.type == "cpu":
+    if tab.is_cpu:
         return probe_gather_ref(tab, idx, axis=axis)
     global launches
     _build.require_cuda("probe_gather", tab, idx)
-    idx = idx.to(torch.int32).contiguous()
-    out = torch.empty(idx.shape, dtype=tab.dtype, device=tab.device)
+    out = torch.empty_like(idx, dtype=tab.dtype)
+    R, W = idx.shape
+    Rt, Wt = tab.shape
     rc = _build.get_lib().ws_probe_gather(
-        _build.ptr(tab), _build.ptr(idx), _build.ptr(out), *idx.shape,
-        *tab.shape, axis, tab.element_size(), _build.stream_ptr(tab))
+        tab.data_ptr(), idx.data_ptr(), out.data_ptr(), R, W, Rt, Wt, axis,
+        tab.element_size(), INDEXES[idx.dtype], _build.stream_ptr(tab))
     launches += 1
     _build.check(rc, "probe_gather")
     return out
@@ -71,20 +77,39 @@ def probe_gather_ref(tab, idx, *, axis):
     return tab.gather(axis, k)
 
 
-def roll_index(shape, shift: int, axis: int, device) -> torch.Tensor:
-    """(R, W) int32 index for which gathering along ``axis`` is
-    ``roll(x, shift, axis)``: position p reads (p - shift) mod n."""
-    n = shape[axis]
-    p = torch.arange(n, device=device, dtype=torch.int64)
-    src = torch.remainder(p - shift, n).to(torch.int32)
-    src = src[None, :] if axis == 1 else src[:, None]
-    return src.expand(shape).contiguous()
+def _check_roll(x, axis):
+    if axis not in (0, 1) or x.dim() != 2:
+        raise ValueError("probe_roll: 2-d x, axis 0 or 1")
+    if x.dtype not in ELEMENTS:
+        raise ValueError(f"probe_roll: x type {x.dtype} not taken")
 
 
 def probe_roll(x, shift: int, *, axis):
-    """``roll(x, shift, axis)`` of a 2-d tensor, as the one-shot gather."""
-    return probe_gather(x, roll_index(x.shape, shift, axis, x.device),
-                        axis=axis)
+    """``roll(x, shift, axis)`` of a 2-d tensor: position p of the axis
+    reads (p - shift) mod n.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel's roll mode, once."""
+    _check_roll(x, axis)
+    if x.is_cpu:
+        return probe_roll_ref(x, shift, axis=axis)
+    global launches
+    _build.require_cuda("probe_roll", x)
+    out = torch.empty_like(x)
+    R, W = x.shape
+    n = x.shape[axis]
+    rc = _build.get_lib().ws_probe_roll(
+        x.data_ptr(), out.data_ptr(), R, W, axis, x.element_size(),
+        shift % n if n else 0, _build.stream_ptr(x))
+    launches += 1
+    _build.check(rc, "probe_roll")
+    return out
+
+
+def probe_roll_ref(x, shift: int, *, axis):
+    """Plain ``torch.roll``; uint16 rolled as int16 (the same bits)."""
+    _check_roll(x, axis)
+    if x.dtype == torch.uint16:
+        return torch.roll(x.view(torch.int16), shift, axis).view(torch.uint16)
+    return torch.roll(x, shift, axis)
 
 
 def _check_chain(tab, init, P, S, broadcast):
@@ -113,7 +138,7 @@ def probe_gather_chain(tab, init, *, P, S, broadcast=False):
     R, C = init.shape
     out = torch.empty_like(init)
     rc = _build.get_lib().ws_probe_gather_chain(
-        _build.ptr(tab), _build.ptr(init), _build.ptr(out), R, C, P, S,
+        tab.data_ptr(), init.data_ptr(), out.data_ptr(), R, C, P, S,
         int(broadcast), _build.stream_ptr(tab))
     launches += 1
     _build.check(rc, "probe_gather_chain")

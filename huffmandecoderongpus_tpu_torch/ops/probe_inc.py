@@ -25,14 +25,14 @@ WORK_BLOCKS = 14 + 12 + 12
 def probe_inc(x):
     """``x + 1`` on an int32 tensor of any shape (wrapping).  CPU tensors
     run the plain version; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return probe_inc_ref(x)
     global launches
     _build.require_cuda("probe_inc", x)
     if x.dtype != torch.int32:
         raise ValueError("probe_inc: x must be int32")
     out = torch.empty_like(x)
-    rc = _build.get_lib().ws_probe_inc(_build.ptr(x), _build.ptr(out),
+    rc = _build.get_lib().ws_probe_inc(x.data_ptr(), out.data_ptr(),
                                        x.numel(), _build.stream_ptr(x))
     launches += 1
     _build.check(rc, "probe_inc")
@@ -50,7 +50,7 @@ def probe_grid(x):
     (WORK_BLOCKS, R, C) int32, the scratch s2-s4 as the blocks leave it
     (all zero).  CPU tensors run the plain version; CUDA tensors launch the
     kernel, its workspace from ``torch.empty``."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return probe_grid_ref(x)
     global launches
     _build.require_cuda("probe_grid", x)
@@ -61,7 +61,7 @@ def probe_grid(x):
     work = torch.empty((WORK_BLOCKS, R, C), dtype=torch.int32,
                        device=x.device)
     rc = _build.get_lib().ws_probe_grid(
-        _build.ptr(x), _build.ptr(out), _build.ptr(work), S, R * C,
+        x.data_ptr(), out.data_ptr(), work.data_ptr(), S, R * C,
         work.numel(), _build.stream_ptr(x))
     launches += 1
     _build.check(rc, "probe_grid")

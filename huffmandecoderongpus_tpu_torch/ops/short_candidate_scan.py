@@ -54,9 +54,9 @@ def short_candidate_scan(bits_t, tab, valid0, *, B, H, N, W):
     mrow, cnt, ex = (torch.empty((H, G), dtype=torch.int32, device=dev)
                      for _ in range(3))
     rc = _build.get_lib().ws_short_candidate_scan(
-        _build.ptr(bits_t), _build.ptr(tab), _build.ptr(valid0),
-        _build.ptr(merged), _build.ptr(exited), _build.ptr(mrow),
-        _build.ptr(cnt), _build.ptr(ex), G, B, H, N, W, tab.numel(),
+        bits_t.data_ptr(), tab.data_ptr(), valid0.data_ptr(),
+        merged.data_ptr(), exited.data_ptr(), mrow.data_ptr(),
+        cnt.data_ptr(), ex.data_ptr(), G, B, H, N, W, tab.numel(),
         _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "short_candidate_scan")

@@ -4,8 +4,8 @@ Port of ``scripts/probe_vpu.py``.  In order, as the script runs them:
 
   i16 gather   ``probe_gather`` axis 1 on (16, 128) int16 and uint16 tables,
                every index 3: EXACT or WRONG against numpy
-  roll         ``probe_roll`` (the one-shot gather with the index
-               (j - s) mod W) of ((8, 640), 3, axis 1), ((128, 640), 100,
+  roll         ``probe_roll`` (the one-shot gather kernel's roll mode,
+               one launch) of ((8, 640), 3, axis 1), ((128, 640), 100,
                axis 1) and ((64, 128), 5, axis 0) int32: EXACT or WRONG
                against ``np.roll``
   arith        ``probe_arith`` body ``addxor`` on (128, 128) int32 and

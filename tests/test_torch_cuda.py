@@ -20,9 +20,12 @@ candidate scan, the lane scan cut at W rows) of ``lane_dfa_sync``; the
 dense lane decode and the compaction are checked against their plain
 versions and through the dense pipeline.  The probe kernels (``probe_inc``,
 ``probe_arith``, ``probe_gather``, ``k4_stripped``) are checked against
-their plain versions at the scripts' shapes and at odd ones, and the probe
-programs and the stage profiler run on the card.  Tolerance: bit-exact
-(integer outputs).
+their plain versions at the scripts' shapes and at odd ones (P3's roll mode
+and 16-bit indices also unaligned, past the staged row width and past
+65,535 rows, each one launch and one kernel), the probe programs and the
+stage profiler run on the card, and wrappers captured in a CUDA graph
+replay on new inputs, which holds only if each launch went to the current
+stream.  Tolerance: bit-exact (integer outputs).
 """
 
 import numpy as np
@@ -710,6 +713,177 @@ def test_probe_kernels_count_their_launches(cuda):
                                 stage="prefix")))
     assert ran == dict(probe_inc=2, probe_arith=1, probe_gather=2,
                        k4_stripped=1)
+
+
+def _bits(t):
+    """uint16 as its int16 bits: torch compares no uint16 on the card."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def _roll_gather_cases():
+    """P3's roll mode and 16-bit indices: each a ``make_(dev)`` that returns
+    (the kernel's output, the plain version's)."""
+    from huffmandecoderongpus_tpu_torch.probes import probe_gather as pgp
+    from huffmandecoderongpus_tpu_torch.probes import probe_vpu
+
+    cases = []
+
+    def seeded(shape, dt, seed, lo=0, hi=1 << 15):
+        x = np.random.default_rng(seed).integers(lo, hi, shape)
+        return torch.from_numpy(x.astype(np.int32)).to(dt)
+
+    def roll(cid, shape, shift, ax, dt=torch.int32, offset=False):
+        def make_(dev):
+            # offset: x starts one row into its storage, off the 16 bytes
+            x = seeded((shape[0] + offset, shape[1]), dt, shape[1])
+            x = x.to(dev)[int(offset):]
+            return (probe_gather.probe_roll(x, shift, axis=ax),
+                    probe_gather.probe_roll_ref(x, shift, axis=ax))
+        cases.append(pytest.param(make_, id=f"roll-{cid}"))
+
+    for shape, shift, ax in probe_vpu.ROLLS:
+        cases.append(pytest.param(
+            lambda dev, shape=shape, shift=shift, ax=ax: (
+                lambda x: (probe_gather.probe_roll(x, shift, axis=ax),
+                           probe_gather.probe_roll_ref(x, shift, axis=ax)))(
+                    probe_vpu.roll_case(shape, dev)),
+            id=f"roll-script{shape}-s{shift}-ax{ax}"))
+        roll(f"seeded{shape}-s{shift}-ax{ax}", shape, shift, ax)
+    roll("7x33-uint8-s-40-ax1", (7, 33), -40, 1, torch.uint8)
+    roll("5x1000-uint16-s999-ax0", (5, 1000), 999, 0, torch.uint16)
+    roll("3x13000-s4097-ax1-unstaged", (3, 13000), 4097, 1)
+    roll("70000x4-int16-s3-ax0-rows", (70000, 4), 3, 0, torch.int16)
+    roll("9x33-offset-ax1", (9, 33), 5, 1, offset=True)
+    roll("9x33-offset-ax0", (9, 33), 5, 0, offset=True)
+
+    def gather(cid, tab, idx, axis, offset=False):
+        def make_(dev):
+            # offset: idx starts one row into its storage
+            t, i = tab().to(dev), idx().to(dev)[int(offset):]
+            return (probe_gather.probe_gather(t, i, axis=axis),
+                    probe_gather.probe_gather_ref(t, i, axis=axis))
+        cases.append(pytest.param(make_, id=f"gather-{cid}"))
+
+    for label, axis, tab_np, idx_np in pgp.cases():
+        for it in (torch.int16, torch.uint16):
+            gather(f"script-{label}-{it}", lambda t=tab_np: torch.from_numpy(t),
+                   lambda i=idx_np, it=it: torch.from_numpy(i).to(it), axis)
+    for dt in probe_vpu.I16_CASES:
+        gather(f"i16-{dt}", lambda dt=dt: probe_vpu.i16_case(dt, "cpu")[0],
+               lambda dt=dt: probe_vpu.i16_case(dt, "cpu")[1], 1)
+    for axis in (0, 1):
+        # a negative int16 reads element 0, a uint16 above 32,767 the last
+        gather(f"clamp-int16-ax{axis}",
+               lambda: seeded((12, 40), torch.int32, 1, -2**20, 2**20),
+               lambda: seeded((12, 40), torch.int16, 2, -2**15, 60), axis)
+        gather(f"clamp-uint16-ax{axis}",
+               lambda: seeded((12, 40), torch.int32, 3, -2**20, 2**20),
+               lambda: seeded((12, 40), torch.uint16, 4, 0, 2**16), axis)
+    gather("uint8-5x33-int16", lambda: seeded((5, 33), torch.uint8, 5, 0, 256),
+           lambda: seeded((5, 33), torch.int16, 6, -3, 36), 1)
+    gather("3x13000-unstaged-int16",
+           lambda: seeded((3, 13000), torch.int32, 7, -2**20, 2**20),
+           lambda: seeded((3, 13000), torch.int16, 8, -5, 13005), 1)
+    gather("70000x4-rows-uint16-ax0",
+           lambda: seeded((70000, 4), torch.int32, 9, -2**20, 2**20),
+           lambda: seeded((70000, 4), torch.uint16, 10, 0, 1 << 16), 0)
+    gather("offset-int32", lambda: seeded((9, 33), torch.int32, 11),
+           lambda: seeded((10, 33), torch.int32, 12, -2, 36), 1, True)
+    gather("offset-uint16-ax0", lambda: seeded((9, 33), torch.int16, 13),
+           lambda: seeded((10, 33), torch.uint16, 14, 0, 12), 0, True)
+    return cases
+
+
+@pytest.mark.parametrize("make_", _roll_gather_cases())
+def test_roll_and_16bit_gathers_match_plain(cuda, make_):
+    got, want = make_(cuda)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def _kernels_a_call(fn, calls=5):
+    """Kernels the card ran a call of ``fn`` (torch.profiler), or None
+    where two sessions in a row record none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n / calls
+    return None
+
+
+def test_roll_and_16bit_gather_launch_one_kernel(cuda):
+    from huffmandecoderongpus_tpu_torch.probes import probe_vpu
+
+    x = probe_vpu.roll_case((128, 640), cuda)
+    for dt in probe_vpu.I16_CASES:
+        tab, idx = probe_vpu.i16_case(dt, cuda)
+        for fn in (lambda: probe_gather.probe_roll(x, 100, axis=1),
+                   lambda: probe_gather.probe_roll(x, 5, axis=0),
+                   lambda: probe_gather.probe_gather(tab, idx, axis=1)):
+            _, ran = _launched(fn)
+            assert ran == {"probe_gather": 1}
+            assert _kernels_a_call(fn) == 1
+
+
+def test_launches_follow_the_current_stream(cuda):
+    # captured into a CUDA graph, the launches must go to the capturing
+    # stream (a launch to another stream breaks the capture), and a replay
+    # must recompute from the inputs as they are then
+    def inputs(seed):
+        rng = np.random.default_rng(seed)
+        return (rng.integers(-2**31, 2**31, (8, 128)).astype(np.int32),
+                rng.integers(0, 1 << 20, (16, 128)).astype(np.int32),
+                rng.integers(-3, 131, (16, 128)).astype(np.int16),
+                rng.integers(0, 1 << 20, (64, 128)).astype(np.int32))
+
+    x, tab, idx, xr = (torch.from_numpy(a).to(cuda) for a in inputs(0))
+
+    def run():
+        return (probe_inc.probe_inc(x),
+                probe_gather.probe_gather(tab, idx, axis=1),
+                probe_gather.probe_roll(xr, 5, axis=0))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for seed in (1, 2):
+        for t, a in zip((x, tab, idx, xr), inputs(seed)):
+            t.copy_(torch.from_numpy(a))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], probe_inc.probe_inc_ref(x))
+        assert torch.equal(outs[1], probe_gather.probe_gather_ref(
+            tab, idx, axis=1))
+        assert torch.equal(outs[2], probe_gather.probe_roll_ref(xr, 5,
+                                                                axis=0))
+
+
+def test_wrappers_refuse_on_cuda(cuda):
+    x = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    sq = torch.zeros((16, 16), dtype=torch.int32, device=cuda)
+    for call in (
+            lambda: probe_gather.probe_gather(x, x.cpu(), axis=1),
+            lambda: probe_gather.probe_gather(sq, sq.t(), axis=1),
+            lambda: probe_gather.probe_gather(x, x.long(), axis=1),
+            lambda: probe_gather.probe_roll(x[:, ::2], 1, axis=1),
+            lambda: probe_inc.probe_inc(x[:, ::2]),
+            lambda: probe_inc.probe_inc(x.long())):
+        with pytest.raises(ValueError):
+            call()
 
 
 @pytest.mark.parametrize("name", ["dispatch", "k1fixed", "k4", "gather",

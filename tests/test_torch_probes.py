@@ -33,6 +33,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops import k4_stripped as k4s
 from huffmandecoderongpus_tpu_torch.ops import probe_arith as pa
 from huffmandecoderongpus_tpu_torch.ops import probe_gather as pg
@@ -161,6 +162,66 @@ def test_roll_index_wraps(shift):
     for ax in (0, 1):
         got = pg.probe_roll(torch.from_numpy(x), shift, axis=ax).numpy()
         np.testing.assert_array_equal(got, np.roll(x, shift, axis=ax))
+
+
+def _roll_k(x_ref, o_ref, *, shift, ax):
+    # the kernel of scripts/probe_vpu.py:129-133, there defined inside
+    # probe_roll's loop
+    o_ref[...] = pltpu.roll(x_ref[...], shift, axis=ax)
+
+
+@pytest.mark.parametrize("case", range(len(port_vpu.ROLLS)))
+def test_roll_plain_matches_script_kernel(case):
+    shape, shift, ax = port_vpu.ROLLS[case]
+    x = np.random.default_rng(case).integers(-2**31, 2**31, shape,
+                                             dtype=np.int64).astype(np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pl.pallas_call(
+            functools.partial(_roll_k, shift=shift, ax=ax),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct(shape, jnp.int32))(jnp.asarray(x)))
+    got = pg.probe_roll_ref(torch.from_numpy(x), shift, axis=ax)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        pg.probe_roll(torch.from_numpy(x), shift, axis=ax).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16, np.uint16, np.uint8])
+@pytest.mark.parametrize("turns,extra", [(-1, -3), (0, -5), (0, 0), (1, 0),
+                                         (1, 7), (3, 1)],
+                         ids=["-W-3", "-5", "0", "W", "W+7", "3W+1"])
+def test_roll_matches_np_roll(dtype, turns, extra):
+    # shifts of turns times the axis' length plus extra: below zero, zero,
+    # the length and past it, on both axes
+    rng = np.random.default_rng(turns + 10)
+    x = rng.integers(0, np.iinfo(dtype).max, (7, 40)).astype(dtype)
+    for ax in (0, 1):
+        s = turns * x.shape[ax] + extra
+        got = port_vpu._np(pg.probe_roll(torch.from_numpy(x), s, axis=ax))
+        assert got.dtype == x.dtype
+        np.testing.assert_array_equal(got, np.roll(x, s, axis=ax))
+
+
+@pytest.mark.parametrize("itype", [np.int16, np.uint16])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_gather_16bit_index_clamps(itype, axis):
+    # the kernel reads int16 and uint16 indices as given: a negative int16
+    # reads element 0, a uint16 past the axis (above 32,767 too) the last
+    rng = np.random.default_rng(axis)
+    tab = rng.integers(0, 1 << 20, (12, 40)).astype(np.int32)
+    n = tab.shape[axis]
+    info = np.iinfo(itype)
+    idx = rng.integers(-3, n + 3, tab.shape)
+    idx[0, :4] = (info.min, info.max, -1 if info.min else 40000, n)
+    idx = idx.astype(itype)
+    assert idx.min() < 0 if info.min else idx.max() > 32767
+    got = pg.probe_gather(torch.from_numpy(tab), torch.from_numpy(
+        idx.view(np.int16)).view(torch.uint16) if itype == np.uint16
+        else torch.from_numpy(idx), axis=axis)
+    want = np.take_along_axis(tab, np.clip(idx.astype(np.int64), 0, n - 1),
+                              axis=axis)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ---- hw_k4probe.py: _k4_stripped (P4) --------------------------------------
@@ -342,8 +403,31 @@ def test_broadcast_check_input_tells_a_wrong_chain():
     lambda: k4s.k4_stripped(torch.zeros((4, 64), dtype=torch.int32),
                             torch.zeros((4, 64), dtype=torch.uint8), ORP=128,
                             stage="full"),
+    # a tensor off the CPU goes to require_cuda, which refuses it unless it
+    # is CUDA, on the first tensor's device, and contiguous
+    lambda: pg.probe_gather(torch.zeros((2, 8), dtype=torch.int32,
+                                        device="meta"),
+                            torch.zeros((2, 8), dtype=torch.int32), axis=1),
+    lambda: _build.require_cuda("mixed", torch.zeros(4, device="meta"),
+                                torch.zeros(4)),
+    lambda: pg.probe_gather(torch.zeros((8, 2), dtype=torch.int32,
+                                        device="meta").t(),
+                            torch.zeros((2, 8), dtype=torch.int32,
+                                        device="meta"), axis=1),
+    lambda: _build.require_cuda("strided", torch.zeros((4, 4))[:, ::2]),
+    lambda: pi.probe_inc(torch.zeros((8, 128), dtype=torch.int32,
+                                     device="meta")),
+    lambda: pg.probe_roll(torch.zeros((8, 128), dtype=torch.int32,
+                                      device="meta"), 3, axis=1),
+    lambda: pg.probe_gather(torch.zeros((2, 8), dtype=torch.int32),
+                            torch.zeros((2, 8), dtype=torch.int64), axis=1),
+    lambda: pg.probe_gather(torch.zeros((2, 8), dtype=torch.int32),
+                            torch.zeros((2, 8), dtype=torch.uint8), axis=0),
+    lambda: pg.probe_roll(torch.zeros((2, 8), dtype=torch.int64), 1, axis=1),
 ], ids=["xor3-P3", "mul3-int16", "body", "chain-C96", "gather-int64",
-        "k4-ORP64", "k4-stage"])
+        "k4-ORP64", "k4-stage", "gather-meta-and-cpu", "mixed-devices",
+        "gather-noncontiguous", "noncontiguous", "inc-meta", "roll-meta",
+        "index-int64", "index-uint8", "roll-int64"])
 def test_wrappers_refuse(call):
     with pytest.raises(ValueError):
         call()

@@ -130,7 +130,7 @@ def test_prof_refuses_speculative(small_huff):
 #: the first word of a line each probe prints, in order
 PROBE_LINES = {
     "dispatch": ["rep0", "rep0", "rep1", "rep1", "rep2", "rep2", "on",
-                 "triv", "med", "card:"],
+                 "host", "triv", "med", "card:"],
     "k1fixed": ["trivial", "5", "gridded", "trivial", "gridded", "(f)",
                 "(f)", "(a)", "(a)", "card:"],
     "k4": ["(a)", "K4[transpose]:", "K4[prefix", "K4[full", "K4[transpose]",
