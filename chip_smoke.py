@@ -39,7 +39,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   3. kernels  each kernel against its plain torch version on the same CUDA
               inputs, at the shapes its decode path gives it: K1-K4 on (a)
               and (b), k1_scan/K2/k3_fix/K4 on (c), candidate_scan/
-              lane_scan on (d), the one-shot kernel on (f)-(i) (its whole
+              lane_scan on (d), each scan also on the card (profiler) in
+              cycles a bit row at the maximum SM clock beside the floor of
+              its chain of dependent lookups (CHAIN_CYCLES_A_ROW), and at
+              the edges of their staged bit tiles (TILE_CASES: one lane,
+              lane counts that are not multiples of 16 or 32, the stream
+              end mid-tile, misaligned matrices, rows= under one tile,
+              trees 40 and 140 tall), the one-shot kernel on (f)-(i) (its whole
               dense rows, counts and total), the encoder's E1/E2/E3 on the
               staging of (a), (b), (c), (e) and (f); K1's main scan
               (k1_main) on the indexed (a), (b) and (i), the indexed lane
@@ -178,6 +184,23 @@ INDEXED_MD1 = ("c", 4096)
 #: ``batch`` suite: paper1, news, book2)
 BATCH_SYMBOLS = (84, 64, 96, 72, 90)
 BOOK2_BYTES = 610_856
+#: the lane-DFA scans at the tiling's edge cases (check_scan_tiles): stream,
+#: lanes, and "cut" (the stream end mid-tile) or "views" (misaligned copies
+#: and a rows= cut under one tile).  (e) at one lane is sync discovery's
+#: tail column; 3, 20 and 100 lanes are not multiples of 16 or 32 (under 32
+#: one block holds every lane and copies whole rows); the comb
+#: trees are 40 and 140 tall (L*H past 1024 threads at 32 lanes)
+TILE_CASES = (("e", 1, None), ("e", 3, "cut"), ("e", 20, "cut"),
+              ("e", 20, "views"),
+              ("f", 100, "cut"), ("f", 64, "views"), ("comb40", 48, None),
+              ("comb140", 8, "cut"))
+#: symbols of the comb-tree streams, and the run of the deepest code in
+#: their middle
+COMB_BYTES, COMB_DEEP = 6000, 20
+#: cycles a bit row of a lane-DFA scan's chain: a dependent shared-memory
+#: lookup (30-38 cycles) and two dependent integer ops (about 5 each), as
+#: the probes measured them (PERF.md)
+CHAIN_CYCLES_A_ROW = 40
 #: the card's memory rate (bytes/s): NVIDIA's data sheet, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
 #: the card's peak rates an SM a clock for the operation-bound probes: a
@@ -342,6 +365,22 @@ def fib_stream(rng, build_tree, n_sym):
     return raw, build_tree(freqs)
 
 
+def draw_streams(rng):
+    """{key: (name, raw)} of the streams (a)-(i), drawn from ``rng`` in
+    this order (the batch streams are drawn after them)."""
+    streams = {"a": ("kjv-sized text", text_like(rng, KJV_BYTES)),
+               "b": ("8MiB full-alphabet", full_alphabet(rng, WIDE_BYTES))}
+    streams["c"] = ("8MiB dominant byte", dominant_byte(rng, WIDE_BYTES))
+    streams["d"] = ("kjv-sized text with a blank run",
+                    with_run(text_like(rng, KJV_BYTES)))
+    streams["e"] = ("2000-byte text", text_like(rng, TINY_BYTES))
+    streams["f"] = ("paper1-sized text", text_like(rng, PAPER1_BYTES))
+    streams["g"] = ("news-sized text", text_like(rng, NEWS_BYTES))
+    streams["h"] = ("256KiB full-alphabet", full_alphabet(rng, ALPHA_BYTES))
+    streams["i"] = ("400KB uniform over 12", uniform12(rng, UNIFORM12_BYTES))
+    return streams
+
+
 def max_abs_err(torch, got, want) -> int:
     err = 0
     for g, w in zip(got, want):
@@ -370,11 +409,11 @@ def k3_moved(tab, cut, cut_slot) -> int:
 
 def comparer(torch, name, rows):
     """compare(kname, kernel, plain, inputs, moved=None): run both on the
-    same inputs, record (max_abs_err, kernel ms, plain ms, bound ms) in
-    ``rows`` and raise on any difference; returns the kernel's outputs.
-    The bound is the least time the card's memory rate allows for the
-    bytes the kernel must move: ``moved``, or else each of ``inputs`` read
-    once and each output written once."""
+    same inputs, record {err, ms, plain_ms, bound_ms, bound_by} in ``rows``
+    and raise on any difference; returns the kernel's outputs.  The bound
+    is the least time the card's memory rate allows for the bytes the
+    kernel must move: ``moved``, or else each of ``inputs`` read once and
+    each output written once."""
 
     def compare(kname, kernel, plain, inputs, moved=None):
         got = kernel()
@@ -389,7 +428,8 @@ def comparer(torch, name, rows):
         if moved is None:
             moved = nbytes(*inputs, *got)
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        rows[kname] = (err, ms, plain_ms, bound_ms)
+        rows[kname] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by="bytes")
         print(f"[kernels] {name}: {kname} max_abs_err {err} (tolerance 0) "
               f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
               f"{bound_ms:.6f} ms ({moved} bytes)", flush=True)
@@ -469,30 +509,117 @@ def check_lanedfa(torch, name, raw, hf, dev):
     check_kernels."""
     from huffmandecoderongpus_tpu_torch.ops import candidate_scan, lane_scan
     from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
 
     st = ld.stage_lanedfa(hf, device=dev)
     print(f"[kernels] {name}: {hf.bits} bits, lane-DFA G="
           f"{st['bits'].shape[1]} B={st['B']} H={st['H']}", flush=True)
     kw = dict(B=st["B"], H=st["H"], N=st["N"])
+    bits, tab = st["bits"], st["tab"]
     rows = {}
     compare = comparer(torch, name, rows)
     cnt, ex = compare(
         "candidate_scan",
-        lambda: candidate_scan.candidate_scan(st["bits"], st["tab"], **kw),
-        lambda: candidate_scan.candidate_scan_ref(st["bits"], st["tab"],
-                                                  **kw),
-        (st["bits"], st["tab"]))
+        lambda: candidate_scan.candidate_scan(bits, tab, **kw),
+        lambda: candidate_scan.candidate_scan_ref(bits, tab, **kw),
+        (bits, tab))
     entry = ld.compose(cnt, ex)[0]
     sym, valid = compare(
         "lane_scan",
-        lambda: lane_scan.lane_scan(st["bits"], st["tab"], entry, **kw),
-        lambda: lane_scan.lane_scan_ref(st["bits"], st["tab"], entry, **kw),
-        (st["bits"], st["tab"], entry))
+        lambda: lane_scan.lane_scan(bits, tab, entry, **kw),
+        lambda: lane_scan.lane_scan_ref(bits, tab, entry, **kw),
+        (bits, tab, entry))
     if not np.array_equal(sym.t()[valid.t() > 0].cpu().numpy(), raw):
         raise AssertionError(f"{name}: the lane-DFA scans decoded wrong")
     print(f"[kernels] {name}: both scans bit-exact; stream decoded",
           flush=True)
+    # each scan's own time on the card, in cycles a bit row against the
+    # floor of its chain of dependent lookups (the bytes bound in the
+    # kernels line is out of reach for a serial chain of B+H steps a lane)
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6  # nvidia-smi clocks.max.sm, Hz
+    steps = bits.shape[0]
+    floor_ms = steps * CHAIN_CYCLES_A_ROW / clock * 1e3
+    for kname, fn in (
+            ("candidate_scan",
+             lambda: candidate_scan.candidate_scan(bits, tab, **kw)),
+            ("lane_scan", lambda: lane_scan.lane_scan(bits, tab, entry,
+                                                      **kw))):
+        card_ms = device_breakdown(torch, fn)[kname]
+        rows[kname]["device_ms"] = card_ms
+        print(f"[scan] {name}: {kname} card {card_ms:.4f} ms (profiler), "
+              f"events {rows[kname]['ms']:.4f} ms; {steps} rows: "
+              f"{card_ms * 1e-3 * clock / steps:.1f} cycles a row at "
+              f"{clock / 1e6:.0f} MHz (clocks.max.sm); chain floor "
+              f"{CHAIN_CYCLES_A_ROW} cycles a row, {floor_ms:.4f} ms",
+              flush=True)
     return rows
+
+
+def check_scan_tiles(torch, hfs, dev):
+    """Phase 3, the lane-DFA scans at the tiling's edge cases: each of
+    TILE_CASES in decode_lanedfa's geometry at its lane count, candidate_scan
+    and lane_scan (from random entry offsets, 0 in the first lane and H-1
+    in the last) against their plain versions; "cut" moves the stream end
+    to a third of the way into the last lane, mid-tile; "views" also runs
+    both on copies of the matrix at 1 and 4 bytes past an aligned address
+    (the byte and 4-byte copy paths) and lane_scan cut to fewer rows than
+    one tile on a row slice of it.  Returns {case: rows}, as
+    check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import candidate_scan, lane_scan
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+    from huffmandecoderongpus_tpu_torch.ops.lanedfa import tile_plan
+    from huffmandecoderongpus_tpu_torch.probes.streams import comb_stream
+
+    streams = {k: hfs[k][1:] for k in "ef"}
+    for k, _G, _how in TILE_CASES:
+        if k.startswith("comb"):  # comb<height>
+            streams[k] = comb_stream(int(k[4:]) + 1, COMB_BYTES, SEED,
+                                     deep=COMB_DEEP)
+    out = {}
+    rng = np.random.default_rng(SEED)
+    for k, G, how in TILE_CASES:
+        raw, hf = streams[k]
+        st = ld.stage_lanedfa(hf, device=dev, lanes=G, tiled=False)
+        bits, tab, B, H = st["bits"], st["tab"], st["B"], st["H"]
+        G = bits.shape[1]
+        N = st["N"] - (B // 3 + 5 if how == "cut" else 0)
+        kw = dict(B=B, H=H, N=N)
+        start = rng.integers(0, H, G).astype(np.int32)
+        start[0], start[-1] = 0, H - 1
+        start = torch.from_numpy(start).to(dev)
+        case = f"tiles {k} G={G}" + (f" {how}" if how else "")
+        plans = [tile_plan(G, c, bits.data_ptr(), out_tiles=c == 1)
+                 for c in (H, 1)]
+        print(f"[kernels] {case}: B={B} H={H} rows {bits.shape[0]}, N={N}; "
+              f"plans (candidate, lane) {plans}", flush=True)
+        rows = out[case] = {}
+        compare = comparer(torch, case, rows)
+        mats = [("", bits)]
+        if how == "views":
+            for off in (1, 4):
+                flat = torch.empty(bits.numel() + off, dtype=torch.uint8,
+                                   device=dev)
+                mats.append((f" at +{off}", flat[off:].view(bits.shape)))
+                mats[-1][1].copy_(bits)
+        for tag, m in mats:
+            compare(f"candidate_scan{tag}",
+                    lambda m=m: candidate_scan.candidate_scan(m, tab, **kw),
+                    lambda m=m: candidate_scan.candidate_scan_ref(m, tab,
+                                                                  **kw),
+                    (m, tab))
+            compare(f"lane_scan{tag}",
+                    lambda m=m: lane_scan.lane_scan(m, tab, start, **kw),
+                    lambda m=m: lane_scan.lane_scan_ref(m, tab, start, **kw),
+                    (m, tab, start))
+        if how == "views":
+            W = min(40, bits.shape[0])
+            compare(f"lane_scan rows={W}",
+                    lambda: lane_scan.lane_scan(bits[:W], tab, start, rows=W,
+                                                **kw),
+                    lambda: lane_scan.lane_scan_ref(bits[:W], tab, start,
+                                                    rows=W, **kw),
+                    (bits[:W], tab, start))
+    return out
 
 
 def check_oneshot(torch, name, raw, hf, dev):
@@ -750,7 +877,7 @@ def check_dense(torch, name, raw, hf, dev, with_compact):
         return sym.t().gather(1, pos.clamp_(max=cum.shape[0] - 1))
 
     lib_ms = statistics.median(event_ms(library, 20))
-    rows["compact"] += (lib_ms,)
+    rows["compact"]["library_ms"] = lib_ms
     print(f"[kernels] {name}: compact bit-exact, equal to the dense decode; "
           f"torch.searchsorted + gather {lib_ms:.4f} ms", flush=True)
     return rows
@@ -1070,16 +1197,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(SEED)
-    streams = {"a": ("kjv-sized text", text_like(rng, KJV_BYTES)),
-               "b": ("8MiB full-alphabet", full_alphabet(rng, WIDE_BYTES))}
-    streams["c"] = ("8MiB dominant byte", dominant_byte(rng, WIDE_BYTES))
-    streams["d"] = ("kjv-sized text with a blank run",
-                    with_run(text_like(rng, KJV_BYTES)))
-    streams["e"] = ("2000-byte text", text_like(rng, TINY_BYTES))
-    streams["f"] = ("paper1-sized text", text_like(rng, PAPER1_BYTES))
-    streams["g"] = ("news-sized text", text_like(rng, NEWS_BYTES))
-    streams["h"] = ("256KiB full-alphabet", full_alphabet(rng, ALPHA_BYTES))
-    streams["i"] = ("400KB uniform over 12", uniform12(rng, UNIFORM12_BYTES))
+    streams = draw_streams(rng)
     hfs = {k: (f"{k} {name}", r, encode_bytes(r))
            for k, (name, r) in streams.items()}
     small = []
@@ -1094,6 +1212,7 @@ def main() -> int:
            for k, K in (*INDEXED.items(), INDEXED_MD1)}
     checked = {k: check_kernels(torch, *hfs[k], dev) for k in "abc"}
     checked["d"] = check_lanedfa(torch, *hfs["d"], dev)
+    checked.update(check_scan_tiles(torch, hfs, dev))
     for k in ONESHOT:
         checked[k] = check_oneshot(torch, *hfs[k], dev)
     for k in ENCODE_CHECKED:
@@ -1197,19 +1316,24 @@ def main() -> int:
           + f"; card {card}", flush=True)
 
     # ---- 6. result ----------------------------------------------------------
-    # each kernel's times from the stream named in KERNELS; its error over
-    # every stream it was checked on; its bound from the bytes it must move
-    # (no single PyTorch call computes any of these functions but the
-    # compaction, whose row carries searchsorted + gather); the probe
+    # each kernel's times from the stream named in KERNELS (the lane-DFA
+    # scans' own time on the card beside, device_ms); its error over every
+    # stream and tiling shape it was checked on; its bound from the bytes
+    # it must move (no single PyTorch call computes any of these functions
+    # but the compaction, whose row carries searchsorted + gather); the probe
     # kernels' from the shape named in PROBE_KERNELS, their error over
     # every shape, their bound from bytes or operations, and beside their
     # time a launch their own time on the card (device_ms)
     rows = [dict(name=n, route="cuda", source=src, replaces=rep_, stream=k,
                  launches=launches[n],
-                 max_abs_err=max(c[n][0] for c in checked.values() if n in c),
-                 ms=checked[k][n][1], plain_ms=checked[k][n][2],
-                 bound_ms=checked[k][n][3], bound_by="bytes",
-                 library_ms=(checked[k][n] + (None,))[4])
+                 max_abs_err=max(c[n]["err"] for c in checked.values()
+                                 if n in c),
+                 ms=checked[k][n]["ms"], plain_ms=checked[k][n]["plain_ms"],
+                 bound_ms=checked[k][n]["bound_ms"],
+                 bound_by=checked[k][n]["bound_by"],
+                 library_ms=checked[k][n].get("library_ms"),
+                 **({"device_ms": checked[k][n]["device_ms"]}
+                    if "device_ms" in checked[k][n] else {}))
             for n, (src, rep_, k) in KERNELS.items()]
     for n, (src, rep_, shape) in PROBE_KERNELS.items():
         at = next(r for r in probe_rows[n] if r[0].startswith(shape))

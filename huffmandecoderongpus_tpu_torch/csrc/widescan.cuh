@@ -489,6 +489,179 @@ __device__ __forceinline__ void k4_compact_lane(const int32_t* sym,
   for (; w < nw; ++w) row[w] = 0;
 }
 
+// ---- bit tiles of the lane-DFA scans ---------------------------------------
+// The scans walk each lane's column of the (rows, G) uint8 bit matrix one
+// row a step.  A block owns L neighbouring lanes and stages their rows R at
+// a time in a ring of BIT_STAGES tiles (R x L bytes, row stride L) in shared
+// memory, the copies of the next tiles in flight while the current one is
+// scanned (ops/lanedfa.py tile_plan picks L, R and the copy width `vec`).
+// lane_scan_indexed, short_candidate_scan and lane_decode_dense walk the
+// same column layout and can take this staging up.
+constexpr int BIT_STAGES = 3;
+
+// The fused table as the scans stage it: entry e (next state in bits 0-9,
+// emit bit 10, symbol in bits 16-23) becomes sym << 16 | emit << 15 |
+// state << 3, the state's byte offset in the staged table.  A step's
+// lookup is then at byte offset (e & OFF_MASK) | bit << 2: two LOP3s
+// between two lookups, no multiply or shift on the dependent path.
+constexpr int OFF_MASK = STATE_MASK << 3;
+constexpr int OFF_EMIT = EMIT_BIT << 5;
+
+__device__ __forceinline__ void stage_offset_table(int32_t* tab_s,
+                                                   const int32_t* tab,
+                                                   int words) {
+  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    const int32_t e = tab[i];
+    tab_s[i] = (e & ~0xFFFF) | ((e & EMIT_BIT) << 5) |
+               ((e & STATE_MASK) << 3);
+  }
+}
+
+// The staged entry at byte offset `off`.
+__device__ __forceinline__ int32_t offset_lookup(const int32_t* tab_s,
+                                                 int off) {
+  return *reinterpret_cast<const int32_t*>(
+      reinterpret_cast<const char*>(tab_s) + off);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// The chunks (row r, chunk c) of a tile of per_row >= 1 chunks a row that
+// this thread of the block copies, row-major from chunk threadIdx.x in
+// steps of blockDim.x, with no division a step: lane_scan's one warp
+// copies between its scan steps, and a division each chunk cost it about
+// a quarter of its time.
+struct TileWalk {
+  int per_row, q, rem, r, c;
+  __device__ __forceinline__ explicit TileWalk(int per_row_)
+      : per_row(per_row_),
+        q(blockDim.x / per_row_),
+        rem(blockDim.x - q * per_row_),
+        r(threadIdx.x / per_row_),
+        c(threadIdx.x - r * per_row_) {}
+  __device__ __forceinline__ void next() {
+    r += q;
+    c += rem;
+    if (c >= per_row) {
+      c -= per_row;
+      ++r;
+    }
+  }
+};
+
+// One copy of `vec` bytes into shared memory: 16 or 4 are cp.async copies
+// (the caller commits and waits), 1 a plain load and store.
+struct StageBytes {
+  __device__ __forceinline__ void operator()(uint8_t* dst, const uint8_t* src,
+                                             int vec) const {
+    if (vec == 16)
+      cp_async16(dst, src);
+    else if (vec == 4)
+      cp_async4(dst, src);
+    else
+      *dst = __ldg(src);
+  }
+};
+
+// `n` bytes from src to dst by all threads of the block, `vec` at a time
+// and the last n % vec one by one; copy(dst, src, width) moves them.
+template <class Copy>
+__device__ __forceinline__ void copy_run(uint8_t* dst, const uint8_t* src,
+                                         int n, int vec, Copy copy) {
+  const int body = n - n % vec;
+  for (int i = threadIdx.x * vec; i < body; i += blockDim.x * vec)
+    copy(dst + i, src + i, vec);
+  for (int i = body + threadIdx.x; i < n; i += blockDim.x)
+    copy(dst + i, src + i, 1);
+}
+
+// Rows [r0, r0 + nr) of lanes [g0, g0 + w) of the bit matrix into `tile`,
+// by all threads of the block, `vec` bytes a copy.  Where one block holds
+// every lane (L == G) the rows are one run of bytes in both, copied whole;
+// else vec divides L, G and g0, so it divides w.  Either way r0 is a
+// multiple of 16 and every address stays aligned.
+__device__ __forceinline__ void stage_bit_tile(uint8_t* tile,
+                                               const uint8_t* bits, int G,
+                                               int g0, int w, int L, int r0,
+                                               int nr, int vec) {
+  const uint8_t* src0 = bits + (size_t)r0 * G + g0;
+  if (L == G) {
+    copy_run(tile, src0, nr * G, vec, StageBytes());
+    return;
+  }
+  for (TileWalk it(w / vec); it.r < nr; it.next()) {
+    const int c = it.c * vec;
+    StageBytes()(tile + it.r * L + c, src0 + (size_t)it.r * G + c, vec);
+  }
+}
+
+// The ring of one block.  At tile t: wait(), a block barrier (which
+// publishes tile t and frees the stage tile t - 1 used), issue(t +
+// BIT_STAGES - 1), then scan tile(t).
+struct BitRing {
+  uint8_t* smem;
+  const uint8_t* bits;
+  int G, g0, w, L, R, rows, vec;
+  __device__ __forceinline__ int tiles() const { return (rows + R - 1) / R; }
+  __device__ __forceinline__ uint8_t* tile(int t) const {
+    return smem + (t % BIT_STAGES) * R * L;
+  }
+  // copy tile t, if there is one, and commit a group either way, so that
+  // wait() always leaves the same number of groups in flight
+  __device__ __forceinline__ void issue(int t) const {
+    if (t < tiles())
+      stage_bit_tile(tile(t), bits, G, g0, w, L, t * R, min(R, rows - t * R),
+                     vec);
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void begin() const {
+    for (int t = 0; t < BIT_STAGES - 1; ++t) issue(t);
+  }
+  // this thread's copies of the oldest tile in flight have landed
+  __device__ __forceinline__ void wait() const {
+    cp_async_wait<BIT_STAGES - 2>();
+  }
+};
+
+// Most dynamic shared memory a scan takes without opting in: 48 KB less
+// the staged table.
+constexpr int BIT_SHARED_MAX = 48 * 1024 - LANEDFA_TAB_WORDS * 4;
+
+// The launchers' check of a tile plan (rules in ops/lanedfa.py tile_plan):
+// false refuses the launch.
+inline bool bit_plan_ok(const void* bits, int G, int L, int R, int vec,
+                        int threads, int shared) {
+  return G >= 1 && L >= 1 && L <= 32 && R >= 16 && R % 16 == 0 &&
+         (vec == 1 || vec == 4 || vec == 16) &&
+         (L == G || (L % vec == 0 && G % vec == 0)) &&
+         (uintptr_t)bits % vec == 0 && threads >= L &&
+         threads <= 1024 && shared >= BIT_STAGES * R * L &&
+         shared <= BIT_SHARED_MAX;
+}
+
 }  // namespace ws
 
 extern "C" const char* ws_error_string(int code);

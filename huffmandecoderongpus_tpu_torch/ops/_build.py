@@ -70,10 +70,11 @@ _SIGNATURES = {
     "ws_k1_scan": [_P] * 8 + [_I] * 7 + [_P],
     # wmat, tab, ent, cut, cutsl, sym, val, G, steps_w, steps_p, NS, stream
     "ws_k3_fix": [_P] * 7 + [_I] * 4 + [_P],
-    # bits, tab, cnt, ex, G, B, H, N, tab_words, stream
-    "ws_candidate_scan": [_P] * 4 + [_I] * 5 + [_P],
-    # bits, tab, start, sym, valid, G, B, rows, N, tab_words, stream
-    "ws_lane_scan": [_P] * 5 + [_I] * 5 + [_P],
+    # bits, tab, cnt, ex, G, B, H, N, tab_words, L, R, vec, shared, stream
+    "ws_candidate_scan": [_P] * 4 + [_I] * 9 + [_P],
+    # bits, tab, start, sym, valid, G, B, rows, N, tab_words,
+    # L, R, vec, shared, stream
+    "ws_lane_scan": [_P] * 5 + [_I] * 9 + [_P],
     # words, tab, lim, out, n, total, sym, val, cntmap, exmap, mrowmap,
     # gmap, goff, tot, entry, stamps,
     # G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp, stream

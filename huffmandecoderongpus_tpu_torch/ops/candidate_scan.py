@@ -12,6 +12,10 @@ emission at row j with j + 1 >= B ends it (it has decoded every codeword
 that starts in the lane).  Outputs (H, G) int32: ``cnt``, the symbols the
 chain emitted, and ``ex``, the offset j + 1 - B of its exit in lane g+1 (0
 if it never exits).
+
+The kernel stages the bit matrix in shared memory a tile at a time; its
+launch plan (lanes a block, rows a tile, copy width, shared bytes) is
+``lanedfa.tile_plan``'s, computed here and handed to the launcher.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     EMIT_BIT,
     STATE_MASK,
     lane_limits,
+    tile_plan,
 )
 
 #: kernel launches made by ``candidate_scan`` on CUDA tensors
@@ -45,9 +50,12 @@ def candidate_scan(bits_t, tab, *, B, H, N):
                          "the table at most 16 chunks")
     cnt = torch.empty((H, G), dtype=torch.int32, device=bits_t.device)
     ex = torch.empty((H, G), dtype=torch.int32, device=bits_t.device)
+    bp = bits_t.data_ptr()
+    p = tile_plan(G, H, bp, out_tiles=False)
     rc = _build.get_lib().ws_candidate_scan(
-        bits_t.data_ptr(), tab.data_ptr(), cnt.data_ptr(), ex.data_ptr(),
-        G, B, H, N, tab.numel(), _build.stream_ptr(bits_t))
+        bp, tab.data_ptr(), cnt.data_ptr(), ex.data_ptr(), G, B, H, N,
+        tab.numel(), p["lanes"], p["rows"], p["vec"], p["shared"],
+        _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "candidate_scan")
     return cnt, ex

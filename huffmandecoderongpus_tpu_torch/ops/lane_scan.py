@@ -15,6 +15,10 @@ every row; only rows marked valid carry a decoded symbol).  With ``rows``
 the scan walks only the first ``rows`` bit rows: the fix scan of the
 self-synchronizing discovery (``_fix_scan`` of ``ops/lanedfa_sync.py``,
 the same rules cut at W rows).
+
+The kernel stages the bit matrix in shared memory a tile at a time; its
+launch plan (lanes a block, rows a tile, copy width, shared bytes) is
+``lanedfa.tile_plan``'s, computed here and handed to the launcher.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     EMIT_BIT,
     STATE_MASK,
     lane_limits,
+    tile_plan,
 )
 
 #: kernel launches made by ``lane_scan`` on CUDA tensors
@@ -51,9 +56,11 @@ def lane_scan(bits_t, tab, start, *, B, H, N, rows=None):
                          "most 16 chunks")
     sym = torch.empty((steps, G), dtype=torch.uint8, device=bits_t.device)
     valid = torch.empty((steps, G), dtype=torch.uint8, device=bits_t.device)
+    bp, sp, vp = bits_t.data_ptr(), sym.data_ptr(), valid.data_ptr()
+    p = tile_plan(G, 1, bp | sp | vp, out_tiles=True)
     rc = _build.get_lib().ws_lane_scan(
-        bits_t.data_ptr(), tab.data_ptr(), start.data_ptr(),
-        sym.data_ptr(), valid.data_ptr(), G, B, steps, N, tab.numel(),
+        bp, tab.data_ptr(), start.data_ptr(), sp, vp, G, B, steps, N,
+        tab.numel(), p["lanes"], p["rows"], p["vec"], p["shared"],
         _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "lane_scan")

@@ -109,6 +109,46 @@ def pick_lanes(bits: int, target_block_bits: int = 4096,
     return int(min(max(g, 1), max_lanes))
 
 
+#: bytes of one staged bit tile (rows x lanes) of the lane-DFA scans, and
+#: the tiles in their ring (``csrc/widescan.cuh`` ``BIT_STAGES``)
+TILE_BYTES = 4096
+TILE_STAGES = 3
+#: most threads a block, and the shared memory a block takes without
+#: opting in (``cudaFuncSetAttribute``); the scans stay under the latter
+MAX_THREADS = 1024
+SHARED_DEFAULT = 48 * 1024
+#: bytes of the fused table each scan stages beside its tiles
+TABLE_BYTES = 2048 * 4
+
+
+def tile_plan(G: int, chains: int, ptr: int, *, out_tiles: bool) -> dict:
+    """Launch plan of a lane-DFA scan over the (rows, G) bit matrix: a
+    block owns ``lanes`` neighbouring lanes (32 where G allows, halved
+    while ``chains`` threads a lane would pass ``MAX_THREADS``), stages
+    them ``rows`` (a multiple of 16) at a time in a ring of ``stages``
+    tiles of ``TILE_BYTES``, and copies ``vec`` bytes at a time: 16 or 4
+    (``cp.async``) where that aligns ``ptr`` (the matrix's address, or-ed
+    with the outputs' that take the same width) and divides the lanes a
+    block and G, or where one block holds every lane (its rows are then
+    one run of bytes, copied whole), else 1.  ``out_tiles``: the lane
+    scan's plan, one warp a block and two more pairs of tiles for its sym
+    and valid outputs.  ``threads`` a block, ``blocks``, and ``shared``:
+    the dynamic shared memory the wrapper asks for (the table's
+    ``TABLE_BYTES`` are static, beside it)."""
+    if G < 1 or not 1 <= chains <= MAX_THREADS:
+        raise ValueError(f"tile_plan: G={G}, {chains} chains a lane")
+    L = min(32, G)
+    while L * chains > MAX_THREADS:
+        L //= 2
+    R = max(16, TILE_BYTES // L // 16 * 16)
+    vec = next(v for v in (16, 4, 1) if ptr % v == 0
+               and (L == G or (L % v == 0 and G % v == 0)))
+    shared = (TILE_STAGES + (4 if out_tiles else 0)) * R * L
+    return dict(lanes=L, rows=R, stages=TILE_STAGES, vec=vec,
+                blocks=-(-G // L), threads=32 if out_tiles else L * chains,
+                shared=shared)
+
+
 def lane_limits(N: int, B: int, G: int, device) -> torch.Tensor:
     """(G,) int64: each lane's bit rows below N - g*B are in the stream."""
     return N - torch.arange(G, device=device, dtype=torch.int64) * B

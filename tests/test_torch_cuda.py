@@ -8,7 +8,10 @@ on a machine without jax it runs without the suite's conftest:
 Every stream's decode path is checked kernel by kernel: K1-K4 for min code
 length >= 2, the 1-bit K1'/K3' with K2/K4 for md = 1, the fused one-shot
 kernel for the small streams ``lane_wide`` routes to it, and the lane-DFA
-candidate and lane scans for the streams the wide program refuses.  The
+candidate and lane scans for the streams the wide program refuses, and at
+the edges of their staged bit tiles (one lane, lane counts that are not
+multiples of 16 or 32, the stream end mid-tile, misaligned matrices, row
+slices cut under one tile, trees 40 and 140 tall).  The
 encoder's E1-E3 are checked on the staging of the test shapes and on
 hand-made lanes (granules shared by up to 16 lanes, trailing empty lanes,
 counts reaching ORP), and ``encode_lanes`` and the ``encode`` command
@@ -48,7 +51,8 @@ from huffmandecoderongpus_tpu_torch.ops import oneshot, short_candidate_scan
 from huffmandecoderongpus_tpu_torch.ops import widescan
 from huffmandecoderongpus_tpu_torch.ops import k4_stripped, probe_arith
 from huffmandecoderongpus_tpu_torch.ops import probe_gather, probe_inc
-from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, fib_tree_data
+from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, comb_stream
+from torch_streams import fib_tree_data
 from torch_streams import fuzz, fuzz_any, make, make_batch, make_indexed
 from torch_streams import placed_lanes, text_like
 
@@ -137,6 +141,63 @@ def test_lanedfa_kernels_match_plain(cuda, name):
     # the scans at the tiled geometry, whatever the wide program would do
     raw, hf = make(name)
     _lanedfa_kernels_match_plain(raw, hf, cuda)
+
+
+def _tile_stream(k):
+    if k == "tiny":  # sync discovery's tail column at one lane
+        raw = text_like(np.random.default_rng(5), 2000)
+        return raw, encode_bytes(raw)
+    if k.startswith("comb"):  # comb<height>: L*H past 1,024 at 32 lanes
+        return comb_stream(int(k[4:]) + 1, 6000)
+    return make(k)
+
+
+#: the lane-DFA scans at the edges of their bit tiles: stream, lanes (1,
+#: and 3, 20, 100, 8: not multiples of 16 or 32), and "cut" (the stream end
+#: a third into the last lane, mid-tile) or "views" (copies 1 and 4 bytes
+#: past an aligned address, and row slices cut under one tile)
+SCAN_TILES = [("tiny", 1, None), ("tiny", 3, "cut"), ("tiny", 20, "cut"),
+              ("tiny", 20, "views"),
+              ("text", 100, "cut"), ("text", 64, "views"),
+              ("md1", 48, "cut"), ("comb40", 48, None),
+              ("comb140", 8, "cut"), ("comb140", 64, "views")]
+
+
+@pytest.mark.parametrize("k,G,how", SCAN_TILES)
+def test_scan_tiles_match_plain(cuda, k, G, how):
+    _raw, hf = _tile_stream(k)
+    st = lanedfa_decode.stage_lanedfa(hf, device=cuda, lanes=G, tiled=False)
+    bits, tab, B, H = st["bits"], st["tab"], st["B"], st["H"]
+    assert bits.shape[1] == G and (k != "comb140" or H == 140)
+    N = st["N"] - (B // 3 + 5 if how == "cut" else 0)
+    kw = dict(B=B, H=H, N=N)
+    rng = np.random.default_rng(G)
+    offs = rng.integers(0, H, G).astype(np.int32)
+    offs[0], offs[-1] = 0, H - 1
+    starts = [torch.from_numpy(a).to(cuda) for a in (
+        offs, np.zeros(G, np.int32), np.full(G, H - 1, np.int32))]
+    mats = [bits]
+    if how == "views":
+        for off in (1, 4):
+            flat = torch.empty(bits.numel() + off, dtype=torch.uint8,
+                               device=cuda)
+            mats.append(flat[off:].view(bits.shape))
+            mats[-1].copy_(bits)
+    for m in mats:
+        got = candidate_scan.candidate_scan(m, tab, **kw)
+        want = candidate_scan.candidate_scan_ref(m, tab, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        for start in starts:
+            got = lane_scan.lane_scan(m, tab, start, **kw)
+            want = lane_scan.lane_scan_ref(m, tab, start, **kw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        if how == "views":  # rows= under one tile, on a row slice
+            for W in (1, 40, 300):
+                got = lane_scan.lane_scan(m[:W], tab, starts[0], rows=W,
+                                          **kw)
+                want = lane_scan.lane_scan_ref(m[:W], tab, starts[0],
+                                               rows=W, **kw)
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
@@ -838,19 +899,30 @@ def test_launches_follow_the_current_stream(cuda):
     # captured into a CUDA graph, the launches must go to the capturing
     # stream (a launch to another stream breaks the capture), and a replay
     # must recompute from the inputs as they are then
+    _, hf = make("text")
+    dfa = lanedfa.build_lane_dfa(hf.tree)
+    H, B, G = dfa.height, 512, 96
+    kw = dict(B=B, H=H, N=B * G - 700)
+    ftab = torch.from_numpy(lanedfa.pad_table(dfa.entry)).to(cuda)
+
     def inputs(seed):
         rng = np.random.default_rng(seed)
         return (rng.integers(-2**31, 2**31, (8, 128)).astype(np.int32),
                 rng.integers(0, 1 << 20, (16, 128)).astype(np.int32),
                 rng.integers(-3, 131, (16, 128)).astype(np.int16),
-                rng.integers(0, 1 << 20, (64, 128)).astype(np.int32))
+                rng.integers(0, 1 << 20, (64, 128)).astype(np.int32),
+                rng.integers(0, 2, (B + H, G)).astype(np.uint8),
+                rng.integers(0, H, G).astype(np.int32))
 
-    x, tab, idx, xr = (torch.from_numpy(a).to(cuda) for a in inputs(0))
+    x, tab, idx, xr, bits, start = (torch.from_numpy(a).to(cuda)
+                                    for a in inputs(0))
 
     def run():
         return (probe_inc.probe_inc(x),
                 probe_gather.probe_gather(tab, idx, axis=1),
-                probe_gather.probe_roll(xr, 5, axis=0))
+                probe_gather.probe_roll(xr, 5, axis=0),
+                candidate_scan.candidate_scan(bits, ftab, **kw),
+                lane_scan.lane_scan(bits, ftab, start, **kw))
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -861,7 +933,7 @@ def test_launches_follow_the_current_stream(cuda):
     with torch.cuda.graph(graph):
         outs = run()
     for seed in (1, 2):
-        for t, a in zip((x, tab, idx, xr), inputs(seed)):
+        for t, a in zip((x, tab, idx, xr, bits, start), inputs(seed)):
             t.copy_(torch.from_numpy(a))
         graph.replay()
         torch.cuda.synchronize()
@@ -870,6 +942,10 @@ def test_launches_follow_the_current_stream(cuda):
             tab, idx, axis=1))
         assert torch.equal(outs[2], probe_gather.probe_roll_ref(xr, 5,
                                                                 axis=0))
+        for got, want in ((outs[3], candidate_scan.candidate_scan_ref(
+                bits, ftab, **kw)), (outs[4], lane_scan.lane_scan_ref(
+                    bits, ftab, start, **kw))):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_wrappers_refuse_on_cuda(cuda):
@@ -881,7 +957,14 @@ def test_wrappers_refuse_on_cuda(cuda):
             lambda: probe_gather.probe_gather(x, x.long(), axis=1),
             lambda: probe_gather.probe_roll(x[:, ::2], 1, axis=1),
             lambda: probe_inc.probe_inc(x[:, ::2]),
-            lambda: probe_inc.probe_inc(x.long())):
+            lambda: probe_inc.probe_inc(x.long()),
+            lambda: candidate_scan.candidate_scan(x, x, B=4, H=4, N=8),
+            lambda: candidate_scan.candidate_scan(x.byte()[:, ::2], x,
+                                                  B=4, H=4, N=8),
+            lambda: lane_scan.lane_scan(x.byte(), x, x[0].long(), B=4, H=4,
+                                        N=8),
+            lambda: lane_scan.lane_scan(x.byte(), x, x[0, :7], B=4, H=4,
+                                        N=8, rows=8)):
         with pytest.raises(ValueError):
             call()
 

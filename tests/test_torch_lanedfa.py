@@ -21,7 +21,6 @@ import torch
 from huffmandecoderongpus_tpu import native
 from huffmandecoderongpus_tpu.huffio import bitio
 from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
-from huffmandecoderongpus_tpu.huffio.format import HuffFile
 from huffmandecoderongpus_tpu.ops import lanedfa as jlanedfa
 from huffmandecoderongpus_tpu.ops import pallas_lanedfa as jpl
 from huffmandecoderongpus_tpu_torch import huffio
@@ -30,7 +29,8 @@ from huffmandecoderongpus_tpu_torch.ops import lanedfa, lanedfa_decode, widescan
 from huffmandecoderongpus_tpu_torch.ops.candidate_scan import candidate_scan
 from huffmandecoderongpus_tpu_torch.ops.lane_scan import lane_scan
 from test_torch_md1 import _spy
-from torch_streams import MD1_SHAPES, SHAPES, fuzz_any, make, text_like
+from torch_streams import MD1_SHAPES, SHAPES, comb_stream, fuzz_any, make
+from torch_streams import text_like
 
 NAMES = sorted(SHAPES) + sorted(MD1_SHAPES)
 
@@ -233,25 +233,10 @@ def test_size_mismatch_raises_before_overflow(monkeypatch):
     assert not tiled
 
 
-def _comb_stream(leaves=141, n=60000):
-    """A HuffFile over a comb tree (leaf k has code 1^k 0, height
-    leaves - 1) whose payload uses the five shortest codes."""
-    tree = np.zeros((2 * leaves - 1, 3), dtype=np.int32)
-    for i in range(leaves - 1):  # internal node 2i: leaf 2i+1, next 2i+2
-        tree[2 * i] = (0, 2 * i + 1, 2 * i + 2)
-        tree[2 * i + 1] = (i, -1, -1)
-    tree[2 * leaves - 2] = (leaves - 1, -1, -1)
-    raw = np.random.default_rng(0).integers(0, 5, size=n, dtype=np.uint8)
-    bits = np.concatenate([[1] * int(s) + [0] for s in raw]).astype(np.uint8)
-    hf = HuffFile(tree=tree, bits=int(bits.size), uncompressed_size=n,
-                  payload=np.packbits(bits, bitorder="little"))
-    return raw, hf
-
-
 def test_tall_tree_decodes_through_lanedfa(monkeypatch):
     # H = 140 > 128: K2 composes 128 entry offsets, so staging refuses it
     # and the lane-DFA chain decodes it
-    raw, hf = _comb_stream()
+    raw, hf = comb_stream()
     with pytest.raises(widescan.EnvelopeError, match="height 140"):
         widescan.stage_widescan_inputs(hf, device="cpu")
     tiled = _spy(monkeypatch, widescan, "decode_lanedfa_tiled")

@@ -7,7 +7,9 @@ shapes the port's envelope must hold against the JAX reference.
 import numpy as np
 
 from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
+from huffmandecoderongpus_tpu.huffio.format import HuffFile
 from huffmandecoderongpus_tpu.huffio.tree import table_height, table_min_depth
+from huffmandecoderongpus_tpu_torch.probes import streams as port_streams
 # Zipf(1.1) over ``symbols`` byte values: a text-like tree (min code length
 # 2, height 9 at 84 symbols), as the probes and chip_smoke.py draw it
 from huffmandecoderongpus_tpu_torch.probes.streams import text_like  # noqa: F401
@@ -29,6 +31,15 @@ def full_alphabet(rng, n):
     w = rng.random(256) ** 3 + 1e-4
     return rng.choice(np.arange(256, dtype=np.uint8), size=n,
                       p=w / w.sum()).astype(np.uint8)
+
+
+def comb_stream(leaves=141, n=60000):
+    """``probes.streams.comb_stream`` (a comb tree ``leaves - 1`` tall, which
+    no encoder builds) as the JAX package's HuffFile, like every stream
+    here."""
+    raw, hf = port_streams.comb_stream(leaves, n)
+    return raw, HuffFile(tree=hf.tree, bits=hf.bits, uncompressed_size=n,
+                         payload=hf.payload)
 
 
 def phase_locked(rng, n_tiles=2000):
