@@ -37,8 +37,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    the kernels from csrc/ with nvcc, and the build time
   3. kernels  each kernel against its plain torch version on the same CUDA
-              inputs, at the shapes its decode path gives it: K1-K4 on (a)
-              and (b), k1_scan/K2/k3_fix/K4 on (c), candidate_scan/
+              inputs, at the shapes its decode path gives it: K1-K4 on (a),
+              (b) and (d) (whose lanes overflow their rows, so (d) is not
+              trimmed), k1_scan/K2/k3_fix/K4 on (c), with K4's own time on
+              the card (profiler) against its bytes bound ([k4] lines),
+              K4 also at its plan's edges (probes.streams.K4_CASES: one
+              lane, three, a tail block, lanes past ORP, none valid, views
+              at an offset, rows in windows), candidate_scan/
               lane_scan on (d), each scan also on the card (profiler) in
               cycles a bit row at the maximum SM clock beside the floor of
               its chain of dependent lookups (CHAIN_CYCLES_A_ROW), and at
@@ -46,12 +51,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               lane counts that are not multiples of 16 or 32, the stream
               end mid-tile, misaligned matrices, rows= under one tile,
               trees 40 and 140 tall), the one-shot kernel on (f)-(i) (its whole
-              dense rows, counts and total), the encoder's E1/E2/E3 on the
+              dense rows, counts and total) and at its edges
+              (probes.streams.ONESHOT_CASES: one candidate chain, md 8, a
+              tree 128 tall, the envelope-edge stream, G = 128 and 4,096),
+              the encoder's E1/E2/E3 on the
               staging of (a), (b), (c), (e) and (f); K1's main scan
-              (k1_main) on the indexed (a), (b) and (i), the indexed lane
-              scan on the indexed (a) and (c); the batched K1/K3
-              (k1_scan2_c01, k3_fix2_c01) on the five small streams and on
-              (f), (g) and the book2-sized one; the self-synchronizing
+              (k1_main) and K4 on the indexed (a), (b) and (i), the
+              indexed lane scan on the indexed (a) and (c); the batched
+              K1/K3 (k1_scan2_c01, k3_fix2_c01) and K4 on the five small
+              streams and on (f), (g) and the book2-sized one; the
+              self-synchronizing
               discovery's short candidate scan on the first round of (a)
               and (d) in lane_dfa_sync's geometry (all five outputs), and
               the lane scan cut at that round's W rows (its fix scan) from
@@ -73,8 +82,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               and its device time by kernel (torch.profiler), for (f)-(i)
               the one-shot and the four-kernel program the same way, and
               the decode wall time (host clock) of (a)-(d) and of both
-              routes of (f)-(i).  Then encode_lanes(..., device="cuda") on
-              (a)-(i), the launch counts set to 0 just before and read just
+              routes of (f)-(i), and an [oneshot] line each: the kernel's
+              card time (profiler), its phases, K1's chain floor (the
+              longest lane's chunks x CHAIN_CYCLES_A_ROW) and the
+              four-kernel program's time.  Then
+              encode_lanes(..., device="cuda") on (a)-(i), the launch
+              counts set to 0 just before and read just
               after: E1, E2 and E3 once each, no host fallback, payload,
               bits and tree equal to the host encode_bytes; lane_wide
               decodes the device-encoded (a), (c) and (f) back to their
@@ -199,7 +212,8 @@ TILE_CASES = (("e", 1, None), ("e", 3, "cut"), ("e", 20, "cut"),
 COMB_BYTES, COMB_DEEP = 6000, 20
 #: cycles a bit row of a lane-DFA scan's chain: a dependent shared-memory
 #: lookup (30-38 cycles) and two dependent integer ops (about 5 each), as
-#: the probes measured them (PERF.md)
+#: the probes measured them (PERF.md); the one-shot's K1 floor takes the
+#: same a 2-bit chunk of its main chain (one quad-table lookup)
 CHAIN_CYCLES_A_ROW = 40
 #: the card's memory rate (bytes/s): NVIDIA's data sheet, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
@@ -440,11 +454,14 @@ def comparer(torch, name, rows):
     return compare
 
 
-def check_kernels(torch, name, raw, hf, dev):
+def check_kernels(torch, name, raw, hf, dev, decodes=True):
     """Phase 3 on one stream of the wide program: K1-K4 (the 1-bit K1/K3
     for md = 1) against their plain versions on the inputs the slice gives
-    them.  Returns {kernel: (max_abs_err, kernel ms, plain ms)} and raises
-    on any difference."""
+    them, then K4's own time on the card (profiler) against its bytes bound
+    (a [k4] line).  Returns {kernel: (max_abs_err, kernel ms, plain ms)}
+    and raises on any difference, or, with ``decodes``, unless the dense
+    rows trimmed by the counts are the input (a stream whose lanes overflow
+    their rows, as (d)'s, is checked kernel by kernel only)."""
     from huffmandecoderongpus_tpu_torch.ops import (
         k1_scan,
         k1_scan2,
@@ -494,6 +511,21 @@ def check_kernels(torch, name, raw, hf, dev):
                         lambda: k4_compact.k4_compact_ref(msym, mval,
                                                           ORP=p["ORP"]),
                         (msym, mval))
+    card_ms = device_breakdown(torch, lambda: k4_compact.k4_compact(
+        msym, mval, ORP=p["ORP"]), per_launch=True).get("k4_compact")
+    k4 = rows["k4_compact"]
+    k4["device_ms"] = card_ms
+    plan = k4_compact.k4_plan(p["G"], msym.shape[0], p["ORP"],
+                              msym.data_ptr(), mval.data_ptr())
+    card = ("not measured" if card_ms is None else
+            f"{card_ms:.4f} ms (profiler), {card_ms / k4['bound_ms']:.1f} "
+            "times the bound")
+    print(f"[k4] {name}: card {card}; events {k4['ms']:.4f} ms; bytes "
+          f"bound {k4['bound_ms']:.6f} ms; G={p['G']} cells "
+          f"{msym.shape[0]} ORP={p['ORP']}; plan {plan}", flush=True)
+    if not decodes:
+        print(f"[kernels] {name}: all four bit-exact", flush=True)
+        return rows
     n = ws.select_h(cntmap, entry, st["H"])
     mask = torch.arange(p["ORP"], device=dev)[None, :] < n[:, None]
     if not np.array_equal(denseT[mask].cpu().numpy(), raw):
@@ -544,11 +576,13 @@ def check_lanedfa(torch, name, raw, hf, dev):
              lambda: candidate_scan.candidate_scan(bits, tab, **kw)),
             ("lane_scan", lambda: lane_scan.lane_scan(bits, tab, entry,
                                                       **kw))):
-        card_ms = device_breakdown(torch, fn)[kname]
+        card_ms = device_breakdown(torch, fn, per_launch=True).get(kname)
         rows[kname]["device_ms"] = card_ms
-        print(f"[scan] {name}: {kname} card {card_ms:.4f} ms (profiler), "
-              f"events {rows[kname]['ms']:.4f} ms; {steps} rows: "
-              f"{card_ms * 1e-3 * clock / steps:.1f} cycles a row at "
+        card = ("not measured" if card_ms is None else
+                f"{card_ms:.4f} ms (profiler), "
+                f"{card_ms * 1e-3 * clock / steps:.1f} cycles a row")
+        print(f"[scan] {name}: {kname} card {card}; events "
+              f"{rows[kname]['ms']:.4f} ms; {steps} rows at "
               f"{clock / 1e6:.0f} MHz (clocks.max.sm); chain floor "
               f"{CHAIN_CYCLES_A_ROW} cycles a row, {floor_ms:.4f} ms",
               flush=True)
@@ -653,6 +687,63 @@ def check_oneshot(torch, name, raw, hf, dev):
     return rows
 
 
+def check_k4_cases(torch, dev):
+    """Phase 3, K4 at its plan's edge cases (``probes.streams.K4_CASES``:
+    one lane, three, a tail block, lanes past ORP, none valid, views at an
+    offset, rows past a block's staging and in windows) against its plain
+    version.  Returns {case: rows}, as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import k4_compact
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.K4_CASES:
+        G, cells_p, ORP, fill, off = case
+        sym, val = ps.k4_cells(case, dev)
+        plan = k4_compact.k4_plan(G, cells_p, ORP, sym.data_ptr(),
+                                  val.data_ptr())
+        what = f"k4 G={G} cells {cells_p} ORP={ORP} {fill} +{off}"
+        print(f"[kernels] {what}: plan {plan}", flush=True)
+        rows = out[what] = {}
+        comparer(torch, what, rows)(
+            "k4_compact", lambda: k4_compact.k4_compact(sym, val, ORP=ORP),
+            lambda: k4_compact.k4_compact_ref(sym, val, ORP=ORP), (sym, val))
+    return out
+
+
+def check_oneshot_cases(torch, dev):
+    """Phase 3, the one-shot kernel at its edge cases
+    (``probes.streams.ONESHOT_CASES``: one candidate chain, md 8, a tree
+    128 tall, the envelope-edge stream, G = 128 and 4,096) against its
+    plain version, whole rows, counts and total, and each decoded to its
+    input.  Returns {case: rows}, as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import oneshot
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.ONESHOT_CASES:
+        raw, st = ps.oneshot_case(case, dev)
+        p = st["plan"]
+        plan = oneshot.oneshot_plan(p["G"], st["H"], st["md"], p["SEG"],
+                                    p["steps_p"], p["ORP"], st["NS"])
+        what = (f"oneshot {case} G={p['G']} H={st['H']} md={st['md']} "
+                f"NS={st['NS']}")
+        print(f"[kernels] {what}: T={plan['T']} blocks {plan['blocks']} "
+              f"shared {plan['shared']}", flush=True)
+        if not oneshot.oneshot_eligible(st):
+            raise AssertionError(f"{what}: not one-shot eligible")
+        args = (st["words"], st["tab"], st["lim"])
+        kw = oneshot.program_args(st)
+        rows = out[what] = {}
+        denseT, n, total = comparer(torch, what, rows)(
+            "oneshot", lambda: oneshot.oneshot_program(*args, **kw),
+            lambda: oneshot.oneshot_program_ref(*args, **kw), args)
+        mask = torch.arange(p["ORP"], device=dev)[None, :] < n[:, None]
+        if (int(total) != raw.size
+                or not np.array_equal(denseT[mask].cpu().numpy(), raw)):
+            raise AssertionError(f"{what}: decoded wrong")
+    return out
+
+
 def check_encoder(torch, name, raw, hf, dev):
     """Phase 3 of the encoder on one stream: E1, E2 and E3 against their
     plain versions on the staging encode_lanes gives them, each stage fed
@@ -716,12 +807,16 @@ def check_indexed(torch, name, raw, hf, dev):
         "k1_main", lambda: k1_main.k1_main(wmat, st["tab"], st["lim"], **kw),
         lambda: k1_main.k1_main_ref(wmat, st["tab"], st["lim"], **kw),
         (wmat, st["tab"], st["lim"]))
-    denseT = k4_compact.k4_compact(sym, val, ORP=p["ORP"])
+    (denseT,) = comparer(torch, name, rows)(
+        "k4_compact", lambda: k4_compact.k4_compact(sym, val, ORP=p["ORP"]),
+        lambda: k4_compact.k4_compact_ref(sym, val, ORP=p["ORP"]),
+        (sym, val))
     counts = torch.from_numpy(st["counts"]).to(dev)
     mask = torch.arange(p["ORP"], device=dev)[None, :] < counts[:, None]
     if not np.array_equal(denseT[mask].cpu().numpy(), raw):
         raise AssertionError(f"{name}: the indexed kernels decoded wrong")
-    print(f"[kernels] {name}: k1_main bit-exact; stream decoded", flush=True)
+    print(f"[kernels] {name}: k1_main and K4 bit-exact; stream decoded",
+          flush=True)
     return rows
 
 
@@ -929,7 +1024,10 @@ def check_batch(torch, name, raws, hfs, dev):
         lambda: k3_fix2_c01.k3_fix2_c01_ref(wmat, tabs, entry, cut, cut_slot,
                                             s_p, v_p, c01, bs, **kw),
         (), moved=k3_moved(tabs, cut, cut_slot) + nbytes(c01, bs))
-    denseT = k4_compact.k4_compact(msym, mval, ORP=p["ORP"])
+    (denseT,) = compare(
+        "k4_compact", lambda: k4_compact.k4_compact(msym, mval, ORP=p["ORP"]),
+        lambda: k4_compact.k4_compact_ref(msym, mval, ORP=p["ORP"]),
+        (msym, mval))
     n = ws.select_h(cntmap, entry, H)
     mask = torch.arange(p["ORP"], device=dev)[None, :] < n[:, None]
     for k, raw in enumerate(raws):
@@ -937,8 +1035,8 @@ def check_batch(torch, name, raws, hfs, dev):
         if not np.array_equal(denseT[g0:g0 + gk][mask[g0:g0 + gk]].cpu()
                               .numpy(), raw):
             raise AssertionError(f"{name}: member {k} decoded wrong")
-    print(f"[kernels] {name}: k1_scan2_c01 and k3_fix2_c01 bit-exact; every "
-          "member decoded", flush=True)
+    print(f"[kernels] {name}: k1_scan2_c01, k3_fix2_c01 and K4 bit-exact; "
+          "every member decoded", flush=True)
     return rows
 
 
@@ -1211,10 +1309,13 @@ def main() -> int:
                streams[k][1], encode_bytes(streams[k][1], block_symbols=K))
            for k, K in (*INDEXED.items(), INDEXED_MD1)}
     checked = {k: check_kernels(torch, *hfs[k], dev) for k in "abc"}
-    checked["d"] = check_lanedfa(torch, *hfs["d"], dev)
+    checked["d"] = check_kernels(torch, *hfs["d"], dev, decodes=False)
+    checked["d"].update(check_lanedfa(torch, *hfs["d"], dev))
     checked.update(check_scan_tiles(torch, hfs, dev))
+    checked.update(check_k4_cases(torch, dev))
     for k in ONESHOT:
         checked[k] = check_oneshot(torch, *hfs[k], dev)
+    checked.update(check_oneshot_cases(torch, dev))
     for k in ENCODE_CHECKED:
         checked.setdefault(k, {}).update(check_encoder(torch, *hfs[k], dev))
     for k in INDEXED:
@@ -1867,29 +1968,76 @@ def time_oneshot(torch, ws, oneshot, name, raw, hf, dev, card):
           "median of 5) " + "  ".join(f"{ph} {v:.4f}"
                                       for ph, v in phases.items())
           + f"; sum {sum(phases.values()):.4f}", flush=True)
+    # K1's chain floor: the longest lane's main chain, a dependent lookup a
+    # 2-bit chunk (CHAIN_CYCLES_A_ROW) at the maximum SM clock
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6
+    chunks = min(int(st["lim"].max()), q["steps_p"]) // 2
+    floor_ms = chunks * CHAIN_CYCLES_A_ROW / clock * 1e3
+    card_ms = device_breakdown(torch, lambda: oneshot.oneshot_program(
+        *args, **kw1), per_launch=True).get("oneshot")
+    plan = oneshot.oneshot_plan(q["G"], st["H"], st["md"], q["SEG"],
+                                q["steps_p"], q["ORP"], st["NS"])
+    own = "not measured" if card_ms is None else f"{card_ms:.4f} ms"
+    print(f"[oneshot] {name}: card {own} (profiler), events "
+          f"{med['one-shot'][0]:.4f} ms; by phase "
+          + "  ".join(f"{ph} {v:.4f}" for ph, v in phases.items())
+          + f"; K1 chain floor {floor_ms:.4f} ms ({chunks} chunks x "
+          f"{CHAIN_CYCLES_A_ROW} cycles at {clock / 1e6:.0f} MHz), K1 "
+          f"{phases['K1'] / floor_ms:.1f} times it; four-kernel program "
+          f"{med['four-kernel'][0]:.4f} ms (events); T={plan['T']} blocks "
+          f"{plan['blocks']}; card {card}", flush=True)
 
 
-def device_breakdown(torch, fn, runs=5, ops_by_name=False):
+#: profiler sessions a breakdown may take: now and then a session records
+#: no device activity, or only some of the runs' kernels, the rest
+#: arriving in the next session (on the card's host, seen in some
+#: processes and not others); such a session is taken again
+PROFILER_TRIES = 3
+
+
+def device_breakdown(torch, fn, runs=5, ops_by_name=False, per_launch=False):
     """Device time per call of ``fn`` (ms) by kernel, from torch.profiler:
     the port's kernels by name, everything else (the torch ops around them)
-    together, or with ``ops_by_name`` each under its own kernel name."""
+    together, or with ``ops_by_name`` each under its own kernel name.  Each
+    session follows a one-call session that is thrown away (it takes any
+    records a session before left late).  A session that saw no device
+    time, or a kernel a number of times that is not a multiple of the runs,
+    is taken again, up to PROFILER_TRIES sessions; if none was whole,
+    returns {} and says so (the callers then print "not measured": no
+    other clock stands in for the card's).  With ``per_launch`` each value
+    is instead the mean time of one launch of that kernel over the launches
+    a session recorded, which a lost or late record does not bias: the
+    time a call of a ``fn`` that launches one kernel once."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]):
             fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        key = next((k for k, syms in DEVICE_SYMBOLS.items()
-                    if any(sym in e.key for sym in syms)),
-                   e.key[:60] if ops_by_name else "torch ops")
-        out[key] = out.get(key, 0.0) + e.self_device_time_total / runs / 1e3
-    return out
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        out, count, whole = {}, {}, True
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            whole = whole and e.count % runs == 0
+            key = next((k for k, syms in DEVICE_SYMBOLS.items()
+                        if any(sym in e.key for sym in syms)),
+                       e.key[:60] if ops_by_name else "torch ops")
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3
+            count[key] = count.get(key, 0) + e.count
+        if out and (whole or per_launch):
+            return {k: v / (count[k] if per_launch else runs)
+                    for k, v in out.items()}
+    print(f"[profiler] no whole record in {PROFILER_TRIES} sessions: not "
+          "measured", flush=True)
+    return {}
 
 
 if __name__ == "__main__":

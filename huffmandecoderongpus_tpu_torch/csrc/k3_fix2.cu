@@ -10,8 +10,8 @@
 // here each lane stops at its first cell that keeps every slot, after which
 // nothing it would compute is used.
 //
-// The per-lane body is k3_fix2_lane (widescan.cuh), which the fused
-// one-shot kernel runs too.
+// The per-lane body is k3_fix2_lane (widescan.cuh); the fused one-shot
+// kernel runs the same rules on its step table (oneshot.cu k3_lane).
 //
 // What bounds it on the H100: a dependent table-lookup chain per fixed lane
 // (latency); most lanes merge within a few dozen bits, so the work is the

@@ -1,8 +1,8 @@
 // Shared device helpers for the wide-lane kernels (K1, K3 and their 1-bit
-// versions) and the lane-DFA scans, and the per-lane bodies of K1
-// (k1_scan2_lane), K2's three steps, K3 (k3_fix2_lane) and K4
-// (k4_compact_lane), which the separate kernels and the fused one-shot
-// kernel (oneshot.cu) both run.
+// versions) and the lane-DFA scans: the per-lane bodies of K1
+// (k1_scan2_lane) and K3 (k3_fix2_lane), which the separate kernels run,
+// and K2's three steps and K4's block-wide body (k4_block), which the
+// fused one-shot kernel (oneshot.cu) runs too.
 //
 // The quad table (2*NS rows of 128 uint32 words, see
 // ops/widescan.py pack_quad_tables) is staged in shared memory: row
@@ -458,35 +458,183 @@ __device__ __forceinline__ void k3_fix2_lane(
   }
 }
 
-// K4 (k4_compact.cu) for lane g: its first `keep` <= ORP valid slot bytes,
-// in slot order, into row g of out (G, ORP), 32-bit words at a time; the
-// rest of the row is zeroed.
-__device__ __forceinline__ void k4_compact_lane(const int32_t* sym,
-                                                const uint8_t* val,
-                                                uint8_t* out, int G,
-                                                int cells_p, int ORP,
-                                                int keep, int g) {
-  uint32_t* row = reinterpret_cast<uint32_t*>(out + (size_t)g * ORP);
-  const int nw = ORP / 4;
-  uint32_t acc = 0;
-  int fill = 0, w = 0, r = 0;
-  for (int c = 0; c < cells_p && r < keep; ++c) {
-    const uint32_t nib = val[(size_t)c * G + g];
-    if (!nib) continue;
-    const uint32_t s = (uint32_t)sym[(size_t)c * G + g];
-    for (int b = 0; b < CELL && r < keep; ++b) {
-      if (!((nib >> b) & 1)) continue;
-      acc |= ((s >> (8 * b)) & 0xFFu) << (8 * fill);
-      ++r;
-      if (++fill == 4) {
-        row[w++] = acc;
-        acc = 0;
-        fill = 0;
+// ---- K4: a block-wide compaction -------------------------------------------
+// A block owns the lanes [g0, g0 + w), w <= LB, and every cell of them
+// (k4_compact.cu, and the one-shot's last phase).  Its threads split each
+// lane's cells into `nch` chunks of consecutive cells; a thread owns one
+// chunk of `vec` neighbouring lanes (1, or 4 read as one 4-byte val word and
+// one 16-byte sym vector), so a warp's loads of a cell row are coalesced and
+// every thread has its whole chunk's loads to put in flight.
+//   1. popcount the valid nibbles of each (chunk, lane) into `ccount`
+//   2. exclusive prefix over each lane's chunks (a warp scan)
+//   3. each thread places its valid bytes at their ranks in the lane's row,
+//      staged in shared memory (row stride W + 16 bytes, so that rows start
+//      on other banks), dropping ranks at or past the lane's `keep`
+//   4. the rows go out as 16-byte stores, zeros past the placed bytes.
+// Ranks come in windows of W: a row wider than the staging area takes
+// ceil(ORP / W) rounds of steps 3-4.  ops/k4_compact.py k4_plan picks LB,
+// vec, nch and W, and the launcher refuses any other plan.
+struct K4Tile {
+  int LB, vec, nch, W;
+  // bytes of shared memory: the staged rows, then the chunk counts
+  __host__ __device__ static int stage_bytes(int LB, int W) {
+    return LB * (W + 16);
+  }
+  __host__ __device__ static int bytes(int LB, int nch, int W) {
+    return stage_bytes(LB, W) + nch * LB * 4;
+  }
+  // threads with a chunk; a block has this rounded up to whole warps
+  __host__ __device__ int threads() const { return LB / vec * nch; }
+};
+
+// K4 over the lanes [g0, g0 + w) by the whole block (blockDim.x a multiple
+// of 32, at least p.threads()): their first keep(l) <= ORP valid slot
+// bytes, in slot order, into rows g0 + l of out (G, ORP), zeros after.
+// `smem` holds K4Tile::bytes, 16-byte aligned.
+template <bool NC, class T>
+__device__ __forceinline__ T k4_load(const T* p) {
+  if constexpr (NC)
+    return __ldg(p);
+  else
+    return __ldcg(p);
+}
+
+// NC: the cells are read-only for the whole launch (__ldg); else they were
+// written earlier in the same launch and are read through L2 (__ldcg).
+template <bool NC, class Keep>
+__device__ __forceinline__ void k4_block(const int32_t* __restrict__ sym,
+                                         const uint8_t* __restrict__ val,
+                                         uint8_t* __restrict__ out, int G,
+                                         int cells_p, int ORP, int g0, int w,
+                                         K4Tile p, uint8_t* smem, Keep keep) {
+  const int stride = p.W + 16;
+  int* ccount = reinterpret_cast<int*>(smem + K4Tile::stage_bytes(p.LB, p.W));
+  const int rt = p.LB / p.vec;  // threads a cell row
+  const int t = threadIdx.x;
+  const bool active = t < rt * p.nch;
+  const int ch = t / rt, l0 = (t - ch * rt) * p.vec;
+  const int per = (cells_p + p.nch - 1) / p.nch;
+  const int c0 = min(ch * per, cells_p), c1 = min(c0 + per, cells_p);
+  const bool mine = active && l0 < w;  // w % vec == 0 where vec == 4
+
+  // 1. valid slots of this chunk, each of my lanes
+  int cnt[4] = {0, 0, 0, 0};
+  if (mine) {
+    if (p.vec == 4) {
+      for (int c = c0; c < c1; ++c) {
+        const uint32_t v = k4_load<NC>(reinterpret_cast<const uint32_t*>(
+            val + (size_t)c * G + g0 + l0));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cnt[j] += __popc((v >> (8 * j)) & 0xFu);
       }
+    } else {
+      for (int c = c0; c < c1; ++c)
+        cnt[0] += __popc(k4_load<NC>(val + (size_t)c * G + g0 + l0) & 0xFu);
     }
   }
-  if (fill) row[w++] = acc;
-  for (; w < nw; ++w) row[w] = 0;
+  // (loops over a thread's lanes run 4 times, unrolled, so that these
+  // arrays stay in registers)
+  if (active)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < p.vec) ccount[ch * p.LB + l0 + j] = cnt[j];
+  __syncthreads();
+
+  // 2. exclusive prefix over each lane's chunks, a warp a lane (nch <= 32)
+  const int lane = t & 31, warp = t >> 5, nwarps = blockDim.x >> 5;
+  for (int l = warp; l < p.LB; l += nwarps) {
+    const int x = lane < p.nch ? ccount[lane * p.LB + l] : 0;
+    int inc = x;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+      if (lane >= d) inc += y;
+    }
+    if (lane < p.nch) ccount[lane * p.LB + l] = inc - x;
+  }
+  __syncthreads();
+  int base[4] = {0, 0, 0, 0}, kp[4] = {0, 0, 0, 0};
+  if (mine)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < p.vec) {
+        base[j] = ccount[ch * p.LB + l0 + j];
+        kp[j] = min(keep(l0 + j), ORP);
+      }
+
+  for (int w0 = 0; w0 < ORP; w0 += p.W) {
+    const int ww = min(p.W, ORP - w0);
+    // zero the staged rows (16-byte stores)
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    for (int i = t; i < p.LB * stride / 16; i += blockDim.x)
+      z[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    // 3. place this chunk's valid bytes of rank [w0, w0 + ww) below keep
+    if (mine) {
+      bool any = false;  // a rank of this chunk may fall in the window
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        any |= j < p.vec && base[j] < min(kp[j], w0 + ww);
+      int r[4] = {base[0], base[1], base[2], base[3]};
+      // no early exit once every rank is placed: a branch on loaded data
+      // would keep the next cells' loads from being in flight together
+      const int c_end = any ? c1 : c0;
+#pragma unroll 4
+      for (int c = c0; c < c_end; ++c) {
+        uint32_t v4, s4[4] = {0u, 0u, 0u, 0u};
+        if (p.vec == 4) {
+          const size_t o = (size_t)c * G + g0 + l0;
+          v4 = k4_load<NC>(reinterpret_cast<const uint32_t*>(val + o));
+          const int4 s = k4_load<NC>(reinterpret_cast<const int4*>(sym + o));
+          s4[0] = s.x, s4[1] = s.y, s4[2] = s.z, s4[3] = s.w;
+        } else {
+          const size_t o = (size_t)c * G + g0 + l0;
+          v4 = k4_load<NC>(val + o);
+          s4[0] = (v4 & 0xFu) ? (uint32_t)k4_load<NC>(sym + o) : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j >= p.vec) break;
+          const uint32_t nib = (v4 >> (8 * j)) & 0xFu;
+          const int lim = min(kp[j], w0 + ww);
+          if (r[j] + __popc(nib) <= w0 || r[j] >= lim) {
+            r[j] += __popc(nib);
+            continue;
+          }
+          uint8_t* row = smem + (l0 + j) * stride;
+          for (int b = 0; b < CELL; ++b) {
+            if (!((nib >> b) & 1u)) continue;
+            if (r[j] >= w0 && r[j] < lim)
+              row[r[j] - w0] = (uint8_t)(s4[j] >> (8 * b));
+            ++r[j];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // 4. the window of each row, 16 bytes a store
+    const int q = ww / 16;
+    for (int i = t; i < w * q; i += blockDim.x) {
+      const int l = i / q, k = i - l * q;
+      *reinterpret_cast<uint4*>(out + (size_t)(g0 + l) * ORP + w0 + 16 * k) =
+          *reinterpret_cast<const uint4*>(smem + l * stride + 16 * k);
+    }
+    __syncthreads();
+  }
+}
+
+// The launchers' check of a K4 plan (rules in ops/k4_compact.py k4_plan).
+inline bool k4_plan_ok(const void* sym, const void* val, int G, int ORP,
+                       K4Tile p, int threads, int shared) {
+  return G >= 1 && ORP >= 128 && ORP % 128 == 0 && p.LB >= 1 &&
+         p.LB <= 32 && p.LB <= G && (p.vec == 1 || p.vec == 4) &&
+         (p.vec == 1 ||
+          (p.LB % 4 == 0 && G % 4 == 0 && (uintptr_t)val % 4 == 0 &&
+           (uintptr_t)sym % 16 == 0)) &&
+         p.nch >= 1 && p.nch <= 32 &&
+         threads == (p.threads() + 31) / 32 * 32 && threads <= 1024 &&
+         p.W >= 16 && p.W % 16 == 0 && p.W <= ORP &&
+         shared == K4Tile::bytes(p.LB, p.nch, p.W) && shared <= 48 * 1024;
 }
 
 // ---- bit tiles of the lane-DFA scans ---------------------------------------

@@ -1,0 +1,152 @@
+"""K4 and the one-shot launch of one tree of the PyTorch port on a GPU, for
+timing two trees in turns within one machine.
+
+    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME]
+
+Run it as a file, not with ``-m``, as ``scan_turns.py`` beside it: it
+imports the port from TREE (a checkout of this repository; default the one
+that holds this file), so that a parent tree unpacked beside this one
+(``git archive``) is timed by the same code: run parent, change, change,
+parent.  Needs one CUDA card and nvcc; imports nothing of JAX.  Takes the
+streams (a)-(c) and (f)-(i) from ``draw_streams`` of this checkout's
+``chip_smoke.py`` and prints, beside the card's name and power limit:
+
+  k4         on (a), (b) and (c): K4 on the cells K1-K3 give it (the tree's
+             own wrappers), by CUDA events (median of 20 single launches)
+             and on the card (torch.profiler, mean of 5; "not measured"
+             where a process's profiler sees no device time), beside the
+             bytes it must move at 3.35 TB/s
+  oneshot    on (f)-(i): the one-shot program by CUDA events (median of 25
+             after 3) and on the card (profiler), its phases (timer
+             stamps, median of 5), K1's chain floor (the longest lane's
+             2-bit chunks x 40 cycles at the maximum SM clock), and the
+             four-kernel program on the same staged stream by events
+
+The last line is one JSON object of every number.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = pathlib.Path(__file__).resolve().parents[2]
+K4_RUNS = 20
+RUNS, WARMUP = 25, 3
+PHASE_RUNS = 5
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("tree", nargs="?", default=str(HERE))
+    ap.add_argument("--tag", default="tree")
+    args = ap.parse_args()
+    tree = pathlib.Path(args.tree).resolve()
+    sys.path[0] = str(tree)  # not this file's folder
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("oneshot_turns: no CUDA device", file=sys.stderr)
+        return 1
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import _build, k2_compose, oneshot
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+    from huffmandecoderongpus_tpu_torch.ops.k4_compact import k4_compact
+
+    if not pathlib.Path(_build.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"the port was not imported from {tree}")
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    name, power, mhz = (s.strip() for s in q.split(","))
+    card = f"{name}, {power} W"
+    clock = float(mhz) * 1e6
+    _build.get_lib()
+    dev = torch.device("cuda")
+    streams = cs.draw_streams(np.random.default_rng(cs.SEED))
+    out = {"tag": args.tag, "tree": str(tree), "card": card,
+           "clocks_max_sm_mhz": float(mhz)}
+
+    for k in "abc":
+        hf = encode_bytes(streams[k][1])
+        st = ws.stage_widescan_inputs(hf, device=dev)
+        a = ws.program_args(st)
+        ORP = a.pop("ORP")
+        kw = {x: a[x] for x in ("H", "steps_p", "SEG", "md", "chunk2", "C0",
+                                "C1", "NS")}
+        wmat, sym, val, cntmap, exmap, mrowmap = ws.stage_k1(
+            st["words"], st["tab"], st["lim"], B=a["B"], steps=a["steps"],
+            **kw)
+        entry, _tot = k2_compose.k2_compose(exmap, 0)
+        sym, val, _n, _total = ws.stage_k3(wmat, st["tab"], st["lim"],
+                                           entry, cntmap, mrowmap, sym, val,
+                                           **kw)
+
+        def fn(sym=sym, val=val, ORP=ORP):
+            return k4_compact(sym, val, ORP=ORP)
+
+        ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+        card_ms = cs.device_breakdown(torch, fn, per_launch=True).get(
+            "k4_compact")
+        moved = sym.numel() * 5 + sym.shape[1] * ORP  # sym + val, the rows
+        bound = moved / cs.HBM_BYTES_PER_S * 1e3
+        out[f"k4_{k}"] = dict(G=sym.shape[1], cells=sym.shape[0], ORP=ORP,
+                              events_ms=ev, card_ms=card_ms, bound_ms=bound)
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.4f} ms, {card_ms / bound:.1f} times the bound")
+        print(f"[k4] {args.tag} ({k}): events {ev:.4f} ms, card {own}, "
+              f"bound {bound:.6f} ms ({moved} bytes); G={sym.shape[1]} "
+              f"cells {sym.shape[0]} ORP={ORP}; card {card}", flush=True)
+
+    for k in "fghi":
+        hf = encode_bytes(streams[k][1])
+        st = ws.stage_widescan_inputs(hf, device=dev)
+        p = st["plan"]
+        args1 = (st["words"], st["tab"], st["lim"])
+        kw1, kw4 = oneshot.program_args(st), ws.program_args(st)
+
+        def one(kw1=kw1, args1=args1):
+            return oneshot.oneshot_program(*args1, **kw1)
+
+        def four(kw4=kw4, args1=args1):
+            return ws.wide_decode_program(*args1, **kw4)
+
+        ev1 = statistics.median(event_ms(one, WARMUP + RUNS)[WARMUP:])
+        ev4 = statistics.median(event_ms(four, WARMUP + RUNS)[WARMUP:])
+        card_ms = cs.device_breakdown(torch, one, per_launch=True).get(
+            "oneshot")
+        splits = [oneshot.phase_ms(*args1, **kw1) for _ in range(PHASE_RUNS)]
+        phases = {ph: statistics.median(sp[ph] for sp in splits)
+                  for ph in oneshot.PHASES}
+        chunks = min(int(st["lim"].max()), p["steps_p"]) // 2
+        floor = chunks * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+        out[f"oneshot_{k}"] = dict(G=p["G"], B=p["B"], H=st["H"],
+                                   md=st["md"], events_ms=ev1,
+                                   card_ms=card_ms, phases_ms=phases,
+                                   k1_floor_ms=floor, four_kernel_ms=ev4)
+        own = "not measured" if card_ms is None else f"{card_ms:.4f} ms"
+        print(f"[oneshot] {args.tag} ({k}): events {ev1:.4f} ms, card "
+              f"{own}; phases "
+              + "  ".join(f"{ph} {v:.4f}" for ph, v in phases.items())
+              + f"; K1 floor {floor:.4f} ms; four-kernel program {ev4:.4f} "
+              f"ms (events); G={p['G']} B={p['B']} H={st['H']} "
+              f"md={st['md']}; card {card}", flush=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -103,12 +103,13 @@ def main() -> int:
     out["d"] = dict(G=bits.shape[1], B=st["B"], H=st["H"], rows=rows)
     for kname, fn in fns.items():
         ev = statistics.median(event_ms(fn, SCAN_RUNS, warmup=2))
-        card_ms = cs.device_breakdown(torch, fn)[kname]
-        out[kname] = dict(events_ms=ev, card_ms=card_ms,
-                          cycles_a_row=card_ms * 1e-3 * clock / rows)
+        card_ms = cs.device_breakdown(torch, fn, per_launch=True).get(kname)
+        cyc = None if card_ms is None else card_ms * 1e-3 * clock / rows
+        out[kname] = dict(events_ms=ev, card_ms=card_ms, cycles_a_row=cyc)
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.4f} ms, {cyc:.1f} cycles a row")
         print(f"[scans] {args.tag} (d) {kname}: events {ev:.4f} ms, card "
-              f"{card_ms:.4f} ms, {out[kname]['cycles_a_row']:.1f} cycles a "
-              f"row over {rows} rows (G={bits.shape[1]} B={st['B']} "
+              f"{own} over {rows} rows (G={bits.shape[1]} B={st['B']} "
               f"H={st['H']}); card {card}", flush=True)
 
     for k, hf in (("d", hf_d), ("e", hf_e)):

@@ -63,8 +63,9 @@ _SIGNATURES = {
     # wmat, tab, ent, cut, cutsl, sym, val,
     # G, steps_w, steps_p, SEG, md, C0, C1, NS, stream
     "ws_k3_fix2": [_P] * 7 + [_I] * 8 + [_P],
-    # sym, val, out, G, cells_p, ORP, stream
-    "ws_k4_compact": [_P] * 3 + [_I] * 3 + [_P],
+    # sym, val, out, G, cells_p, ORP, lanes, vec, chunks, window, threads,
+    # shared, stream
+    "ws_k4_compact": [_P] * 3 + [_I] * 9 + [_P],
     # wmat, tab, lim, sym, val, cntmap, exmap, mrowmap,
     # G, steps_w, B, H, steps, steps_p, NS, stream
     "ws_k1_scan": [_P] * 8 + [_I] * 7 + [_P],
@@ -75,10 +76,10 @@ _SIGNATURES = {
     # bits, tab, start, sym, valid, G, B, rows, N, tab_words,
     # L, R, vec, shared, stream
     "ws_lane_scan": [_P] * 5 + [_I] * 9 + [_P],
-    # words, tab, lim, out, n, total, sym, val, cntmap, exmap, mrowmap,
-    # gmap, goff, tot, entry, stamps,
-    # G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp, stream
-    "ws_oneshot": [_P] * 16 + [_I] * 14 + [_P],
+    # words, tab, lim, out, n, total, scratch, offsets, scratch bytes,
+    # stamps, G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp,
+    # T, K4's lanes, vec, chunks and window, shared, stream
+    "ws_oneshot": [_P] * 8 + [_LL, _P] + [_I] * 20 + [_P],
     # data, lo, hi, nval, gran, gval, cnt, bits, K, G, stream
     "ws_e1_pack": [_P] * 8 + [_I] * 2 + [_P],
     # gran, gval, out, rows, G, ORP, stream

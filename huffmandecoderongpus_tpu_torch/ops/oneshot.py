@@ -9,9 +9,11 @@ Port of ``huffmandecoderongpus_tpu/ops/pallas_oneshot.py``:
 ``widescan.wide_decode_program`` computes for a chunked tree (min code
 length >= 2): K1's main scan and candidate chains, K2's composition, the
 per-lane counts and cut rows, K3's fix and splice and K4's compaction.  On
-CUDA tensors that is one cooperative launch running the four kernels'
-per-lane bodies, with K2's three steps between grid barriers; on CPU tensors
-it is the plain version, the four kernels' plain stages in sequence.  The
+CUDA tensors that is one cooperative launch, with K2's three steps between
+grid barriers: a team of threads a lane runs K1's chains side by side, and
+K4's block-wide body compacts each block's lanes (launch plan:
+``oneshot_plan``); on CPU tensors it is the plain version, the four
+kernels' plain stages in sequence.  The
 dense rows are zero past each lane's count.  (K4 alone zeroes only past a
 lane's valid slots: a lane that K3 replays to its end keeps the halo's
 symbols past its count.  The JAX kernel leaves the bytes past the counts
@@ -22,6 +24,9 @@ here when ``oneshot_eligible`` holds, as the JAX package does.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,7 +39,10 @@ from huffmandecoderongpus_tpu_torch.ops.k2_compose import (
     k2_compose_ref,
 )
 from huffmandecoderongpus_tpu_torch.ops.k3_fix2 import k3_fix2_ref
-from huffmandecoderongpus_tpu_torch.ops.k4_compact import k4_compact_ref
+from huffmandecoderongpus_tpu_torch.ops.k4_compact import (
+    k4_compact_ref,
+    k4_plan,
+)
 from huffmandecoderongpus_tpu_torch.ops.lanedfa import EnvelopeError
 from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import require_device
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL
@@ -50,6 +58,109 @@ ONESHOT_WORKING_SET_BYTES = 10 * 1024 * 1024
 
 #: the kernel's phases, as split by its timer stamps (``phase_ms``)
 PHASES = ("K1", "K2 group maps", "K2 scan", "K2 apply", "K3", "K4")
+
+#: the card the plan is made for (H100 SXM): SMs, and an SM's shared
+#: memory, threads and registers (NVIDIA's Hopper tuning guide)
+SM_COUNT = 132
+SM_SHARED = 228 * 1024
+SM_THREADS = 2048
+SM_REGISTERS = 65536
+#: shared memory a block may take (dynamic and static), and the bytes the
+#: card reserves beside each block
+BLOCK_SHARED_MAX = 227 * 1024
+BLOCK_RESERVED = 1024
+#: the kernel's block, and the blocks an SM must hold by its registers
+#: (``__launch_bounds__(THREADS, MIN_BLOCKS)``: at most 128 a thread)
+THREADS = 128
+MIN_BLOCKS = 4
+#: most bytes of K4's staged rows in the one-shot's last phase
+K4_STAGE_MAX = 32 * 1024
+#: the scratch arrays, in the order the launcher cuts them
+SCRATCH = ("sym", "val", "cntmap", "exmap", "mrowmap", "gmap", "goff", "tot",
+           "entry")
+
+
+def step_bytes(NS: int) -> int:
+    """Shared bytes of the kernel's step table (``oneshot.cu``): a 4-byte
+    entry a (state, 2-bit chunk), 128 states a table chunk."""
+    return NS * 128 * 4 * 4
+
+
+def team_words(CH: int, NL: int, SEGH: int) -> int:
+    """int32 words of one team's shared memory (``oneshot.cu``
+    ``team_words``): the CH chains' state (4 words each), the main chain's
+    count and exit, three main-chain slots (the bits, a state and a count a
+    row) and two leader slots (a state and a count a row and leader),
+    rounded up to 4."""
+    n = 4 * CH + 2 + 3 * (1 + 2 * SEGH) + 2 * (2 * SEGH * NL)
+    return -(-n // 4) * 4
+
+
+def team_chains(T: int, CH: int) -> list[list[int]]:
+    """The candidate chains each thread of a team of ``T`` walks, in turn
+    (``oneshot.cu`` ``k1_team``): thread 0 the main chain alone, thread
+    j >= 1 chains j - 1, j - 1 + (T - 1), ...; chains below NL are the
+    leaders, so with T >= NL + 1 each leader is its thread's first."""
+    return [[]] + [list(range(j - 1, CH, T - 1)) for j in range(1, T)]
+
+
+@functools.lru_cache(maxsize=256)
+def oneshot_plan(G: int, H: int, md: int, SEG: int, steps_p: int, ORP: int,
+                 NS: int) -> dict:
+    """Launch plan of the one-shot kernel.  Each lane has a team of ``T``
+    threads (a power of two from 4 to 32, so teams never straddle a warp):
+    the smallest that gives each of its CH candidate chains a thread of its
+    own beside the main chain's, halved while the grid of G * T threads
+    would need more blocks of ``THREADS`` than ``MIN_BLOCKS`` an SM on
+    ``SM_COUNT`` SMs, and never below NL + 1 (every leader a thread).
+    ``lanes`` a block (THREADS / T), ``blocks``, ``shared``: the dynamic
+    shared bytes of a block (it has no static ones), the step table of NS
+    table chunks (``step_bytes``), then the largest of the teams' K1 state
+    and rings, K2's staged group maps and K4's staged rows (``k4``,
+    ``k4_plan`` over the block's lanes) with the lanes' counts; ``per_sm``:
+    the blocks an SM
+    holds by threads, shared memory and registers, and ``fits`` whether
+    the grid is co-resident.  ``offsets``/``scratch_bytes``: the scratch
+    buffer's cut (``SCRATCH``, each 256-byte aligned).  Raises ValueError
+    for a geometry outside the kernel's bounds."""
+    CH, HP, cells_p = _shapes(H, steps_p, md)
+    NL = min(md, CH)
+    unroll = 4 * md
+    if (SEG != unroll * max(1, 32 // unroll) or not 2 <= md <= 8
+            or HP > NE or steps_p % SEG or G % 128 or ORP % 128
+            or not 1 <= NS <= 8):
+        raise ValueError("geometry outside the one-shot kernel's bounds "
+                         "(see oneshot_eligible)")
+    T = 4
+    while T < 32 and T < CH + 1:
+        T *= 2
+    while T > 4 and G * T // THREADS > SM_COUNT * MIN_BLOCKS:
+        T //= 2
+    if T < NL + 1:
+        raise ValueError(f"oneshot_plan: {T} threads a lane for {NL} leaders")
+    lanes = THREADS // T
+    L, NGp = groups(G)
+    k1 = lanes * team_words(CH, NL, SEG // 2) * 4
+    k4 = k4_plan(G, cells_p, ORP, lanes=lanes, threads=THREADS,
+                 stage_max=K4_STAGE_MAX, min_lanes=4)
+    phases = max(k1, NGp * NE, k4["shared"] + 4 * lanes)
+    shared = step_bytes(NS) + -(-phases // 16) * 16
+    per_sm = min(MIN_BLOCKS, SM_THREADS // THREADS,
+                 SM_SHARED // (shared + BLOCK_RESERVED))
+    blocks = G * T // THREADS
+    sizes = dict(sym=cells_p * G * 4, val=cells_p * G, cntmap=HP * G * 4,
+                 exmap=HP * G * 4, mrowmap=HP * G * 4, gmap=NGp * NE,
+                 goff=NGp * 4, tot=NE, entry=G * 4)
+    offsets, end = [], 0
+    for name in SCRATCH:
+        offsets.append(end)
+        end = -(-(end + sizes[name]) // 256) * 256
+    return dict(T=T, lanes=lanes, blocks=blocks, threads=THREADS,
+                shared=shared, per_sm=per_sm,
+                fits=blocks <= SM_COUNT * per_sm,
+                registers=SM_REGISTERS // (THREADS * MIN_BLOCKS), k4=k4,
+                L=L, NGp=NGp, offsets=tuple(offsets), scratch_bytes=end,
+                c_offsets=(ctypes.c_longlong * len(offsets))(*offsets))
 
 
 def oneshot_eligible(st) -> bool:
@@ -111,35 +222,24 @@ def oneshot_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md, C0,
                         *(() if stamps is None else (stamps,)))
     if stamps is not None and stamps.shape != (len(PHASES) + 1,):
         raise ValueError("oneshot: stamps must hold len(PHASES) + 1 values")
-    CH, HP, cells_p = _shapes(H, steps_p, md)
-    if (SEG % (CELL * md) or SEG > 32 or not 2 <= md <= 8 or HP > NE
-            or NS > 8 or steps_p % SEG or BW * 32 != B or G % 128
-            or ORP % 128):
+    if BW * 32 != B or NS > 8:
         raise ValueError("geometry outside the one-shot kernel's bounds "
                          "(see oneshot_eligible)")
-    L, NGp = groups(G)
+    p = oneshot_plan(G, H, md, SEG, steps_p, ORP, NS)
+    k4 = p["k4"]
     dev = words.device
-
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    denseT = empty((G, ORP), torch.uint8)
-    n = empty(G, torch.int32)
-    total = empty((), torch.int64)
-    scratch = [empty((cells_p, G), torch.int32),     # sym
-               empty((cells_p, G), torch.uint8),     # val
-               *(empty((HP, G), torch.int32) for _ in range(3)),  # maps
-               empty((NGp, NE), torch.uint8),        # group maps
-               empty(NGp, torch.int32),              # group entries
-               empty(NE, torch.uint8),               # composite map
-               empty(G, torch.int32)]                # entries
+    denseT = torch.empty((G, ORP), dtype=torch.uint8, device=dev)
+    n = torch.empty(G, dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.empty(p["scratch_bytes"], dtype=torch.uint8, device=dev)
     rc = _build.get_lib().ws_oneshot(
         words.data_ptr(), tab.data_ptr(), lim.data_ptr(),
         denseT.data_ptr(), n.data_ptr(), total.data_ptr(),
-        *(t.data_ptr() for t in scratch),
-        None if stamps is None else stamps.data_ptr(),
-        G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp,
-        _build.stream_ptr(words))
+        scratch.data_ptr(), ctypes.addressof(p["c_offsets"]),
+        p["scratch_bytes"], None if stamps is None else stamps.data_ptr(),
+        G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, p["L"],
+        p["NGp"], p["T"], k4["lanes"], k4["vec"], k4["chunks"],
+        k4["window"], p["shared"], _build.stream_ptr(words))
     launches += 1
     _build.check(rc, "oneshot")
     return denseT, n, total

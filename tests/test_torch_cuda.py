@@ -27,8 +27,13 @@ their plain versions at the scripts' shapes and at odd ones (P3's roll mode
 and 16-bit indices also unaligned, past the staged row width and past
 65,535 rows, each one launch and one kernel), the probe programs and the
 stage profiler run on the card, and wrappers captured in a CUDA graph
-replay on new inputs, which holds only if each launch went to the current
-stream.  Tolerance: bit-exact (integer outputs).
+(K4 among them) replay on new inputs, which holds only if each launch went
+to the current stream.  The block-wide K4 is checked at its plan's edges
+(one lane, three, a tail block, lanes past ORP, none valid, views at an
+offset, rows in windows), the one-shot's team K1 at its (one candidate
+chain, md 8, a tree 128 tall, G = 128 and 4,096, the envelope-edge
+stream), its stamps against a launch's events, and both launchers refuse
+a plan outside their rules.  Tolerance: bit-exact (integer outputs).
 """
 
 import numpy as np
@@ -37,7 +42,8 @@ import torch
 
 from huffmandecoderongpus_tpu import native
 from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
-from huffmandecoderongpus_tpu_torch.ops import batch, candidate_scan, compact
+from huffmandecoderongpus_tpu_torch.ops import _build, batch, candidate_scan
+from huffmandecoderongpus_tpu_torch.ops import compact
 from huffmandecoderongpus_tpu_torch.ops import e1_pack
 from huffmandecoderongpus_tpu_torch.ops import e2_compact, e3_place, encode
 from huffmandecoderongpus_tpu_torch.ops import encode_ops, k1_main, k1_scan
@@ -51,6 +57,7 @@ from huffmandecoderongpus_tpu_torch.ops import oneshot, short_candidate_scan
 from huffmandecoderongpus_tpu_torch.ops import widescan
 from huffmandecoderongpus_tpu_torch.ops import k4_stripped, probe_arith
 from huffmandecoderongpus_tpu_torch.ops import probe_gather, probe_inc
+from huffmandecoderongpus_tpu_torch.probes import streams as ps
 from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, comb_stream
 from torch_streams import fib_tree_data
 from torch_streams import fuzz, fuzz_any, make, make_batch, make_indexed
@@ -265,6 +272,11 @@ def test_oneshot_phase_ms(cuda):
     split = oneshot.phase_ms(*args, **kw)
     assert list(split) == list(oneshot.PHASES)
     assert all(v >= 0 for v in split.values()) and split["K1"] > 0
+    # the phases are the launch's: their sum is inside a launch's events
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+
+    launch = min(event_ms(lambda: oneshot.oneshot_program(*args, **kw), 5))
+    assert 0 < sum(split.values()) <= launch
 
 
 def test_lane_wide_small_stream_is_one_launch(cuda):
@@ -276,6 +288,67 @@ def test_lane_wide_small_stream_is_one_launch(cuda):
     out, ran = _launched(lambda: get_decoder("lane_wide", device=cuda)(hf))
     assert ran == {"oneshot": 1}
     np.testing.assert_array_equal(out, raw)
+
+
+@pytest.mark.parametrize("case", ps.ONESHOT_CASES)
+def test_oneshot_edges_match_plain(cuda, case):
+    # the team K1 at its edges: one candidate chain, eight leaders, 127
+    # chains (several followers a thread), the grid's smallest and largest
+    # G, and the largest stream the router sends to the one-shot
+    raw, st = ps.oneshot_case(case, cuda)
+    p = st["plan"]
+    assert oneshot.oneshot_eligible(st)
+    plan = oneshot.oneshot_plan(p["G"], st["H"], st["md"], p["SEG"],
+                                p["steps_p"], p["ORP"], st["NS"])
+    assert plan["fits"]
+    args = (st["words"], st["tab"], st["lim"])
+    kw = oneshot.program_args(st)
+    got = oneshot.oneshot_program(*args, **kw)
+    want = oneshot.oneshot_program_ref(*args, **kw)
+    for g, w in zip(got, want):  # the whole (G, ORP) rows, counts, total
+        assert torch.equal(g, w)
+    denseT, n, total = got
+    mask = torch.arange(p["ORP"], device=cuda)[None, :] < n[:, None]
+    np.testing.assert_array_equal(denseT[mask].cpu().numpy(), raw)
+    assert int(total) == raw.size
+
+
+@pytest.mark.parametrize("case", ps.K4_CASES)
+def test_k4_edges_match_plain(cuda, case):
+    G, cells_p, ORP, _fill, off = case
+    sym, val = ps.k4_cells(case, cuda)
+    plan = k4_compact.k4_plan(G, cells_p, ORP, sym.data_ptr(),
+                              val.data_ptr())
+    if off or G % 4:
+        assert plan["vec"] == 1
+    out, ran = _launched(lambda: k4_compact.k4_compact(sym, val, ORP=ORP))
+    assert ran == {"k4_compact": 1}
+    assert torch.equal(out, k4_compact.k4_compact_ref(sym, val, ORP=ORP))
+
+
+def test_launchers_refuse_other_plans(cuda):
+    # a plan outside the launchers' rules is refused, nothing launched
+    lib = _build.get_lib()
+    G, cells_p, ORP = 64, 8, 128
+    sym = torch.zeros((cells_p, G), dtype=torch.int32, device=cuda)
+    val = torch.zeros((cells_p, G), dtype=torch.uint8, device=cuda)
+    out = torch.empty((G, ORP), dtype=torch.uint8, device=cuda)
+    p = k4_compact.k4_plan(G, cells_p, ORP, sym.data_ptr(), val.data_ptr())
+
+    def k4(**change):
+        q = {**p, **change}
+        return lib.ws_k4_compact(
+            sym.data_ptr() + change.pop("shift", 0), val.data_ptr(),
+            out.data_ptr(), G, cells_p, ORP, q["lanes"], q["vec"],
+            q["chunks"], q["window"], q["threads"], q["shared"],
+            _build.stream_ptr(sym))
+
+    assert k4() == 0
+    for bad in (dict(lanes=33), dict(vec=2), dict(chunks=33),
+                dict(window=24), dict(threads=p["threads"] + 32),
+                dict(shared=p["shared"] + 16), dict(shift=4)):
+        assert k4(**bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 def test_oneshot_grid_not_coresident_raises(cuda):
@@ -912,17 +985,20 @@ def test_launches_follow_the_current_stream(cuda):
                 rng.integers(-3, 131, (16, 128)).astype(np.int16),
                 rng.integers(0, 1 << 20, (64, 128)).astype(np.int32),
                 rng.integers(0, 2, (B + H, G)).astype(np.uint8),
-                rng.integers(0, H, G).astype(np.int32))
+                rng.integers(0, H, G).astype(np.int32),
+                rng.integers(-2**31, 2**31, (50, 96)).astype(np.int32),
+                rng.integers(0, 16, (50, 96)).astype(np.uint8))
 
-    x, tab, idx, xr, bits, start = (torch.from_numpy(a).to(cuda)
-                                    for a in inputs(0))
+    x, tab, idx, xr, bits, start, csym, cval = (torch.from_numpy(a).to(cuda)
+                                                for a in inputs(0))
 
     def run():
         return (probe_inc.probe_inc(x),
                 probe_gather.probe_gather(tab, idx, axis=1),
                 probe_gather.probe_roll(xr, 5, axis=0),
                 candidate_scan.candidate_scan(bits, ftab, **kw),
-                lane_scan.lane_scan(bits, ftab, start, **kw))
+                lane_scan.lane_scan(bits, ftab, start, **kw),
+                k4_compact.k4_compact(csym, cval, ORP=128))
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -933,7 +1009,8 @@ def test_launches_follow_the_current_stream(cuda):
     with torch.cuda.graph(graph):
         outs = run()
     for seed in (1, 2):
-        for t, a in zip((x, tab, idx, xr, bits, start), inputs(seed)):
+        for t, a in zip((x, tab, idx, xr, bits, start, csym, cval),
+                        inputs(seed)):
             t.copy_(torch.from_numpy(a))
         graph.replay()
         torch.cuda.synchronize()
@@ -946,6 +1023,8 @@ def test_launches_follow_the_current_stream(cuda):
                 bits, ftab, **kw)), (outs[4], lane_scan.lane_scan_ref(
                     bits, ftab, start, **kw))):
             assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert torch.equal(outs[5], k4_compact.k4_compact_ref(csym, cval,
+                                                              ORP=128))
 
 
 def test_wrappers_refuse_on_cuda(cuda):
@@ -964,7 +1043,11 @@ def test_wrappers_refuse_on_cuda(cuda):
             lambda: lane_scan.lane_scan(x.byte(), x, x[0].long(), B=4, H=4,
                                         N=8),
             lambda: lane_scan.lane_scan(x.byte(), x, x[0, :7], B=4, H=4,
-                                        N=8, rows=8)):
+                                        N=8, rows=8),
+            lambda: k4_compact.k4_compact(x[:, ::2], x.byte()[:, ::2],
+                                          ORP=128),
+            lambda: k4_compact.k4_compact(x, x.byte(), ORP=100),
+            lambda: k4_compact.k4_compact(x, x.byte().cpu(), ORP=128)):
         with pytest.raises(ValueError):
             call()
 

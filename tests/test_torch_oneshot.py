@@ -332,3 +332,38 @@ def test_oneshot_never_falls_back():
                                 torch.zeros((2, 128), dtype=torch.int32),
                                 torch.zeros(512, dtype=torch.int32),
                                 stamps=stamps, **kw)
+
+
+def test_envelope_edge_stream_matches_jax(edge):
+    # the port's envelope-edge stream (``probes.streams``, which the card
+    # tests and chip_smoke.py take since the card's host has no JAX) is
+    # the JAX package's, byte for byte
+    from huffmandecoderongpus_tpu_torch.probes.streams import (
+        envelope_edge_stream,
+    )
+
+    raw, hf = envelope_edge_stream()
+    np.testing.assert_array_equal(raw, edge[0])
+    assert hf.bits == edge[1].bits
+    np.testing.assert_array_equal(hf.payload, edge[1].payload)
+
+
+@pytest.mark.parametrize("case", ["h2", "md8", "text-128", "alpha-128"])
+def test_oneshot_cases_match_four_kernel_program(case):
+    # the card's one-shot edge cases, on the CPU: the plain one-shot equals
+    # the plain four-kernel program up to the counts and decodes the input
+    # (G = 128 is outside the JAX plan's lanes; the 128-tall tree, whose
+    # 127 chains take the plain K1 two minutes here, runs on the card)
+    from huffmandecoderongpus_tpu_torch.probes.streams import oneshot_case
+
+    raw, st = oneshot_case(case, "cpu")
+    assert oneshot.oneshot_eligible(st)
+    args = (st["words"], st["tab"], st["lim"])
+    denseT, n, total = oneshot.oneshot_program(*args,
+                                               **oneshot.program_args(st))
+    d4, n4, t4 = widescan.wide_decode_program(*args,
+                                              **widescan.program_args(st))
+    assert torch.equal(n, n4) and int(total) == int(t4) == raw.size
+    mask = torch.arange(denseT.shape[1])[None, :] < n[:, None]
+    assert torch.equal(denseT[mask], d4[mask])
+    np.testing.assert_array_equal(denseT[mask].numpy(), raw)
