@@ -39,8 +39,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   3. kernels  each kernel against its plain torch version on the same CUDA
               inputs, at the shapes its decode path gives it: K1-K4 on (a),
               (b) and (d) (whose lanes overflow their rows, so (d) is not
-              trimmed), k1_scan/K2/k3_fix/K4 on (c), with K4's own time on
-              the card (profiler) against its bytes bound ([k4] lines),
+              trimmed), k1_scan/K2/k3_fix/K4 on (c), with K1's plan, its
+              own time on the card (profiler) and its chain floor (the
+              longest lane's chunks x CHAIN_CYCLES_A_ROW) on (a), (b), (d)
+              ([k1] lines) and K4's own time on the card against its bytes
+              bound ([k4] lines), both K1 kernels also at their edges
+              (probes.streams.K1_CASES: md 2 at G 512, md 6 with two table
+              chunks at G 16,384, md 8, one candidate chain, a 128-tall
+              tree at two G, lanes past the stream end, a blank run, a
+              batch ending in pad lanes; a [k1] line each),
               K4 also at its plan's edges (probes.streams.K4_CASES: one
               lane, three, a tail block, lanes past ORP, none valid, views
               at an offset, rows in windows), candidate_scan/
@@ -59,7 +66,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               (k1_main) and K4 on the indexed (a), (b) and (i), the
               indexed lane scan on the indexed (a) and (c); the batched
               K1/K3 (k1_scan2_c01, k3_fix2_c01) and K4 on the five small
-              streams and on (f), (g) and the book2-sized one; the
+              streams and on (f), (g) and the book2-sized one (a [k1]
+              line each); the
               self-synchronizing
               discovery's short candidate scan on the first round of (a)
               and (d) in lane_dfa_sync's geometry (all five outputs), and
@@ -492,6 +500,9 @@ def check_kernels(torch, name, raw, hf, dev, decodes=True):
         scan[0], lambda: scan[1](wmat, st["tab"], st["lim"], **k1a),
         lambda: scan[2](wmat, st["tab"], st["lim"], **k1a),
         (wmat, st["tab"], st["lim"]))
+    if st["chunk2"]:
+        k1_line(torch, name, "k1_scan2", lambda: scan[1](
+            wmat, st["tab"], st["lim"], **k1a), st["lim"], k1a, rows)
     entry, _tot = compare("k2_compose",
                           lambda: k2_compose.k2_compose(exmap, 0),
                           lambda: k2_compose.k2_compose_ref(exmap, 0),
@@ -532,6 +543,61 @@ def check_kernels(torch, name, raw, hf, dev, decodes=True):
         raise AssertionError(f"{name}: the kernels' stages decoded wrong")
     print(f"[kernels] {name}: all four bit-exact; stream decoded", flush=True)
     return rows
+
+
+def k1_line(torch, name, kname, kernel, lim, kw, rows):
+    """A [k1] line for one K1 launch (``kernel()``, K1 ``kname`` on lanes
+    of limits ``lim`` and keyword arguments ``kw``): its plan (T, lanes a
+    block, blocks, waves, shared bytes), its card time (profiler, the mean
+    a launch) and events time, and the chain floor: the longest lane's
+    2-bit chunks x CHAIN_CYCLES_A_ROW at the maximum SM clock.  The card
+    time goes into rows[kname] as device_ms."""
+    from huffmandecoderongpus_tpu_torch.ops import _build
+    from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import k1_plan
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    plan = k1_plan(lim.shape[0], kw["H"], kw["md"], kw["SEG"],
+                   kw["steps_p"], kw.get("NS", 1), _build.sm_count(lim.device))
+    card_ms = device_breakdown(torch, kernel, per_launch=True).get(kname)
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6
+    chunks = min(int(lim.max()), kw["steps_p"]) // 2
+    floor_ms = chunks * CHAIN_CYCLES_A_ROW / clock * 1e3
+    rows[kname]["device_ms"] = card_ms
+    card = ("not measured" if card_ms is None else
+            f"{card_ms:.4f} ms (profiler), {card_ms / floor_ms:.1f} times "
+            "the floor")
+    print(f"[k1] {name}: {kname} card {card}; events "
+          f"{rows[kname]['ms']:.4f} ms; chain floor {floor_ms:.4f} ms "
+          f"({chunks} chunks x {CHAIN_CYCLES_A_ROW} cycles at "
+          f"{clock / 1e6:.0f} MHz); plan T={plan['T']} lanes "
+          f"{plan['lanes']} blocks {plan['blocks']} waves {plan['waves']} "
+          f"shared {plan['shared']} on {plan['sm_count']} SMs; G="
+          f"{lim.shape[0]} H={kw['H']} md={kw['md']} NS={kw.get('NS', 1)}",
+          flush=True)
+
+
+def check_k1_cases(torch, dev):
+    """Phase 3, both K1 kernels at their edge cases
+    (``probes.streams.K1_CASES``: md 2 at G 512, md 6 with two table chunks
+    at G 16,384, md 8, one candidate chain, a 128-tall tree at two G, lanes
+    past the stream end, a blank run, a batch ending in pad lanes) against
+    their plain versions, with a [k1] line each.  Returns {case: rows}, as
+    check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import k1_scan2, k1_scan2_c01
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.K1_CASES:
+        kernel, inputs, kw, _hfs = ps.k1_case(case, dev)
+        mod = k1_scan2 if kernel == "k1_scan2" else k1_scan2_c01
+        what = f"k1 {case}"
+        rows = out[what] = {}
+        comparer(torch, what, rows)(
+            kernel, lambda: getattr(mod, kernel)(*inputs, **kw),
+            lambda: getattr(mod, kernel + "_ref")(*inputs, **kw), inputs)
+        k1_line(torch, what, kernel, lambda: getattr(mod, kernel)(
+            *inputs, **kw), inputs[2], kw, rows)
+    return out
 
 
 def check_lanedfa(torch, name, raw, hf, dev):
@@ -1011,6 +1077,8 @@ def check_batch(torch, name, raws, hfs, dev):
         lambda: k1_scan2_c01.k1_scan2_c01_ref(wmat, tabs, st["lim"], c01, bs,
                                               **k1a),
         (wmat, tabs, st["lim"], c01, bs))
+    k1_line(torch, name, "k1_scan2_c01", lambda: k1_scan2_c01.k1_scan2_c01(
+        wmat, tabs, st["lim"], c01, bs, **k1a), st["lim"], k1a, rows)
     exmap[:, list(st["last_live"])] = 0
     entry, _tot = k2_compose.k2_compose(exmap, 0)
     cut, cut_slot = ws.fix_rows(entry, mrowmap, st["lim"], H, md)
@@ -1316,6 +1384,7 @@ def main() -> int:
     for k in ONESHOT:
         checked[k] = check_oneshot(torch, *hfs[k], dev)
     checked.update(check_oneshot_cases(torch, dev))
+    checked.update(check_k1_cases(torch, dev))
     for k in ENCODE_CHECKED:
         checked.setdefault(k, {}).update(check_encoder(torch, *hfs[k], dev))
     for k in INDEXED:

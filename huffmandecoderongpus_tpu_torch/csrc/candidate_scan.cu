@@ -36,7 +36,8 @@
 //   shrink L (ops/lanedfa.py tile_plan) so that L*H stays <= 1024 threads.
 // Left out: multi-bit steps.  A table indexed by 2 or 4 bits a step would
 // shorten the chain 2-4 times, but each entry must then carry several
-// emissions and where within the step the exit rule fires (ROADMAP item 7).
+// emissions and where within the step the exit rule fires (ROADMAP
+// lever G).
 
 #include "widescan.cuh"
 

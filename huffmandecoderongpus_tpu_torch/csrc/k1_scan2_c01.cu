@@ -4,17 +4,19 @@
 // Replaces huffmandecoderongpus_tpu/ops/pallas_widescan.py
 // _k1_kernel2_c01 with k1_scan2's tab_bounds (the table BlockSpec whose
 // index map picks each row group's own (2, 128) compact quad table).  Every
-// stream of a batch owns whole 1024-lane ranges, so each block of 128 lanes
-// lies inside one stream: the block reads its stream from bstream[block]
-// and stages that stream's table (NS = 1) in shared memory.  Each lane
-// reads its tree's root children C0 | C1 << 16 from c01 (the compact
-// layout needs them only where a candidate chain starts mid-chunk).  The
-// lane body is K1's (k1_scan2_lane, widescan.cuh), with everything else as
+// stream of a batch owns whole 128-lane ranges (bstream maps each to its
+// stream), and a block's K1_THREADS / T lanes lie inside one of them: the
+// block stages that stream's step table (NS = 1) in shared memory.  The
+// compact layout's entries hold their post-chunk states, so the table does
+// not depend on the root children; each lane reads its tree's C0 | C1 << 16
+// from c01, which a candidate chain starting mid-chunk takes.  The lane
+// body is K1's team body (k1_team, widescan.cuh), planned and launched as
 // in k1_scan2.cu.
 //
-// What bounds it on the H100: as k1_scan2.cu, a dependent lookup chain per
-// lane and chain (latency); pad lanes and the common-B tails of the
-// shorter streams end at their limit and only write zero cells.
+// What bounds it on the H100: as k1_scan2.cu, each lane's main chain of
+// dependent lookups, and a row of the team body for every role while
+// candidate chains live; pad lanes and the common-B tails of the shorter
+// streams end at their limit and only write zero cells.
 
 #include "widescan.cuh"
 
@@ -22,22 +24,34 @@ using namespace ws;
 
 namespace {
 
-__global__ void __launch_bounds__(128) k1_scan2_c01_kernel(
+constexpr int MIN_BLOCKS = 4;  // an SM's blocks the registers allow
+constexpr int STREAM_LANES = 128;  // lanes of one stream-map entry
+
+__global__ void __launch_bounds__(K1_THREADS, MIN_BLOCKS) k1_scan2_c01_kernel(
     const int32_t* __restrict__ wmat, const uint32_t* __restrict__ tabs,
     const int32_t* __restrict__ lim2, const int32_t* __restrict__ c01,
-    const int32_t* __restrict__ bstream, int32_t* __restrict__ sym,
-    uint8_t* __restrict__ val, int32_t* __restrict__ cntmap,
-    int32_t* __restrict__ exmap, int32_t* __restrict__ mrowmap, int G,
-    int steps_w, int B, int H, int steps, int steps_p, int SEG, int md) {
-  __shared__ uint32_t tab_s[2 * 128];
-  load_table(tab_s, tabs + (size_t)bstream[blockIdx.x] * 2 * 128, 1);
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
+    const int32_t* __restrict__ bstream, K1Args a, int steps_w, int H,
+    int md, int T) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t* step = reinterpret_cast<int32_t*>(smem);
+  const int lanes = K1_THREADS / T;
+  const int stream = bstream[blockIdx.x * lanes / STREAM_LANES];
+  stage_step_table(step, tabs + (size_t)stream * 2 * 128, 1, 0, 0);
+  __syncthreads();
+  const int gt = blockIdx.x * K1_THREADS + threadIdx.x;
+  const int g = gt / T, j = gt & (T - 1);  // T divides 32
   const uint32_t rc = (uint32_t)c01[g];
-  k1_scan2_lane(WmatWords{wmat, G, steps_w}, tab_s, lim2[g], sym, val,
-                cntmap, exmap, mrowmap, G, g, B, H, steps, steps_p, SEG, md,
-                (int)(rc & 0xFFFFu), (int)(rc >> 16), 1);
+  a.C0 = (int)(rc & 0xFFFFu);
+  a.C1 = (int)(rc >> 16);
+  const Team tm = Team::of(smem + step_bytes(1), H, md, seg_bits(md), T);
+  const unsigned mask = team_mask(T);
+  const WmatWords words{wmat, a.G, steps_w};
+  with_md(md, [&](auto m) {
+    k1_team<decltype(m)::value>(a, words, lim2, step, tm, g, j, T, mask);
+  });
 }
+
+std::atomic<unsigned> opted_in{0};
 
 }  // namespace
 
@@ -47,13 +61,18 @@ extern "C" int ws_k1_scan2_c01(const int32_t* wmat, const uint32_t* tabs,
                                uint8_t* val, int32_t* cntmap, int32_t* exmap,
                                int32_t* mrowmap, int G, int steps_w, int B,
                                int H, int steps, int steps_p, int SEG, int md,
-                               cudaStream_t stream) {
-  const int threads = 128;
-  if (SEG / 2 > MAX_SEGH || md > MAX_NL || md < 2 || H - 1 > MAX_CH ||
-      SEG % (md * CELL) || steps_p % SEG || G % threads)
+                               int T, int shared, cudaStream_t stream) {
+  if (!k1_plan_ok(G, H, md, SEG, 1, T, shared) || G % STREAM_LANES ||
+      steps_p % SEG || steps_w * 32 < steps_p)
     return (int)cudaErrorInvalidValue;
-  k1_scan2_c01_kernel<<<G / threads, threads, 0, stream>>>(
-      wmat, tabs, lim2, c01, bstream, sym, val, cntmap, exmap, mrowmap, G,
-      steps_w, B, H, steps, steps_p, SEG, md);
+  if (shared > 48 * 1024) {
+    const cudaError_t err = allow_shared((const void*)k1_scan2_c01_kernel,
+                                         opted_in);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const K1Args a{sym, val, cntmap, exmap, mrowmap, G, B, steps, steps_p,
+                 0, 0};
+  k1_scan2_c01_kernel<<<G * T / K1_THREADS, K1_THREADS, shared, stream>>>(
+      wmat, tabs, lim2, c01, bstream, a, steps_w, H, md, T);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Shared device helpers for the wide-lane kernels (K1, K3 and their 1-bit
-// versions) and the lane-DFA scans: the per-lane bodies of K1
-// (k1_scan2_lane) and K3 (k3_fix2_lane), which the separate kernels run,
+// versions) and the lane-DFA scans: K1's team body (k1_team, a team of
+// threads a lane), which k1_scan2.cu, k1_scan2_c01.cu and the fused
+// one-shot kernel (oneshot.cu) all run, K3's per-lane body (k3_fix2_lane),
 // and K2's three steps and K4's block-wide body (k4_block), which the
-// fused one-shot kernel (oneshot.cu) runs too.
+// separate kernels and the one-shot share.
 //
 // The quad table (2*NS rows of 128 uint32 words, see
 // ops/widescan.py pack_quad_tables) is staged in shared memory: row
@@ -12,7 +13,10 @@
 // 16-bit half b is the entry for bit b.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace ws {
@@ -192,176 +196,502 @@ __device__ __forceinline__ void write_maps(
   }
 }
 
-// K1 (k1_scan2.cu) for lane g, whose stream limit is `lim`: walks every
-// segment of the lane, writes its (cells_p, G) sym/val cells and its rows
-// of the (HP, G) maps.  tab_s is the quad table in shared memory.
+// ---- K1 as a team of threads a lane ----------------------------------------
+// K1 (k1_scan2.cu, k1_scan2_c01.cu, and the one-shot's first phase) gives
+// each lane a team of T threads of one warp (T a power of two from 4 to 32;
+// ops/k1_scan2.py k1_plan and ops/oneshot.py oneshot_plan pick it): thread
+// 0 walks the main chain, which writes the cells, and threads 1.. the NL
+// leaders and the followers, chain c on thread 1 + c % (T - 1).  The team
+// runs them at once, as a pipeline over segments: at step t thread 0 walks
+// segment t of the main chain, the leaders segment t - 1 and the followers
+// segment t - 2, each reading what the chains before it published for that
+// segment through a ring in shared memory (the main chain's post-chunk
+// state and count a row and the segment's bits, three slots; the leaders'
+// state and count a row, two slots), with one __syncwarp a step.  A thread
+// with more than one chain (CH + 1 > T) walks them in turn, each chain's
+// state loaded from shared memory into registers for its walk.  Every role
+// walks its rows by one body (team_walk), branch-free but for a merge, so
+// that a warp's threads issue the same instructions whatever their role.
+// Once every chain of every team of a warp is resolved, its main chains go
+// on alone (main_fast where a segment lies inside the lane).  Liveness is a
+// warp vote (__ballot_sync over all 32 threads), so every thread of a warp
+// runs the team body: the launchers require G * T to fill whole blocks.
+//
+// Exactness.  The chains resolve and record by the TPU kernel's rules (a
+// merge with the main chain or the residue leader at the first valid row
+// where the states agree, a late exit past row B - 1, or the stream end).
+// The pipeline walks a chain only on segments that start below the lane's
+// stream limit.  It walks the leaders a segment ahead of the followers, so
+// a leader may walk past the segment in which its lane's last chain
+// resolved; it records nothing there that the maps read (a resolved leader
+// publishes -1, or the main chain's state once merged with it, and a
+// resolved follower is frozen).  A lane whose stream ends before a segment
+// writes zero cells there, and a
+// chain that never reaches its start row reports what a stream-end
+// resolution reports (its count 0, exit 0, no merge row).  The walks are
+// templated on md (2-8), so a segment's rows unroll, and step through a
+// step table built in shared memory at launch (state as a byte offset:
+// lookup, one LOP3, lookup), which the one-shot's K3 walks too.
+//
+// What bounds it on the H100: the main chain's dependent table lookups, one
+// a 2-bit chunk of its lane (the chain floor, about 40 cycles), and while
+// candidate chains live, a row of the team body for every role.
+
+constexpr int K1_THREADS = 128;  // a block of the K1 kernels
+
+// int32 words of one team's shared memory: the chains' state (node, count,
+// record, cumulative count), the main chain's count and exit, the ring of
+// three main-chain slots (the segment's bits, then a row's state and
+// count) and the ring of two leader slots (a row's state and count of each
+// leader).  A multiple of 4, so that every team starts 16-byte aligned.
+__host__ __device__ inline int team_words(int CH, int NL, int SEGH) {
+  const int n = 4 * CH + 2 + 3 * (1 + 2 * SEGH) + 2 * (2 * SEGH * NL);
+  return (n + 3) / 4 * 4;
+}
+
+// What K1 writes, and the geometry its walks read.  C0/C1 are the root's
+// children, the state of a chain that starts on a chunk's second bit.
+struct K1Args {
+  int32_t* sym;      // (cells_p, G) cell-packed symbols
+  uint8_t* val;      // (cells_p, G) valid nibbles
+  int32_t* cntmap;   // (HP, G) symbols a lane emits from each entry offset
+  int32_t* exmap;    // (HP, G) the next lane's entry offset
+  int32_t* mrowmap;  // (HP, G) merge row
+  int G, B, steps, steps_p, C0, C1;
+};
+
+// One team's shared memory.
+struct Team {
+  int* base;
+  int CH, NL, SEGH;
+  // team threadIdx.x / T of a block whose teams start at `smem`
+  __device__ static Team of(uint8_t* smem, int H, int md, int SEG, int T) {
+    const int CH = H - 1 > 1 ? H - 1 : 1, NL = md < CH ? md : CH;
+    return Team{reinterpret_cast<int*>(smem) + (int)(threadIdx.x / T) *
+                                                   team_words(CH, NL, SEG / 2),
+                CH, NL, SEG / 2};
+  }
+  __device__ int* node() const { return base; }
+  __device__ int* cnt() const { return base + CH; }
+  __device__ int* rec() const { return base + 2 * CH; }
+  __device__ int* cum() const { return base + 3 * CH; }
+  __device__ int* mainv() const { return base + 4 * CH; }
+  // segment seg's main-chain slot: [0] its bits, [1, 1 + SEGH) the state
+  // after each row (-1 once exited), then the count after each row
+  __device__ int* slot_a(int seg) const {
+    return base + 4 * CH + 2 + (seg % 3) * (1 + 2 * SEGH);
+  }
+  // segment seg's leader slot: (SEGH, NL) states (-1 once stopped), then
+  // (SEGH, NL) counts
+  __device__ int* slot_b(int seg) const {
+    return base + 4 * CH + 2 + 3 * (1 + 2 * SEGH) + (seg & 1) * 2 * SEGH * NL;
+  }
+};
+
+// The warp's threads of this thread's team (T divides 32).
+__device__ __forceinline__ unsigned team_mask(int T) {
+  const int sub = (threadIdx.x & 31) & ~(T - 1);
+  return T == 32 ? 0xFFFFFFFFu : ((1u << T) - 1u) << sub;
+}
+
+struct Chain {
+  int node, cnt, rec, cum;  // the main chain: rec bit 0 = exited, cum = exit
+};
+
+// The step table: K1's quad table rewritten as one 32-bit entry a (state,
+// 2-bit chunk), at byte offset state * 16 + chunk * 4: the post-chunk
+// state's byte offset (state * 16, bits 4-13), emit (bit 14), pos (bit 15)
+// and the symbol (bits 16-23).  A chain carries its state as that byte
+// offset, so a step is lookup, one LOP3, lookup: no multiply, shift or
+// select on the dependent path (the scans' byte offsets, stage_offset_table).
+// Entry 0 (an invalid row) is the root with no emission.  The compact
+// layout (NS == 1) holds its post-chunk states itself, so its table does not
+// depend on C0/C1.
+constexpr int STEP_NODE = 0x3FF0;
+constexpr int STEP_EMIT = 1 << 14;
+constexpr int STEP_POS = 15;
+
+__host__ __device__ constexpr int step_bytes(int NS) { return NS * 128 * 16; }
+
+// The step table of quad table `tab` (2 * NS, 128) into shared memory, by
+// all threads of the block.
+__device__ __forceinline__ void stage_step_table(int32_t* step,
+                                                 const uint32_t* tab, int NS,
+                                                 int C0, int C1) {
+  for (int i = threadIdx.x; i < NS * 128 * 4; i += blockDim.x) {
+    const int s = i >> 2, b0 = i & 1, b1 = (i >> 1) & 1;
+    const uint32_t w = __ldg(&tab[(b0 * NS + (s >> 7)) * 128 + (s & 127)]);
+    const Step st = decode_entry((w >> (b1 << 4)) & 0xFFFFu, NS,
+                                 b1 ? C1 : C0);
+    step[i] = st.node << 4 | st.emit << 14 | st.pos << STEP_POS |
+              st.sym << 16;
+  }
+}
+
+__device__ __forceinline__ int32_t step_at(const int32_t* step, int off) {
+  return *reinterpret_cast<const int32_t*>(
+      reinterpret_cast<const char*>(step) + off);
+}
+
+// The segment geometry of min code length MD, as ops/widescan.py _plan
+// makes it: SEG bits, SEGH 2-bit chunks, CELLS cells of 2 * MD chunks.
+template <int MD>
+struct Seg {
+  static constexpr int UNROLL = 4 * MD;
+  static constexpr int SEG = UNROLL * (32 / UNROLL > 1 ? 32 / UNROLL : 1);
+  static constexpr int SEGH = SEG / 2;
+  static constexpr int CELLS = SEG / (MD * CELL);
+};
+
+// SEG of min code length md (Seg<md>::SEG).
+__host__ __device__ constexpr int seg_bits(int md) {
+  return 4 * md * (32 / (4 * md) > 1 ? 32 / (4 * md) : 1);
+}
+
+// The bits [seg * SEG, seg * SEG + SEG) of lane g (SEG <= 32), or 0 past
+// the last segment.
 template <class Words>
-__device__ __forceinline__ void k1_scan2_lane(
-    const Words& words, const uint32_t* tab_s, int lim, int32_t* sym,
-    uint8_t* val, int32_t* cntmap, int32_t* exmap, int32_t* mrowmap, int G,
-    int g, int B, int H, int steps, int steps_p, int SEG, int md, int C0,
-    int C1, int NS) {
-  const int CH = H - 1 > 1 ? H - 1 : 1;
-  const int HP = (CH + 1 + 7) / 8 * 8;
-  const int NL = md < CH ? md : CH;
-  const int SEGH = SEG / 2;
-  const int cells_seg = SEG / (md * CELL);
-  const int S = steps_p / SEG;
+__device__ __forceinline__ uint32_t segment_bits(const Words& words, int seg,
+                                                 int S, int SEG, int g) {
+  if (seg >= S) return 0u;
+  const int base = seg * SEG, wb = base & ~31;
+  return (uint32_t)(load_bits64(words, wb, g) >> (base - wb));
+}
 
-  // main chain (entry offset 0)
-  int node0 = 0, cnt0 = 0, done0 = 0, exit0 = 0;
-  // candidate chain of entry offset r lives at index r - 1: leaders are
-  // offsets 1..NL, followers NL+1..CH
-  int cnode[MAX_CH], ccnt[MAX_CH], crec[MAX_CH], ccum[MAX_CH];
-  for (int c = 0; c < CH; ++c) cnode[c] = ccnt[c] = crec[c] = ccum[c] = 0;
-  int unresolved = CH;
-  // per-segment scratch: chunk bits, the main chain's post-chunk state (-1
-  // once it has exited) and count, the leaders' state (-1 once stopped)
-  // and count
-  int chunk[MAX_SEGH], nscr[MAX_SEGH], cscr[MAX_SEGH];
-  int ldr[MAX_SEGH][MAX_NL], lcn[MAX_SEGH][MAX_NL];
-
-  for (int s = 0; s < S; ++s) {
-    const int base = s * SEG;
-    const int cell0 = s * cells_seg;
-    if (lim <= base) {  // the lane's stream ended before this segment
-      for (int c = 0; c < cells_seg; ++c) {
-        sym[(size_t)(cell0 + c) * G + g] = 0;
-        val[(size_t)(cell0 + c) * G + g] = 0;
-      }
-      continue;
-    }
-    const int wb = base & ~31;
-    const uint64_t bits = load_bits64(words, wb, g);
-    for (int i = 0; i < SEGH; ++i)
-      chunk[i] = (int)((bits >> (base - wb + 2 * i)) & 3);
-    const bool live = unresolved > 0;
-
-    // ---- main chain: cell-packed emissions, exit offset ----------------
-    for (int cc = 0; cc < cells_seg; ++cc) {
-      uint32_t cacc = 0, nacc = 0;
-      for (int k = 0; k < 2 * md; ++k) {
-        const int i = cc * 2 * md + k;
-        const int jbit = base + 2 * i;
-        const int b0 = chunk[i] & 1, b1 = chunk[i] >> 1;
-        const int rc = b1 ? C1 : C0;
-        const uint32_t e =
-            lim > jbit ? quad_entry(tab_s, NS, node0, b0, b1) : 0u;
-        const Step st = decode_entry(e, NS, rc);
-        node0 = st.node;
-        const int emit = done0 ? 0 : st.emit;
-        if (emit && jbit + st.pos + 1 >= B) {
-          exit0 = jbit + st.pos + 1 - B;
-          done0 = 1;
-        }
-        cnt0 += emit;
-        if (live) {
-          nscr[i] = done0 ? -1 : node0;
-          cscr[i] = cnt0;
-        }
-        if (emit) {  // slot (jbit + pos) / md, counted from the cell start
-          const int sl = (2 * k + st.pos) / md;
-          cacc |= (uint32_t)st.sym << (8 * sl);
-          nacc |= 1u << sl;
+// One chain's walk over the SEGH rows of a segment starting at bit `base`
+// (states as step-table byte offsets): kind 0 the main chain (writes the
+// cells from cell0 on and, with `record`, its state and count a row into
+// slot a), 1 a leader (start row srow, publishes into slot b as leader
+// `li`), 2 a follower (start row srow, merges with the main chain or leader
+// `li`, frozen once resolved).  `on` false walks nothing.  MAIN_ONLY drops
+// the candidates' logic.  The rows are unrolled, so that a row's
+// bookkeeping fills the next lookup's latency.  Returns whether a candidate
+// resolved.
+template <int MD, bool MAIN_ONLY>
+__device__ __forceinline__ bool team_walk(
+    Chain& ch, int kind, bool on, bool record, int srow, int li, int base,
+    uint32_t bits, int lim, const int32_t* step, const K1Args& a, int* sa,
+    int* sb, int NL, int cell0, int g) {
+  using SG = Seg<MD>;
+  const bool is_main = MAIN_ONLY || kind == 0;
+  const bool is_fol = !MAIN_ONLY && kind == 2;
+  int node = ch.node, cnt = ch.cnt, rec = ch.rec, cum = ch.cum;
+  bool frozen = !on || (is_fol && (rec & 1));
+  const bool was = rec & 1;
+  const int C0 = a.C0 << 4, C1 = a.C1 << 4, B = a.B;
+  // a candidate's comparands for every row, loaded before its walk so that
+  // no shared-memory load waits on the chain: the main chain's state and,
+  // for a follower, its leader's (the counts are read on a merge only)
+  int nzr[SG::SEGH], ldr[SG::SEGH];
+  const bool cand = !MAIN_ONLY && !is_main && !frozen;
+#pragma unroll
+  for (int i = 0; i < SG::SEGH; ++i) {
+    nzr[i] = cand ? sa[1 + i] : -1;
+    ldr[i] = cand && is_fol ? sb[i * NL + li] : -1;
+  }
+#pragma unroll
+  for (int cc = 0; cc < SG::CELLS; ++cc) {
+    uint32_t cacc = 0, nacc = 0;
+#pragma unroll
+    for (int k = 0; k < 2 * MD; ++k) {
+      const int i = cc * 2 * MD + k;
+      const int jbit = base + 2 * i;
+      const int chunk4 = ((bits >> (2 * i)) & 3) << 2;
+      const bool valid = lim > jbit;
+      const int e = valid && !frozen ? step_at(step, node | chunk4) : 0;
+      const bool started = MAIN_ONLY || jbit >= srow;
+      const bool upd = started && !frozen;
+      if (upd) node = e & STEP_NODE;
+      if (!MAIN_ONLY && !frozen && srow == jbit + 1 && valid)
+        node = (chunk4 & 8) ? C1 : C0;  // a start on the chunk's second bit
+      const int pos = (e >> STEP_POS) & 1;
+      int em = upd && (e & STEP_EMIT) ? 1 : 0;
+      if (is_main) {
+        if (rec & 1) em = 0;  // past the exit: no more emissions
+        if (em && jbit + pos + 1 >= B) {
+          cum = jbit + pos + 1 - B;
+          rec |= 1;
         }
       }
-      sym[(size_t)(cell0 + cc) * G + g] = (int32_t)cacc;
-      val[(size_t)(cell0 + cc) * G + g] = (uint8_t)nacc;
-    }
-    if (!live) continue;
-
-    // ---- leaders: walk past their own resolution, publish per row ------
-    for (int l = 0; l < NL; ++l) {
-      const int srow = l + 1;
-      int node = cnode[l], cnt = ccnt[l], rec = crec[l], cum = ccum[l];
-      for (int i = 0; i < SEGH; ++i) {
-        const int jbit = base + 2 * i;
-        const int b0 = chunk[i] & 1, b1 = chunk[i] >> 1;
-        const int rc = b1 ? C1 : C0;
-        const bool valid = lim > jbit;
-        const uint32_t e = valid ? quad_entry(tab_s, NS, node, b0, b1) : 0u;
-        const Step st = decode_entry(e, NS, rc);
-        const bool alive = !(rec & 1);
-        const bool started = jbit >= srow;
-        if (started) node = st.node;
-        if (srow == jbit + 1 && valid) node = rc;  // mid-chunk start
-        const int em = started ? st.emit : 0;
-        cnt += em;
-        const int nz = nscr[i];
-        // a leader that resolved without merging (late exit or stream end)
-        // walks on spuriously; past the main chain's exit it tracks the
-        // halo: publish -1 in both cases
+      cnt += em;
+      if (!MAIN_ONLY) {
+        // one store pair for every role, and the resolution as selects: the
+        // main chain's and the candidates' rows are one instruction stream,
+        // so that a warp does not run them one after the other
+        const int nz = nzr[i];
         const bool lstop = (rec & 1) && !((rec >> 1) & 1);
-        ldr[i][l] = (lstop || nz == -1) ? -1 : node;
-        lcn[i][l] = cnt;
-        if (alive && started) {
-          if (valid && node == nz) {  // state-merged with the main chain
-            rec = ((jbit + 1) << 3) | 3;
-            cum = cscr[i] - cnt;
-          } else if (em && jbit + st.pos + 1 >= B) {  // late exit
-            rec = ((jbit + st.pos) << 3) | 1;
-            cum = cnt;
-          } else if (!valid) {  // stream end: a late exit at row B-1
-            rec = ((B - 1) << 3) | 1;
-            cum = cnt;
-          }
-          if (rec & 1) --unresolved;
+        const bool pub = on && (is_main ? record : kind == 1 && !frozen);
+        int* ws = is_main ? sa + 1 + i : sb + i * NL + li;
+        int* wc = is_main ? sa + 1 + SG::SEGH + i
+                          : sb + SG::SEGH * NL + i * NL + li;
+        const bool gone = is_main ? (rec & 1) : (lstop || nz == -1);
+        if (pub) {
+          *ws = gone ? -1 : node;
+          *wc = cnt;
         }
+        const bool chk = !is_main && !frozen && !(rec & 1) && upd;
+        const bool m1 = chk && valid && node == nz;  // merged, main chain
+        const bool m2 = chk && !m1 && is_fol && valid && node == ldr[i];
+        const bool lx = chk && !m1 && !m2 && em && jbit + pos + 1 >= B;
+        const bool se = chk && !m1 && !m2 && !lx && !valid;  // stream end
+        if (m1 | m2) {  // the merge partner's count on this row
+          cum = (m1 ? sa[1 + SG::SEGH + i]
+                    : sb[SG::SEGH * NL + i * NL + li]) - cnt;
+          rec = ((jbit + 1) << 3) | (m1 ? 3 : 5);
+        }
+        cum = lx | se ? cnt : cum;
+        rec = lx ? ((jbit + pos) << 3) | 1 : se ? ((B - 1) << 3) | 1 : rec;
+        frozen = frozen || (is_fol && (rec & 1));
       }
-      cnode[l] = node;
-      ccnt[l] = cnt;
-      crec[l] = rec;
-      ccum[l] = cum;
+      if (is_main && em) {  // slot (jbit + pos) / md, from the cell start
+        const int sl = (2 * k + pos) / MD;
+        cacc |= (uint32_t)((e >> 16) & 0xFF) << (8 * sl);
+        nacc |= 1u << sl;
+      }
     }
-
-    // ---- followers: merge with the main chain or the residue leader -----
-    for (int r = NL + 1; r <= CH; ++r) {
-      const int c = r - 1;
-      if (crec[c] & 1) continue;  // resolved: frozen
-      const int lp = (r - 1) % md;
-      int node = cnode[c], cnt = ccnt[c], rec = 0, cum = ccum[c];
-      for (int i = 0; i < SEGH; ++i) {
-        const int jbit = base + 2 * i;
-        if (jbit + 1 < r) continue;  // not started, not the start chunk
-        const int b0 = chunk[i] & 1, b1 = chunk[i] >> 1;
-        const int rc = b1 ? C1 : C0;
-        const bool valid = lim > jbit;
-        if (jbit + 1 == r) {  // odd start: a root step on the second bit
-          if (valid) node = rc;
-          continue;
-        }
-        const uint32_t e = valid ? quad_entry(tab_s, NS, node, b0, b1) : 0u;
-        const Step st = decode_entry(e, NS, rc);
-        node = st.node;
-        cnt += st.emit;
-        if (valid && node == nscr[i]) {
-          rec = ((jbit + 1) << 3) | 3;
-          cum = cscr[i] - cnt;
-        } else if (valid && node == ldr[i][lp]) {
-          rec = ((jbit + 1) << 3) | 5;
-          cum = lcn[i][lp] - cnt;
-        } else if (st.emit && jbit + st.pos + 1 >= B) {
-          rec = ((jbit + st.pos) << 3) | 1;
-          cum = cnt;
-        } else if (!valid) {
-          rec = ((B - 1) << 3) | 1;
-          cum = cnt;
-        }
-        if (rec & 1) {
-          --unresolved;
-          break;
-        }
-      }
-      cnode[c] = node;
-      ccnt[c] = cnt;
-      crec[c] = rec;
-      ccum[c] = cum;
+    if (is_main && on) {
+      const size_t o = (size_t)(cell0 + cc) * a.G + g;
+      a.sym[o] = (int32_t)cacc;
+      a.val[o] = (uint8_t)nacc;
     }
   }
+  if (on) ch = Chain{node, cnt, rec, cum};
+  return !is_main && on && !was && (rec & 1);
+}
 
-  // ---- epilogue: leaders first, followers compose through them ----------
-  write_maps(cntmap, exmap, mrowmap, G, g, cnt0, exit0, ccnt, crec, ccum, CH,
-             NL, HP, md, B, steps);
+// The main chain alone over a segment that lies below both the lane's
+// stream limit and row B - 1 (so every row is valid and no emission can
+// be the exit): the lookups of a cell first, each on the last one's state,
+// then its emissions packed, which the next cell's lookups overlap.
+template <int MD>
+__device__ __forceinline__ void main_fast(Chain& m, uint32_t bits,
+                                          const int32_t* step,
+                                          const K1Args& a, int cell0, int g) {
+  using SG = Seg<MD>;
+  int node = m.node, cnt = m.cnt;
+#pragma unroll
+  for (int cc = 0; cc < SG::CELLS; ++cc) {
+    int es[2 * MD];
+#pragma unroll
+    for (int k = 0; k < 2 * MD; ++k) {
+      const int i = cc * 2 * MD + k;
+      es[k] = step_at(step, node | (((bits >> (2 * i)) & 3) << 2));
+      node = es[k] & STEP_NODE;
+    }
+    uint32_t cacc = 0, nacc = 0;
+#pragma unroll
+    for (int k = 0; k < 2 * MD; ++k) {
+      const int e = es[k];
+      const uint32_t em = (e >> 14) & 1;
+      const int sl = (2 * k + ((e >> STEP_POS) & 1)) / MD;
+      cacc |= (em * ((e >> 16) & 0xFF)) << (8 * sl);
+      nacc |= em << sl;
+      cnt += em;
+    }
+    const size_t o = (size_t)(cell0 + cc) * a.G + g;
+    a.sym[o] = (int32_t)cacc;
+    a.val[o] = (uint8_t)nacc;
+  }
+  m.node = node;
+  m.cnt = cnt;
+}
+
+// The (count, exit, merge row) of leader l's map row (write_maps).
+__device__ __forceinline__ void leader_row(const Team& tm, int l, int cnt0,
+                                           int exit0, int B, int steps,
+                                           int& tot, int& ex, int& mro) {
+  const int rec = tm.rec()[l], res = rec & 1, mrg = (rec >> 1) & 1;
+  const int mrow = rec >> 3, cum = tm.cum()[l];
+  tot = res ? (mrg ? cnt0 - cum : cum) : tm.cnt()[l];
+  ex = res ? (mrg ? exit0 : mrow + 1 - B) : 0;
+  mro = (res && mrg) ? mrow : steps;
+}
+
+// The cells of segment seg of a lane whose stream ended before it.
+__device__ __forceinline__ void zero_cells(const K1Args& a, int seg,
+                                           int cells_seg, int g) {
+  for (int q = 0; q < cells_seg; ++q) {
+    const size_t o = (size_t)(seg * cells_seg + q) * a.G + g;
+    a.sym[o] = 0;
+    a.val[o] = 0;
+  }
+}
+
+// K1 of lane g, whose stream limit is lims[g], by its team: thread j of T,
+// `team_mask` the team's threads in the warp.  Writes the lane's cells and
+// its rows of the maps.  Every thread of the warp must call it.
+template <int MD, class Words>
+__device__ __forceinline__ void k1_team(const K1Args& a, const Words& words,
+                                        const int32_t* lims,
+                                        const int32_t* step,
+                                        const Team& tm, int g, int j, int T,
+                                        unsigned team_mask) {
+  using SG = Seg<MD>;
+  const int CH = tm.CH, NL = tm.NL, SEG = SG::SEG;
+  const int HP = (CH + 1 + 7) / 8 * 8;
+  const int cells_seg = SG::CELLS;
+  const int S = a.steps_p / SEG;
+  const int lim = lims[g];
+  const int per = T - 1;  // chain threads
+  const int kmax = (CH + per - 1) / per;
+  Chain m{0, 0, 0, 0};
+  int unres = 0;  // this thread's unresolved chains
+  if (j > 0)
+    for (int c = j - 1; c < CH; c += per) {
+      tm.node()[c] = tm.cnt()[c] = tm.rec()[c] = tm.cum()[c] = 0;
+      ++unres;
+    }
+  uint32_t next = j == 0 ? segment_bits(words, 0, S, SEG, g) : 0u;
+  __syncwarp();
+
+  int it = 0;
+  for (; it < S + 2; ++it) {
+    const bool mine = unres > 0 && lim > max(it - 2, 0) * SEG;
+    const unsigned ball = __ballot_sync(0xFFFFFFFFu, mine);
+    if (!ball) break;  // every chain of the warp's teams resolved
+    const bool live = (ball & team_mask) != 0;
+    for (int k = 0; k < kmax; ++k) {
+      int kind = 0, seg = it, c = 0;
+      bool on;
+      uint32_t bits;
+      Chain ch;
+      if (j == 0) {
+        on = k == 0 && seg < S;
+        bits = next;
+        if (on) next = segment_bits(words, seg + 1, S, SEG, g);
+        ch = m;
+      } else {
+        c = j - 1 + k * per;
+        kind = c < NL ? 1 : 2;
+        seg = it - kind;
+        on = live && c < CH && seg >= 0 && seg < S && lim > seg * SEG;
+        bits = on ? (uint32_t)tm.slot_a(seg)[0] : 0u;
+        ch = on ? Chain{tm.node()[c], tm.cnt()[c], tm.rec()[c], tm.cum()[c]}
+                : Chain{0, 0, 0, 0};
+      }
+      const int base = seg * SEG;
+      if (j == 0 && on && lim <= base) {  // the stream ended before it
+        zero_cells(a, seg, cells_seg, g);
+        on = false;
+      }
+      int* sa = tm.slot_a(seg < 0 ? 0 : seg);
+      if (j == 0 && on && live) sa[0] = (int)bits;
+      const int srow = kind == 0 ? 0 : c + 1;
+      const int li = kind == 1 ? c : c % MD;
+      if (team_walk<MD, false>(ch, kind, on, live, srow, li, base, bits, lim,
+                               step, a, sa, tm.slot_b(seg < 0 ? 0 : seg), NL,
+                               seg * cells_seg, g))
+        --unres;
+      if (j == 0) {
+        m = ch;
+      } else if (on) {
+        tm.node()[c] = ch.node;
+        tm.cnt()[c] = ch.cnt;
+        tm.rec()[c] = ch.rec;
+        tm.cum()[c] = ch.cum;
+      }
+    }
+    __syncwarp();
+  }
+  // the main chains go on alone over the segments left
+  if (j == 0)
+    for (int seg = it; seg < S; ++seg) {
+      const uint32_t bits = next;
+      next = segment_bits(words, seg + 1, S, SEG, g);
+      const int base = seg * SEG;
+      if (lim <= base) {
+        zero_cells(a, seg, cells_seg, g);
+        continue;
+      }
+      if (base + SEG <= lim && base + SEG < a.B)
+        main_fast<MD>(m, bits, step, a, seg * cells_seg, g);
+      else
+        team_walk<MD, true>(m, 0, true, false, 0, 0, base, bits, lim, step,
+                            a, nullptr, nullptr, NL, seg * cells_seg, g);
+    }
+  if (j == 0) {
+    tm.mainv()[0] = m.cnt;
+    tm.mainv()[1] = m.cum;
+  }
+  __syncwarp();
+
+  // ---- the maps: leaders first, followers compose through them ----------
+  const int cnt0 = tm.mainv()[0], exit0 = tm.mainv()[1];
+  const int G = a.G;
+  for (int r = j; r < HP; r += T) {
+    int tot, ex, mro;
+    if (r == 0) {
+      tot = cnt0, ex = exit0, mro = -1;
+    } else if (r <= NL) {
+      leader_row(tm, r - 1, cnt0, exit0, a.B, a.steps, tot, ex, mro);
+    } else if (r <= CH) {
+      const int c = r - 1, rec = tm.rec()[c], kind = (rec >> 1) & 3;
+      const int mrow = rec >> 3, cum = tm.cum()[c];
+      if (!(rec & 1)) {  // unresolved: the raw count
+        tot = tm.cnt()[c], ex = 0, mro = a.steps;
+      } else if (kind == 1) {  // merged with the main chain
+        tot = cnt0 - cum, ex = exit0, mro = mrow;
+      } else if (kind == 2) {  // merged with its leader
+        int lt, le, lm;
+        leader_row(tm, (r - 1) % MD, cnt0, exit0, a.B, a.steps, lt, le, lm);
+        tot = lt - cum, ex = le, mro = mrow > lm ? mrow : lm;
+      } else {  // late exit or stream end
+        tot = cum, ex = mrow + 1 - a.B, mro = a.steps;
+      }
+    } else {
+      tot = 0, ex = 0, mro = a.steps;
+    }
+    const size_t o = (size_t)r * G + g;
+    a.cntmap[o] = tot;
+    a.exmap[o] = ex;
+    a.mrowmap[o] = mro;
+  }
+}
+
+// f(std::integral_constant<int, md>) for md in 2..8.
+template <class F>
+__device__ __forceinline__ void with_md(int md, F f) {
+  switch (md) {
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 3: f(std::integral_constant<int, 3>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 5: f(std::integral_constant<int, 5>{}); break;
+    case 6: f(std::integral_constant<int, 6>{}); break;
+    case 7: f(std::integral_constant<int, 7>{}); break;
+    default: f(std::integral_constant<int, 8>{}); break;
+  }
+}
+
+// The K1 launchers' check of a team plan (rules in ops/k1_scan2.py
+// k1_plan): T threads a lane, `shared` dynamic bytes a block of
+// K1_THREADS (the step table, then the teams).
+inline bool k1_plan_ok(int G, int H, int md, int SEG, int NS, int T,
+                       int shared) {
+  if (md < 2 || md > MAX_NL || H - 1 > MAX_CH || NS < 1 || NS > MAX_NS ||
+      SEG != seg_bits(md) || T < 4 || T > 32 || (T & (T - 1)))
+    return false;
+  const int CH = H - 1 > 1 ? H - 1 : 1, NL = md < CH ? md : CH;
+  const int lanes = K1_THREADS / T;
+  return T >= NL + 1 && G >= 1 && (long long)G * T % K1_THREADS == 0 &&
+         shared % 16 == 0 &&
+         shared >= step_bytes(NS) + 4 * lanes * team_words(CH, NL, SEG / 2) &&
+         shared <= 227 * 1024;
+}
+
+// Let `kernel` take up to 227 KB of dynamic shared memory (past 48 KB a
+// launch needs it), once per device: `done` holds a bit a device.
+inline cudaError_t allow_shared(const void* kernel,
+                                std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             227 * 1024);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
 // K2 (k2_compose.cu): exmap[state, lane], or 0 for an entry offset at or

@@ -1,15 +1,16 @@
-"""K4 and the one-shot launch of one tree of the PyTorch port on a GPU, for
-timing two trees in turns within one machine.
+"""K4, the one-shot launch and K1 of one tree of the PyTorch port on a GPU,
+for timing two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME]
+    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1]
 
 Run it as a file, not with ``-m``, as ``scan_turns.py`` beside it: it
 imports the port from TREE (a checkout of this repository; default the one
 that holds this file), so that a parent tree unpacked beside this one
 (``git archive``) is timed by the same code: run parent, change, change,
 parent.  Needs one CUDA card and nvcc; imports nothing of JAX.  Takes the
-streams (a)-(c) and (f)-(i) from ``draw_streams`` of this checkout's
-``chip_smoke.py`` and prints, beside the card's name and power limit:
+streams (a)-(d), (f)-(i) and the batches from this checkout's
+``chip_smoke.py`` (``draw_streams`` and the draws after it) and prints,
+beside the card's name and power limit:
 
   k4         on (a), (b) and (c): K4 on the cells K1-K3 give it (the tree's
              own wrappers), by CUDA events (median of 20 single launches)
@@ -21,6 +22,16 @@ streams (a)-(c) and (f)-(i) from ``draw_streams`` of this checkout's
              stamps, median of 5), K1's chain floor (the longest lane's
              2-bit chunks x 40 cycles at the maximum SM clock), and the
              four-kernel program on the same staged stream by events
+  k1         k1_scan2 on (a), (b), (d) and (f)-(i) (the four-kernel
+             program's K1 on the one-shot streams) and k1_scan2_c01 on
+             chip_smoke.py's two batches (the five small streams drawn
+             after (a)-(i), and (f), (g) and the book2-sized one):
+             by events (median of 20 single launches) and on the card
+             (profiler, mean a launch), beside the chain floor (the longest
+             lane's 2-bit chunks x 40 cycles at the maximum SM clock) and,
+             where the tree has ``k1_plan``, its plan; and
+             ``wide_decode_program`` on (a) and (b) by events (median of 25
+             after 3)
 
 The last line is one JSON object of every number.
 """
@@ -47,7 +58,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--sections", default="k4,oneshot,k1")
     args = ap.parse_args()
+    sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
     sys.path[0] = str(tree)  # not this file's folder
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -76,11 +89,12 @@ def main() -> int:
     clock = float(mhz) * 1e6
     _build.get_lib()
     dev = torch.device("cuda")
-    streams = cs.draw_streams(np.random.default_rng(cs.SEED))
+    rng = np.random.default_rng(cs.SEED)
+    streams = cs.draw_streams(rng)
     out = {"tag": args.tag, "tree": str(tree), "card": card,
            "clocks_max_sm_mhz": float(mhz)}
 
-    for k in "abc":
+    for k in "abc" if "k4" in sections else "":
         hf = encode_bytes(streams[k][1])
         st = ws.stage_widescan_inputs(hf, device=dev)
         a = ws.program_args(st)
@@ -111,7 +125,7 @@ def main() -> int:
               f"bound {bound:.6f} ms ({moved} bytes); G={sym.shape[1]} "
               f"cells {sym.shape[0]} ORP={ORP}; card {card}", flush=True)
 
-    for k in "fghi":
+    for k in "fghi" if "oneshot" in sections else "":
         hf = encode_bytes(streams[k][1])
         st = ws.stage_widescan_inputs(hf, device=dev)
         p = st["plan"]
@@ -144,8 +158,81 @@ def main() -> int:
               + f"; K1 floor {floor:.4f} ms; four-kernel program {ev4:.4f} "
               f"ms (events); G={p['G']} B={p['B']} H={st['H']} "
               f"md={st['md']}; card {card}", flush=True)
+    if "k1" in sections:
+        small = [cs.text_like(rng, cs.PAPER1_BYTES, n)
+                 for n in cs.BATCH_SYMBOLS]
+        trio = [streams["f"][1], streams["g"][1],
+                cs.text_like(rng, cs.BOOK2_BYTES)]
+        k1_section(torch, cs, out, streams, small, trio, dev, card, clock,
+                   args.tag)
     print(json.dumps(out))
     return 0
+
+
+def k1_section(torch, cs, out, streams, small, trio, dev, card, clock,
+               tag):
+    """The k1 section: both K1 kernels and the four-kernel program."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import (
+        _build,
+        batch,
+        k1_scan2,
+        k1_scan2_c01,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    def one(key, kname, fn, lim, kw):
+        ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+        card_ms = cs.device_breakdown(torch, fn, per_launch=True).get(kname)
+        chunks = min(int(lim.max()), kw["steps_p"]) // 2
+        floor = chunks * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+        plan = getattr(k1_scan2, "k1_plan", None)
+        plan = plan and plan(lim.shape[0], kw["H"], kw["md"], kw["SEG"],
+                             kw["steps_p"], kw.get("NS", 1),
+                             _build.sm_count(dev))
+        out[key] = dict(G=lim.shape[0], H=kw["H"], md=kw["md"],
+                        events_ms=ev, card_ms=card_ms, floor_ms=floor,
+                        plan=plan and {k: plan[k] for k in (
+                            "T", "lanes", "blocks", "waves", "shared")})
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.4f} ms, {card_ms / floor:.1f} times the floor")
+        print(f"[k1] {tag} {key}: events {ev:.4f} ms, card {own}; floor "
+              f"{floor:.4f} ms ({chunks} chunks); plan {out[key]['plan']}; "
+              f"G={lim.shape[0]} H={kw['H']} md={kw['md']}; card {card}",
+              flush=True)
+
+    for k in "abdfghi":
+        st = ws.stage_widescan_inputs(encode_bytes(streams[k][1]),
+                                      device=dev)
+        p = st["plan"]
+        wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+        kw = dict(B=p["B"], H=st["H"], steps=p["steps"],
+                  steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"],
+                  C0=st["C0"], C1=st["C1"], NS=st["NS"])
+        one(f"k1_scan2_{k}", "k1_scan2",
+            lambda wmat=wmat, st=st, kw=kw: k1_scan2.k1_scan2(
+                wmat, st["tab"], st["lim"], **kw), st["lim"], kw)
+        if k in "ab":
+            args1 = (st["words"], st["tab"], st["lim"])
+            a4 = ws.program_args(st)
+            ts = event_ms(lambda: ws.wide_decode_program(*args1, **a4),
+                          WARMUP + RUNS)[WARMUP:]
+            out[f"program_{k}"] = dict(events_ms=statistics.median(ts))
+            print(f"[k1] {tag} program_{k}: wide_decode_program events "
+                  f"{statistics.median(ts):.4f} ms (min {min(ts):.4f}); "
+                  f"card {card}", flush=True)
+    for key, raws in (("five", small), ("trio", trio)):
+        st = batch.stage_batch_inputs([encode_bytes(r) for r in raws],
+                                      device=dev)
+        p = st["plan"]
+        wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+        kw = dict(B=p["B"], H=st["H"], steps=p["steps"],
+                  steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"])
+        one(f"k1_scan2_c01_{key}", "k1_scan2_c01",
+            lambda st=st, wmat=wmat, kw=kw: k1_scan2_c01.k1_scan2_c01(
+                wmat, st["tabs"], st["lim"], st["c01"], st["bstream"], **kw),
+            st["lim"], kw)
 
 
 if __name__ == "__main__":

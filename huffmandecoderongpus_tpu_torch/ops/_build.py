@@ -24,6 +24,7 @@ what each part costs the host.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -51,13 +52,26 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 #: in shared memory: 1023 states, two entries each
 LANEDFA_TAB_WORDS = 2048
 
+#: the card the launch plans assume for CPU tensors (H100 SXM): SMs, and an
+#: SM's shared memory, threads and registers (NVIDIA's Hopper tuning guide);
+#: a plan for CUDA tensors takes its device's own SM count (``sm_count``)
+SM_COUNT = 132
+SM_SHARED = 228 * 1024
+SM_THREADS = 2048
+SM_REGISTERS = 65536
+#: shared memory a block may take (dynamic and static), and the bytes the
+#: card reserves beside each block
+BLOCK_SHARED_MAX = 227 * 1024
+BLOCK_RESERVED = 1024
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     # wmat, tab, lim, sym, val, cntmap, exmap, mrowmap,
-    # G, steps_w, B, H, steps, steps_p, SEG, md, C0, C1, NS, stream
-    "ws_k1_scan2": [_P] * 8 + [_I] * 11 + [_P],
+    # G, steps_w, B, H, steps, steps_p, SEG, md, C0, C1, NS, T, shared,
+    # stream
+    "ws_k1_scan2": [_P] * 8 + [_I] * 13 + [_P],
     # exmap, entry, tot, gmap, goff, G, HP, start, L, NGp, stream
     "ws_k2_compose": [_P] * 5 + [_I] * 5 + [_P],
     # wmat, tab, ent, cut, cutsl, sym, val,
@@ -91,8 +105,8 @@ _SIGNATURES = {
     # bits, tab, lane_len, sym, valid, G, B, tab_words, stream
     "ws_lane_scan_indexed": [_P] * 5 + [_I] * 3 + [_P],
     # wmat, tabs, lim, c01, bstream, sym, val, cntmap, exmap, mrowmap,
-    # G, steps_w, B, H, steps, steps_p, SEG, md, stream
-    "ws_k1_scan2_c01": [_P] * 10 + [_I] * 8 + [_P],
+    # G, steps_w, B, H, steps, steps_p, SEG, md, T, shared, stream
+    "ws_k1_scan2_c01": [_P] * 10 + [_I] * 10 + [_P],
     # wmat, tabs, ent, cut, cutsl, c01, bstream, sym, val,
     # G, steps_w, steps_p, SEG, md, stream
     "ws_k3_fix2_c01": [_P] * 9 + [_I] * 5 + [_P],
@@ -218,11 +232,11 @@ def get_lib() -> ctypes.CDLL:
     return _load() if lib is None else lib
 
 
-def check(rc: int, what: str) -> None:
-    """Raise if a launcher reported a CUDA error."""
+def check(rc: int, what: str, error=RuntimeError) -> None:
+    """Raise ``error`` if a launcher reported a CUDA error."""
     if rc != 0:
         msg = get_lib().ws_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise error(f"{what}: CUDA error {rc} ({msg})")
 
 
 def stream_ptr(t) -> int:
@@ -230,6 +244,21 @@ def stream_ptr(t) -> int:
     makes it the launcher's pointer), read afresh on every call: a caller
     may switch streams or capture a graph."""
     return _current_raw_stream(t.get_device())
+
+
+def sm_count(device) -> int:
+    """SMs a launch plan for tensors on ``device`` assumes: a CUDA
+    device's own count, else ``SM_COUNT``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return SM_COUNT
+    return _sms(torch.cuda.current_device() if dev.index is None
+                else dev.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require_cuda(what: str, *tensors) -> None:

@@ -3,7 +3,9 @@
 Replaces ``huffmandecoderongpus_tpu/ops/pallas_widescan.py`` ``k1_scan2`` /
 ``_k1_kernel2`` (md >= 2 trees).  CUDA source: ``csrc/k1_scan2.cu``.  The
 batched ``c01``/``tab_bounds`` variant is ``k1_scan2_c01.py`` and
-``discover=False`` is ``k1_main.py``.
+``discover=False`` is ``k1_main.py``.  On the card each lane is walked by a
+team of threads (``csrc/widescan.cuh`` ``k1_team``, which the one-shot
+kernel runs too); ``k1_plan`` plans the launch of both K1 kernels.
 
 Every lane walks its B bits (plus an H-bit halo into the next lane) two bits
 per step through the quad table: the main chain (entry offset 0) writes the
@@ -21,6 +23,8 @@ package's logical layouts with lanes minor:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
@@ -37,12 +41,112 @@ from huffmandecoderongpus_tpu_torch.ops.quad import (
 #: kernel launches made by ``k1_scan2`` on CUDA tensors
 launches = 0
 
+#: the K1 kernels' block (``K1_THREADS``), and the blocks an SM must hold
+#: by their registers (``__launch_bounds__(K1_THREADS, MIN_BLOCKS)``: at
+#: most 128 a thread)
+THREADS = 128
+MIN_BLOCKS = 4
+#: ``k1_plan``'s two regimes: lanes of at least LONG_LANE_SEGMENTS segments
+#: on a grid that, with a thread a chain, would put more than
+#: BUSY_WARPS_PER_SM warps on each SM take the smallest team (their main
+#: chains' rows dominate, and cost more the more warps an SM issues for);
+#: every other launch gives each chain a thread of its own (the chains'
+#: rows dominate).  Chosen by measurement on an H100 SXM, 700 W (PERF.md).
+LONG_LANE_SEGMENTS = 32
+BUSY_WARPS_PER_SM = 16
+
 
 def _shapes(H, steps_p, md):
     """(CH, HP, cells_p): candidate chains (entry offsets 1..CH), map rows
     (CH + 1 rounded up to 8) and cells per lane."""
     CH = max(H - 1, 1)
     return CH, -(-(CH + 1) // 8) * 8, steps_p // md // CELL
+
+
+def seg_bits(md: int) -> int:
+    """SEG of min code length md, as ``widescan._plan`` makes it (and
+    ``csrc/widescan.cuh`` ``seg_bits``)."""
+    unroll = 4 * md
+    return unroll * max(1, 32 // unroll)
+
+
+def step_bytes(NS: int) -> int:
+    """Shared bytes of the K1 kernels' step table (``widescan.cuh``): a
+    4-byte entry a (state, 2-bit chunk), 128 states a table chunk."""
+    return NS * 128 * 4 * 4
+
+
+def team_words(CH: int, NL: int, SEGH: int) -> int:
+    """int32 words of one team's shared memory (``widescan.cuh``
+    ``team_words``): the CH chains' state (4 words each), the main chain's
+    count and exit, three main-chain slots (the bits, a state and a count a
+    row) and two leader slots (a state and a count a row and leader),
+    rounded up to 4."""
+    n = 4 * CH + 2 + 3 * (1 + 2 * SEGH) + 2 * (2 * SEGH * NL)
+    return -(-n // 4) * 4
+
+
+def team_chains(T: int, CH: int) -> list[list[int]]:
+    """The candidate chains each thread of a team of ``T`` walks, in turn
+    (``widescan.cuh`` ``k1_team``): thread 0 the main chain alone, thread
+    j >= 1 chains j - 1, j - 1 + (T - 1), ...; chains below NL are the
+    leaders, so with T >= NL + 1 each leader is its thread's first."""
+    return [[]] + [list(range(j - 1, CH, T - 1)) for j in range(1, T)]
+
+
+@functools.lru_cache(maxsize=256)
+def k1_plan(G: int, H: int, md: int, SEG: int, steps_p: int, NS: int,
+            sm_count: int = _build.SM_COUNT) -> dict:
+    """Launch plan of the K1 kernels (``k1_scan2``, and ``k1_scan2_c01``
+    with NS = 1) on a card of ``sm_count`` SMs.  Each lane has a team of
+    ``T`` threads (a power of two from 4 to 32, so teams never straddle a
+    warp), one of two sizes: the smallest that gives each of its CH
+    candidate chains a thread of its own beside the main chain's (up to
+    32), or, for lanes of at least LONG_LANE_SEGMENTS segments (steps_p /
+    SEG) whose grid at that size would put more than BUSY_WARPS_PER_SM
+    warps on each SM, the smallest that gives each of the NL leaders one
+    (T >= NL + 1, at least 4).  ``lanes`` a block of ``THREADS``,
+    ``blocks``; ``shared``: the dynamic shared bytes of a block, the step
+    table of NS table chunks (``step_bytes``) then the teams' state and
+    rings; ``per_sm``: the blocks an SM holds by threads, shared memory and
+    registers, and ``waves``: the grid's blocks over what the card holds
+    at once.  Raises ValueError for a geometry outside the kernels'
+    bounds, or a G for which G * T threads do not fill whole blocks (the
+    team body's warp votes need every thread of a warp)."""
+    CH, HP, _cells = _shapes(H, SEG, md)
+    NL = min(md, CH)
+    if (not 2 <= md <= 8 or SEG != seg_bits(md) or HP > 128
+            or not 1 <= NS <= 8 or G < 1 or steps_p % SEG):
+        raise ValueError("geometry outside the K1 kernels' bounds "
+                         "(see widescan._plan)")
+
+    def shape(T):
+        lanes = THREADS // T
+        shared = step_bytes(NS) + lanes * team_words(CH, NL, SEG // 2) * 4
+        per_sm = min(MIN_BLOCKS, _build.SM_THREADS // THREADS,
+                     _build.SM_SHARED // (shared + _build.BLOCK_RESERVED))
+        blocks = G * T // THREADS
+        return dict(T=T, lanes=lanes, blocks=blocks, threads=THREADS,
+                    shared=shared, per_sm=per_sm,
+                    waves=-(-blocks // (sm_count * per_sm)),
+                    registers=_build.SM_REGISTERS // (THREADS * MIN_BLOCKS),
+                    sm_count=sm_count)
+
+    T = 4
+    while T < 32 and T < CH + 1:
+        T *= 2
+    if (steps_p // SEG >= LONG_LANE_SEGMENTS
+            and G * T / 32 / sm_count > BUSY_WARPS_PER_SM):
+        T = 4
+        while T < NL + 1:
+            T *= 2
+    if G * T % THREADS:
+        raise ValueError(f"k1_plan: {G} lanes x {T} threads fill no whole "
+                         f"blocks of {THREADS}")
+    p = shape(T)
+    if p["shared"] > _build.BLOCK_SHARED_MAX:
+        raise ValueError(f"k1_plan: {p['shared']} shared bytes a block")
+    return p
 
 
 def k1_scan2(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1, NS):
@@ -66,12 +170,13 @@ def k1_scan2(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1, NS):
     val = torch.empty((cells_p, G), dtype=torch.uint8, device=dev)
     maps = [torch.empty((HP, G), dtype=torch.int32, device=dev)
             for _ in range(3)]
+    p = k1_plan(G, H, md, SEG, steps_p, NS, _build.sm_count(dev))
     lib = _build.get_lib()
     rc = lib.ws_k1_scan2(
         wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), sym.data_ptr(),
         val.data_ptr(), *(m.data_ptr() for m in maps),
-        G, steps_w, B, H, steps, steps_p, SEG, md, C0, C1, NS,
-        _build.stream_ptr(wmat))
+        G, steps_w, B, H, steps, steps_p, SEG, md, C0, C1, NS, p["T"],
+        p["shared"], _build.stream_ptr(wmat))
     launches += 1
     _build.check(rc, "k1_scan2")
     return (sym, val, *maps)

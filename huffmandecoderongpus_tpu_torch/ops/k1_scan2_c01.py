@@ -9,7 +9,10 @@ the tables of N streams stacked as ``tabs`` (2 * N, 128) int32 (compact
 quad tables, NS = 1), the stream of every 128-lane block in ``bstream``
 (G / 128,) int32 and every lane's root children C0 | C1 << 16 in ``c01``
 (G,) int32.  The JAX kernel selects the table per row group through its
-BlockSpec index map; here the kernel's blocks are the port's 128 lanes.
+BlockSpec index map; here each block of the kernel (``k1_plan``'s lanes, at
+most 32) lies inside one 128-lane entry of the stream map.  The compact
+table's entries hold their post-chunk states, so the step table the kernel
+builds from it does not depend on C0/C1, which it reads per lane.
 """
 
 from __future__ import annotations
@@ -17,12 +20,16 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
-from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import _shapes, k1_scan2_ref
+from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import (
+    _shapes,
+    k1_plan,
+    k1_scan2_ref,
+)
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL
 
 #: kernel launches made by ``k1_scan2_c01`` on CUDA tensors
 launches = 0
-#: lanes of one stream-map entry (the kernel's block)
+#: lanes of one stream-map entry
 BLOCK = 128
 
 
@@ -56,11 +63,12 @@ def k1_scan2_c01(wmat, tabs, lim, c01, bstream, *, B, H, steps, steps_p,
     val = torch.empty((cells_p, G), dtype=torch.uint8, device=dev)
     maps = [torch.empty((HP, G), dtype=torch.int32, device=dev)
             for _ in range(3)]
+    p = k1_plan(G, H, md, SEG, steps_p, 1, _build.sm_count(dev))
     rc = _build.get_lib().ws_k1_scan2_c01(
         wmat.data_ptr(), tabs.data_ptr(), lim.data_ptr(), c01.data_ptr(),
         bstream.data_ptr(), sym.data_ptr(), val.data_ptr(),
         *(m.data_ptr() for m in maps), G, steps_w, B, H, steps, steps_p,
-        SEG, md, _build.stream_ptr(wmat))
+        SEG, md, p["T"], p["shared"], _build.stream_ptr(wmat))
     launches += 1
     _build.check(rc, "k1_scan2_c01")
     return (sym, val, *maps)

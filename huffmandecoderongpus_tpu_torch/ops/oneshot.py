@@ -32,7 +32,22 @@ import numpy as np
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build, widescan
-from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import _shapes, k1_scan2_ref
+from huffmandecoderongpus_tpu_torch.ops._build import (
+    BLOCK_RESERVED,
+    BLOCK_SHARED_MAX,
+    SM_COUNT,
+    SM_REGISTERS,
+    SM_SHARED,
+    SM_THREADS,
+)
+from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import (
+    _shapes,
+    k1_scan2_ref,
+    seg_bits,
+    step_bytes,
+    team_chains,
+    team_words,
+)
 from huffmandecoderongpus_tpu_torch.ops.k2_compose import (
     NE,
     groups,
@@ -59,74 +74,46 @@ ONESHOT_WORKING_SET_BYTES = 10 * 1024 * 1024
 #: the kernel's phases, as split by its timer stamps (``phase_ms``)
 PHASES = ("K1", "K2 group maps", "K2 scan", "K2 apply", "K3", "K4")
 
-#: the card the plan is made for (H100 SXM): SMs, and an SM's shared
-#: memory, threads and registers (NVIDIA's Hopper tuning guide)
-SM_COUNT = 132
-SM_SHARED = 228 * 1024
-SM_THREADS = 2048
-SM_REGISTERS = 65536
-#: shared memory a block may take (dynamic and static), and the bytes the
-#: card reserves beside each block
-BLOCK_SHARED_MAX = 227 * 1024
-BLOCK_RESERVED = 1024
-#: the kernel's block, and the blocks an SM must hold by its registers
+#: the card's facts the plan uses (SM_COUNT, SM_SHARED, SM_THREADS,
+#: SM_REGISTERS, BLOCK_SHARED_MAX, BLOCK_RESERVED) are ``_build``'s; the
+#: kernel's block, and the blocks an SM must hold by its registers
 #: (``__launch_bounds__(THREADS, MIN_BLOCKS)``: at most 128 a thread)
 THREADS = 128
 MIN_BLOCKS = 4
 #: most bytes of K4's staged rows in the one-shot's last phase
 K4_STAGE_MAX = 32 * 1024
+#: cudaErrorCooperativeLaunchTooLarge: the launcher's refusal of a grid
+#: that the card cannot hold at once
+COOPERATIVE_LAUNCH_TOO_LARGE = 720
 #: the scratch arrays, in the order the launcher cuts them
 SCRATCH = ("sym", "val", "cntmap", "exmap", "mrowmap", "gmap", "goff", "tot",
            "entry")
 
 
-def step_bytes(NS: int) -> int:
-    """Shared bytes of the kernel's step table (``oneshot.cu``): a 4-byte
-    entry a (state, 2-bit chunk), 128 states a table chunk."""
-    return NS * 128 * 4 * 4
-
-
-def team_words(CH: int, NL: int, SEGH: int) -> int:
-    """int32 words of one team's shared memory (``oneshot.cu``
-    ``team_words``): the CH chains' state (4 words each), the main chain's
-    count and exit, three main-chain slots (the bits, a state and a count a
-    row) and two leader slots (a state and a count a row and leader),
-    rounded up to 4."""
-    n = 4 * CH + 2 + 3 * (1 + 2 * SEGH) + 2 * (2 * SEGH * NL)
-    return -(-n // 4) * 4
-
-
-def team_chains(T: int, CH: int) -> list[list[int]]:
-    """The candidate chains each thread of a team of ``T`` walks, in turn
-    (``oneshot.cu`` ``k1_team``): thread 0 the main chain alone, thread
-    j >= 1 chains j - 1, j - 1 + (T - 1), ...; chains below NL are the
-    leaders, so with T >= NL + 1 each leader is its thread's first."""
-    return [[]] + [list(range(j - 1, CH, T - 1)) for j in range(1, T)]
-
-
 @functools.lru_cache(maxsize=256)
 def oneshot_plan(G: int, H: int, md: int, SEG: int, steps_p: int, ORP: int,
-                 NS: int) -> dict:
-    """Launch plan of the one-shot kernel.  Each lane has a team of ``T``
-    threads (a power of two from 4 to 32, so teams never straddle a warp):
-    the smallest that gives each of its CH candidate chains a thread of its
-    own beside the main chain's, halved while the grid of G * T threads
-    would need more blocks of ``THREADS`` than ``MIN_BLOCKS`` an SM on
-    ``SM_COUNT`` SMs, and never below NL + 1 (every leader a thread).
+                 NS: int, sm_count: int = SM_COUNT) -> dict:
+    """Launch plan of the one-shot kernel on a card of ``sm_count`` SMs.
+    Each lane has a team of ``T`` threads (a power of two from 4 to 32, so
+    teams never straddle a warp): the smallest that gives each of its CH
+    candidate chains a thread of its own beside the main chain's, halved
+    while the grid of G * T threads would need more blocks of ``THREADS``
+    than ``MIN_BLOCKS`` an SM on ``sm_count`` SMs and T / 2 still gives
+    each of the NL leaders a thread of its own (T >= NL + 1).
     ``lanes`` a block (THREADS / T), ``blocks``, ``shared``: the dynamic
     shared bytes of a block (it has no static ones), the step table of NS
     table chunks (``step_bytes``), then the largest of the teams' K1 state
     and rings, K2's staged group maps and K4's staged rows (``k4``,
     ``k4_plan`` over the block's lanes) with the lanes' counts; ``per_sm``:
-    the blocks an SM
-    holds by threads, shared memory and registers, and ``fits`` whether
-    the grid is co-resident.  ``offsets``/``scratch_bytes``: the scratch
-    buffer's cut (``SCRATCH``, each 256-byte aligned).  Raises ValueError
-    for a geometry outside the kernel's bounds."""
+    the blocks an SM holds by threads, shared memory and registers, and
+    ``fits`` whether the grid is co-resident on ``sm_count`` SMs (a grid
+    that is not cannot launch: ``decode_oneshot_staged`` then raises
+    EnvelopeError).  ``offsets``/``scratch_bytes``: the scratch buffer's
+    cut (``SCRATCH``, each 256-byte aligned).  Raises ValueError for a
+    geometry outside the kernel's bounds."""
     CH, HP, cells_p = _shapes(H, steps_p, md)
     NL = min(md, CH)
-    unroll = 4 * md
-    if (SEG != unroll * max(1, 32 // unroll) or not 2 <= md <= 8
+    if (SEG != seg_bits(md) or not 2 <= md <= 8
             or HP > NE or steps_p % SEG or G % 128 or ORP % 128
             or not 1 <= NS <= 8):
         raise ValueError("geometry outside the one-shot kernel's bounds "
@@ -134,10 +121,9 @@ def oneshot_plan(G: int, H: int, md: int, SEG: int, steps_p: int, ORP: int,
     T = 4
     while T < 32 and T < CH + 1:
         T *= 2
-    while T > 4 and G * T // THREADS > SM_COUNT * MIN_BLOCKS:
+    while (T // 2 >= max(4, NL + 1)
+           and G * T // THREADS > sm_count * MIN_BLOCKS):
         T //= 2
-    if T < NL + 1:
-        raise ValueError(f"oneshot_plan: {T} threads a lane for {NL} leaders")
     lanes = THREADS // T
     L, NGp = groups(G)
     k1 = lanes * team_words(CH, NL, SEG // 2) * 4
@@ -156,8 +142,8 @@ def oneshot_plan(G: int, H: int, md: int, SEG: int, steps_p: int, ORP: int,
         offsets.append(end)
         end = -(-(end + sizes[name]) // 256) * 256
     return dict(T=T, lanes=lanes, blocks=blocks, threads=THREADS,
-                shared=shared, per_sm=per_sm,
-                fits=blocks <= SM_COUNT * per_sm,
+                shared=shared, per_sm=per_sm, sm_count=sm_count,
+                fits=blocks <= sm_count * per_sm,
                 registers=SM_REGISTERS // (THREADS * MIN_BLOCKS), k4=k4,
                 L=L, NGp=NGp, offsets=tuple(offsets), scratch_bytes=end,
                 c_offsets=(ctypes.c_longlong * len(offsets))(*offsets))
@@ -192,6 +178,10 @@ def oneshot_eligible(st) -> bool:
     return words * 4 <= ONESHOT_WORKING_SET_BYTES
 
 
+class CoresidencyError(RuntimeError):
+    """The launcher refused a grid that the card cannot hold at once."""
+
+
 def program_args(st: dict) -> dict:
     """Keyword arguments of oneshot_program for a staged stream."""
     args = widescan.program_args(st)
@@ -208,7 +198,9 @@ def oneshot_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md, C0,
     wider than a lane.  CPU tensors run the plain version; CUDA tensors
     launch the kernel, which writes its device clock at each phase
     boundary into ``stamps`` (a (len(PHASES) + 1,) int64 CUDA tensor) when
-    one is given (see ``phase_ms``)."""
+    one is given (see ``phase_ms``).  A grid the card cannot hold at once
+    is refused by the launcher, without launching, as CoresidencyError (a
+    RuntimeError)."""
     G, BW = words.shape
     if -(-steps_p // 32) - BW > BW:
         raise EnvelopeError("halo wider than a lane (steps_w - BW > BW): "
@@ -225,9 +217,9 @@ def oneshot_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md, C0,
     if BW * 32 != B or NS > 8:
         raise ValueError("geometry outside the one-shot kernel's bounds "
                          "(see oneshot_eligible)")
-    p = oneshot_plan(G, H, md, SEG, steps_p, ORP, NS)
-    k4 = p["k4"]
     dev = words.device
+    p = oneshot_plan(G, H, md, SEG, steps_p, ORP, NS, _build.sm_count(dev))
+    k4 = p["k4"]
     denseT = torch.empty((G, ORP), dtype=torch.uint8, device=dev)
     n = torch.empty(G, dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
@@ -241,7 +233,8 @@ def oneshot_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md, C0,
         p["NGp"], p["T"], k4["lanes"], k4["vec"], k4["chunks"],
         k4["window"], p["shared"], _build.stream_ptr(words))
     launches += 1
-    _build.check(rc, "oneshot")
+    _build.check(rc, "oneshot", CoresidencyError
+                 if rc == COOPERATIVE_LAUNCH_TOO_LARGE else RuntimeError)
     return denseT, n, total
 
 
@@ -288,11 +281,23 @@ def decode_oneshot(hf, *, device, lanes=None, check_size=True) -> np.ndarray:
 def decode_oneshot_staged(hf, st, *, check_size=True) -> np.ndarray:
     """One-shot decode of an already staged stream (the router in
     ``widescan.decode_widescan`` calls this to avoid staging twice).
-    Raises EnvelopeError when a lane overflows its dense row, and
-    RuntimeError when the size disagrees with the header."""
-    ORP = st["plan"]["ORP"]
-    denseT, n, _total = oneshot_program(st["words"], st["tab"], st["lim"],
-                                        **program_args(st))
+    Raises EnvelopeError when the launch's grid is not co-resident on the
+    card (by the plan for its SM count, or by the launcher's refusal) or a
+    lane overflows its dense row, and RuntimeError when the size disagrees
+    with the header."""
+    p = st["plan"]
+    ORP = p["ORP"]
+    sms = _build.sm_count(st["words"].device)
+    plan = oneshot_plan(p["G"], st["H"], st["md"], p["SEG"], p["steps_p"],
+                        ORP, st["NS"], sms)
+    if not plan["fits"]:
+        raise EnvelopeError(f"the one-shot grid of {plan['blocks']} blocks "
+                            f"is not co-resident on {sms} SMs")
+    try:
+        denseT, n, _total = oneshot_program(st["words"], st["tab"],
+                                            st["lim"], **program_args(st))
+    except CoresidencyError as e:
+        raise EnvelopeError(str(e)) from e
     if int(n.max()) > ORP:
         raise EnvelopeError("a lane overflowed the dense buffer")
     mask = torch.arange(ORP, device=n.device)[None, :] < n[:, None]

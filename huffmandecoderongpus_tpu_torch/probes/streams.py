@@ -165,6 +165,75 @@ def oneshot_case(case, device):
     return raw, ws.stage_widescan_inputs(hf, device=device)
 
 
+#: K1's edge cases (``k1_case``): md 2 at the plan's smallest G (512); 256
+#: symbols (md 6, two table chunks) at G = 16,384; md 8 (H 8: seven
+#: leaders, no follower); one candidate chain (H 2); a tree 128 tall (CH
+#: 127, several followers a thread) at the plan's G and at G = 4,096, where
+#: its 128-bit halo spans the next two 64-bit lanes (word rows to the end
+#: of the word matrix); lanes past the stream end (lim <= 0); (d)'s blank
+#: run at a smaller size (chains live for many segments); and a batch whose
+#: streams end in pad lanes (``k1_scan2_c01``, each stream on its table)
+K1_CASES = ("text-512", "alpha-16384", "md8", "h2", "tall128",
+            "tall128-4096", "tail-4096", "blank", "batch-pad")
+#: the blank-run case: text bytes, and the run of its most frequent byte
+BLANK_BYTES, BLANK_RUN = 400_000, (150_000, 190_000)
+
+
+def k1_case(case, device):
+    """(kernel, inputs, kw, hfs) of one of K1_CASES, drawn from seed 31:
+    the K1 wrapper that takes it ("k1_scan2", or "k1_scan2_c01" for the
+    batch), its tensors on ``device`` in the wrapper's order, its keyword
+    arguments and the streams (a list of HuffFiles)."""
+    from huffmandecoderongpus_tpu_torch.ops import batch
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    rng = np.random.default_rng(31)
+    if case == "batch-pad":
+        hfs = [encode_bytes(text_like(rng, n, k))
+               for n, k in ((9000, 84), (30000, 40), (300, 12))]
+        st = batch.stage_batch_inputs(hfs, device=device)
+        p = st["plan"]
+        wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+        kw = dict(B=p["B"], H=st["H"], steps=p["steps"],
+                  steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"])
+        return ("k1_scan2_c01",
+                (wmat, st["tabs"], st["lim"], st["c01"], st["bstream"]), kw,
+                hfs)
+    G = None
+    if case == "text-512":
+        hf = encode_bytes(text_like(rng, 200_000))
+    elif case == "alpha-16384":
+        w = rng.random(256) ** 3 + 1e-4
+        hf = encode_bytes(rng.choice(np.arange(256, dtype=np.uint8),
+                                     size=60_000, p=w / w.sum())
+                          .astype(np.uint8))
+        G = 16384
+    elif case in ("md8", "h2"):
+        hf = encode_bytes(rng.integers(0, 256 if case == "md8" else 4,
+                                       40_000).astype(np.uint8))
+    elif case.startswith("tall128"):
+        _raw, hf = forked_comb_stream(128, 60000, deep=50)
+        G = 4096 if case.endswith("4096") else None
+    elif case == "tail-4096":
+        hf = encode_bytes(text_like(rng, 20_000))
+        G = 4096
+    else:  # blank
+        raw = text_like(rng, BLANK_BYTES)
+        raw[slice(*BLANK_RUN)] = np.bincount(raw).argmax()
+        hf = encode_bytes(raw)
+    if G is not None:
+        st = staging_at(hf, G, device)
+    else:
+        st = ws.stage_widescan_inputs(
+            hf, device=device, lanes=512 if case == "text-512" else None)
+    p = st["plan"]
+    wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+    kw = dict(B=p["B"], H=st["H"], steps=p["steps"], steps_p=p["steps_p"],
+              SEG=p["SEG"], md=st["md"], C0=st["C0"], C1=st["C1"],
+              NS=st["NS"])
+    return "k1_scan2", (wmat, st["tab"], st["lim"]), kw, [hf]
+
+
 #: K4's edge cases (``k4_cells``): (G, cells_p, ORP, fill, offset of the
 #: views in elements): one lane, three, a tail block of 4 lanes (100), the
 #: standalone path's width, lanes past ORP, no valid slot, views at an

@@ -313,6 +313,87 @@ def test_oneshot_edges_match_plain(cuda, case):
     assert int(total) == raw.size
 
 
+@pytest.mark.parametrize("case", ps.K1_CASES)
+def test_k1_edges_match_plain(cuda, case):
+    # the team K1 in the four-kernel program at its edges: md 2 at G 512,
+    # md 6 with two table chunks at G 16,384, seven leaders, one candidate
+    # chain, a 128-tall tree (and its halo past the next lane), lanes past
+    # the stream end, a blank run, and the batch's per-stream tables
+    kernel, inputs, kw, _hfs = ps.k1_case(case, cuda)
+    mod = k1_scan2 if kernel == "k1_scan2" else k1_scan2_c01
+    got, ran = _launched(lambda: getattr(mod, kernel)(*inputs, **kw))
+    assert ran == {kernel: 1}
+    want = getattr(mod, kernel + "_ref")(*inputs, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _tall_stream():
+    # 256 skewed symbols, 17 tall: 16 candidate chains, teams of 32
+    rng = np.random.default_rng(0)
+    w = rng.random(256) ** 6 + 1e-5
+    raw = rng.choice(np.arange(256, dtype=np.uint8), size=100000,
+                     p=w / w.sum()).astype(np.uint8)
+    return raw, encode_bytes(raw)
+
+
+@pytest.mark.parametrize("sms", [60, 10_000])
+def test_router_falls_through_off_the_card(cuda, sms, monkeypatch):
+    # a one-shot grid the card cannot hold decodes through the four-kernel
+    # program: planned for 60 SMs it does not fit (EnvelopeError before any
+    # launch); planned for 10,000 the plan's 1,024 blocks of teams of 32
+    # fit on paper, and the card's launcher refuses them (EnvelopeError)
+    raw, hf = make("ns2") if sms == 60 else _tall_stream()
+    st = widescan.stage_widescan_inputs(hf, device=cuda, lanes=4096)
+    assert oneshot.oneshot_eligible(st) and hf.bits < widescan.ONESHOT_MAX_BITS
+    monkeypatch.setattr(_build, "sm_count", lambda device: sms)
+    out, ran = _launched(lambda: widescan.decode_widescan(hf, device=cuda,
+                                                          lanes=4096))
+    four = dict.fromkeys(("k1_scan2", "k2_compose", "k3_fix2", "k4_compact"),
+                         1)
+    assert ran == (four if sms == 60 else dict(four, oneshot=1))
+    np.testing.assert_array_equal(out, raw)
+
+
+def test_k1_launchers_refuse_other_plans(cuda):
+    # a K1 plan outside the launchers' rules is refused, nothing launched
+    lib = _build.get_lib()
+    G, H, md, SEG, NS, B = 512, 9, 2, 32, 1, 32
+    steps, steps_p = B + H, 64
+    wmat = torch.zeros((2, G), dtype=torch.int32, device=cuda)
+    tab = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    lim = torch.full((G,), 32, dtype=torch.int32, device=cuda)
+    c01 = torch.zeros(G, dtype=torch.int32, device=cuda)
+    bstream = torch.zeros(G // 128, dtype=torch.int32, device=cuda)
+    sym = torch.empty((4, G), dtype=torch.int32, device=cuda)
+    val = torch.empty((4, G), dtype=torch.uint8, device=cuda)
+    maps = [torch.empty((16, G), dtype=torch.int32, device=cuda)
+            for _ in range(3)]
+    p = k1_scan2.k1_plan(G, H, md, SEG, steps_p, NS)
+    outs = (sym.data_ptr(), val.data_ptr(), *(m.data_ptr() for m in maps))
+
+    def k1(G=G, SEG=SEG, T=p["T"], shared=p["shared"]):
+        return lib.ws_k1_scan2(
+            wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), *outs, G, 2, B,
+            H, steps, steps_p, SEG, md, 1, 2, NS, T, shared,
+            _build.stream_ptr(wmat))
+
+    def c1(G=G, T=p["T"], shared=p["shared"]):
+        return lib.ws_k1_scan2_c01(
+            wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), c01.data_ptr(),
+            bstream.data_ptr(), *outs, G, 2, B, H, steps, steps_p, SEG, md,
+            T, shared, _build.stream_ptr(wmat))
+
+    assert k1() == 0 and c1() == 0
+    for bad in (dict(T=2), dict(T=12), dict(T=64), dict(shared=16),
+                dict(shared=p["shared"] + 8), dict(shared=228 * 1024),
+                dict(G=100), dict(SEG=24)):
+        if "SEG" not in bad:
+            assert c1(**bad) != 0, bad
+        assert k1(**bad) != 0, bad
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("case", ps.K4_CASES)
 def test_k4_edges_match_plain(cuda, case):
     G, cells_p, ORP, _fill, off = case

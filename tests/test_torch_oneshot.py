@@ -26,7 +26,7 @@ from huffmandecoderongpus_tpu.ops import pallas_oneshot as jons
 from huffmandecoderongpus_tpu.ops import pallas_widescan as jws
 from huffmandecoderongpus_tpu_torch.models import get_decoder
 from huffmandecoderongpus_tpu_torch.models import lanedfa as registry
-from huffmandecoderongpus_tpu_torch.ops import oneshot, widescan
+from huffmandecoderongpus_tpu_torch.ops import _build, oneshot, widescan
 from huffmandecoderongpus_tpu_torch.ops.lanedfa import EnvelopeError
 from torch_streams import as_numpy, make
 
@@ -231,6 +231,49 @@ def test_router_skips_md1(name, monkeypatch):
     calls = _spy(monkeypatch, oneshot, "decode_oneshot_staged")
     out = widescan.decode_widescan(hf, device="cpu", oneshot=True)
     assert calls == []
+    np.testing.assert_array_equal(out, raw)
+
+
+def _plan_of(st, sms):
+    p = st["plan"]
+    return oneshot.oneshot_plan(p["G"], st["H"], st["md"], p["SEG"],
+                                p["steps_p"], p["ORP"], st["NS"], sms)
+
+
+def test_plan_takes_the_sm_count():
+    # a G = 4,096 stream with six leaders: planned for 132 SMs its teams of
+    # 16 make 512 blocks, more than an H100 PCIe's 114 SMs hold at 4 an SM
+    # (the launch the port used to make there, and have refused); planned
+    # for 114 the team halves to 8 (still a thread a leader) and fits
+    _, hf = make("ns2")
+    st = widescan.stage_widescan_inputs(hf, device="cpu", lanes=4096)
+    assert st["plan"]["G"] == 4096 and st["md"] == 6
+    sxm, pcie = _plan_of(st, 132), _plan_of(st, 114)
+    assert (sxm["T"], sxm["blocks"], sxm["fits"]) == (16, 512, True)
+    assert sxm["blocks"] > 114 * sxm["per_sm"]
+    assert (pcie["T"], pcie["blocks"], pcie["fits"]) == (8, 256, True)
+    # below the smallest team's grid no plan fits
+    assert not _plan_of(st, 60)["fits"]
+
+
+@pytest.mark.parametrize("sms", [114, 60])
+def test_router_follows_the_plans_fit(sms, monkeypatch):
+    # the router plans for the card's SMs (SM_COUNT on the CPU): at 114 the
+    # one-shot takes the stream; at 60 its grid does not fit, the one-shot
+    # refuses it (EnvelopeError) and the four-kernel program decodes it
+    raw, hf = make("ns2")
+    monkeypatch.setattr(_build, "SM_COUNT", sms)
+    calls = _spy(monkeypatch, oneshot, "decode_oneshot_staged")
+    launched = _spy(monkeypatch, oneshot, "oneshot_program")
+    four = _spy(monkeypatch, widescan, "wide_decode_program")
+    out = widescan.decode_widescan(hf, device="cpu", lanes=4096)
+    if sms == 114:
+        assert calls == ["decode_oneshot_staged"]
+        assert launched == ["oneshot_program"] and four == []
+    else:
+        assert calls == ["decode_oneshot_staged",
+                         "decode_oneshot_staged raised"]
+        assert launched == [] and four == ["wide_decode_program"]
     np.testing.assert_array_equal(out, raw)
 
 
