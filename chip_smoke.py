@@ -42,8 +42,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               trimmed), k1_scan/K2/k3_fix/K4 on (c), with K1's plan, its
               own time on the card (profiler) and its chain floor (the
               longest lane's chunks x CHAIN_CYCLES_A_ROW) on (a), (b), (d)
-              ([k1] lines) and K4's own time on the card against its bytes
-              bound ([k4] lines), both K1 kernels also at their edges
+              ([k1] lines), K2's card time and kernel launches a call
+              beside its bytes bound and the launch floor (P1's card time)
+              on (a)-(d) and both batches ([k2] lines) and K4's own time
+              on the card against its bytes bound ([k4] lines), both K1
+              kernels also at their edges
               (probes.streams.K1_CASES: md 2 at G 512, md 6 with two table
               chunks at G 16,384, md 8, one candidate chain, a 128-tall
               tree at two G, lanes past the stream end, a blank run, a
@@ -63,9 +66,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               tree 128 tall, the envelope-edge stream, G = 128 and 4,096),
               the encoder's E1/E2/E3 on the
               staging of (a), (b), (c), (e) and (f); K1's main scan
-              (k1_main) and K4 on the indexed (a), (b) and (i), the
+              (k1_main) and K4 on the indexed (a), (b) and (i) (a [k1]
+              line each: card ms, plan, chain floor), k1_main also at its
+              edges (probes.streams.K1_MAIN_CASES: every block ending on
+              the last bit of steps_p beside pad lanes, one lane, md 3, 5
+              and 7, NS 2 and 8) and K2 at the edges of its tiles
+              (K2_CASES: one lane, part tiles, HP 128 from start 127,
+              entries past HP, 65 tiles, merged maps), the
               indexed lane scan on the indexed (a) and (c); the batched
-              K1/K3 (k1_scan2_c01, k3_fix2_c01) and K4 on the five small
+              K1/K3 (k1_scan2_c01, k3_fix2_c01), K2 and K4 on the five small
               streams and on (f), (g) and the book2-sized one (a [k1]
               line each); the
               self-synchronizing
@@ -325,9 +334,9 @@ COMPACT_PATH = ("candidate_scan", "lane_scan", "compact")
 #: the kernels get_decoder("lane_oneshot") must launch, once each
 ONESHOT_PATHS = {"c": MD1_PATH, **{k: ("oneshot",) for k in ONESHOT}}
 
-#: device function names of each kernel (K2 is three launches)
+#: device function names of each kernel
 DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
-                  "k2_compose": ("k2_groups", "k2_scan", "k2_apply"),
+                  "k2_compose": ("k2_compose_kernel",),
                   "k3_fix2": ("k3_fix2_kernel",),
                   "k4_compact": ("k4_compact_kernel",),
                   "k1_scan": ("k1_scan_kernel",),
@@ -507,6 +516,7 @@ def check_kernels(torch, name, raw, hf, dev, decodes=True):
                           lambda: k2_compose.k2_compose(exmap, 0),
                           lambda: k2_compose.k2_compose_ref(exmap, 0),
                           (exmap,))
+    k2_line(torch, name, lambda: k2_compose.k2_compose(exmap, 0), exmap, rows)
     cut, cut_slot = ws.fix_rows(entry, mrowmap, st["lim"], st["H"], st["md"])
     # K3 splices in place and is idempotent on its own output, so repeated
     # timing runs on one copy do the same work
@@ -574,6 +584,124 @@ def k1_line(torch, name, kname, kernel, lim, kw, rows):
           f"shared {plan['shared']} on {plan['sm_count']} SMs; G="
           f"{lim.shape[0]} H={kw['H']} md={kw['md']} NS={kw.get('NS', 1)}",
           flush=True)
+
+
+_launch_floor = []
+
+
+def launch_floor_ms(torch, dev):
+    """The card time of one launch of P1 (``probe_inc`` on an (8, 128)
+    int32 tensor, profiler), measured once a run: the least a kernel
+    launch takes on the card (None: not measured)."""
+    from huffmandecoderongpus_tpu_torch.ops import probe_inc
+
+    if not _launch_floor:
+        x = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+        _launch_floor.append(device_breakdown(
+            torch, lambda: probe_inc.probe_inc(x), per_launch=True,
+            symbols={"probe_inc": ("probe_inc_kernel",)}).get("probe_inc"))
+    return _launch_floor[0]
+
+
+def k2_line(torch, name, kernel, exmap, rows):
+    """A [k2] line for one K2 call (``kernel()`` on the (HP, G) maps
+    ``exmap``): its card time a launch and kernel launches a call
+    (profiler), its events time, its plan, and beside its bytes bound the
+    launch floor (``launch_floor_ms``), which a bound under a microsecond
+    says nothing without.  The card time a launch goes into
+    rows["k2_compose"] as device_ms, the launches as kernels_a_call."""
+    from huffmandecoderongpus_tpu_torch.ops import _build
+    from huffmandecoderongpus_tpu_torch.ops.k2_compose import k2_plan
+
+    HP, G = exmap.shape
+    floor = launch_floor_ms(torch, exmap.device)
+    plan = k2_plan(G, HP, _build.sm_count(exmap.device))
+    times, launches = device_breakdown(torch, kernel, per_launch=True,
+                                       counts=True)
+    card_ms, per_call = times.get("k2_compose"), launches.get("k2_compose")
+    row = rows["k2_compose"]
+    row["device_ms"], row["kernels_a_call"] = card_ms, per_call
+    card = ("not measured" if card_ms is None else
+            f"{card_ms:.4f} ms a launch")
+    calls = "not measured" if per_call is None else per_call
+    print(f"[k2] {name}: card {card}, {calls} kernel launches a call; "
+          f"events {row['ms']:.4f} ms; bytes bound "
+          f"{row['bound_ms']:.6f} ms, launch floor "
+          f"{'not measured' if floor is None else f'{floor:.5f} ms'}; "
+          f"plan tile {plan['tile']} sub {plan['sub']} threads "
+          f"{plan['threads']} tiles {plan['tiles']} waves {plan['waves']} "
+          f"shared {plan['shared']}; G={G} HP={HP}", flush=True)
+
+
+def k1_main_line(torch, name, kernel, lim, kw, rows):
+    """A [k1] line for one k1_main launch (``kernel()`` on lanes of limits
+    ``lim``, keyword arguments ``kw``): its plan, its card time (profiler,
+    the mean a launch), events time and the chain floor (the longest
+    lane's 2-bit chunks x CHAIN_CYCLES_A_ROW at the maximum SM clock).
+    The card time goes into rows["k1_main"] as device_ms."""
+    from huffmandecoderongpus_tpu_torch.ops import _build
+    from huffmandecoderongpus_tpu_torch.ops.k1_main import k1_main_plan
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    G = lim.shape[0]
+    plan = k1_main_plan(G, kw["md"], kw["NS"], kw["steps_p"],
+                        _build.sm_count(lim.device))
+    card_ms = device_breakdown(torch, kernel, per_launch=True).get("k1_main")
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6
+    chunks = min(int(lim.max()), kw["steps_p"]) // 2
+    floor_ms = chunks * CHAIN_CYCLES_A_ROW / clock * 1e3
+    rows["k1_main"]["device_ms"] = card_ms
+    card = ("not measured" if card_ms is None else
+            f"{card_ms:.4f} ms (profiler), {card_ms / floor_ms:.1f} times "
+            "the floor")
+    print(f"[k1] {name}: k1_main card {card}; events "
+          f"{rows['k1_main']['ms']:.4f} ms; chain floor {floor_ms:.4f} ms "
+          f"({chunks} chunks x {CHAIN_CYCLES_A_ROW} cycles at "
+          f"{clock / 1e6:.0f} MHz); plan threads {plan['threads']} blocks "
+          f"{plan['blocks']} waves {plan['waves']} shared {plan['shared']} "
+          f"on {plan['sm_count']} SMs; G={G} md={kw['md']} NS={kw['NS']} "
+          f"steps_p={kw['steps_p']}", flush=True)
+
+
+def check_k1_main_cases(torch, dev):
+    """Phase 3, K1's main scan at its edge cases
+    (``probes.streams.K1_MAIN_CASES``: every block ending on the last bit
+    of steps_p beside pad lanes, one lane, text at 512 symbols a block, md
+    3, 5 and 7, NS 2 and 8) against its plain version.  Returns {case:
+    rows}, as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import k1_main
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.K1_MAIN_CASES:
+        inputs, kw, _hf = ps.k1_main_case(case, dev)
+        what = f"k1_main {case}"
+        print(f"[kernels] {what}: G={inputs[0].shape[1]} {kw}", flush=True)
+        rows = out[what] = {}
+        comparer(torch, what, rows)(
+            "k1_main", lambda: k1_main.k1_main(*inputs, **kw),
+            lambda: k1_main.k1_main_ref(*inputs, **kw), inputs)
+    return out
+
+
+def check_k2_cases(torch, dev):
+    """Phase 3, K2 at the edges of its tiles (``probes.streams.K2_CASES``:
+    one lane, part tiles, HP 128 from start 127, entries past HP, 65
+    tiles, merged maps) against its plain version.  Returns {case: rows},
+    as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import k2_compose
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.K2_CASES:
+        G, HP, start, values = case
+        ex = ps.k2_exmap(case, dev)
+        what = f"k2 G={G} HP={HP} start {start} {values}"
+        rows = out[what] = {}
+        comparer(torch, what, rows)(
+            "k2_compose", lambda: k2_compose.k2_compose(ex, start),
+            lambda: k2_compose.k2_compose_ref(ex, start), (ex,))
+    return out
 
 
 def check_k1_cases(torch, dev):
@@ -873,6 +1001,8 @@ def check_indexed(torch, name, raw, hf, dev):
         "k1_main", lambda: k1_main.k1_main(wmat, st["tab"], st["lim"], **kw),
         lambda: k1_main.k1_main_ref(wmat, st["tab"], st["lim"], **kw),
         (wmat, st["tab"], st["lim"]))
+    k1_main_line(torch, name, lambda: k1_main.k1_main(
+        wmat, st["tab"], st["lim"], **kw), st["lim"], kw, rows)
     (denseT,) = comparer(torch, name, rows)(
         "k4_compact", lambda: k4_compact.k4_compact(sym, val, ORP=p["ORP"]),
         lambda: k4_compact.k4_compact_ref(sym, val, ORP=p["ORP"]),
@@ -1080,7 +1210,11 @@ def check_batch(torch, name, raws, hfs, dev):
     k1_line(torch, name, "k1_scan2_c01", lambda: k1_scan2_c01.k1_scan2_c01(
         wmat, tabs, st["lim"], c01, bs, **k1a), st["lim"], k1a, rows)
     exmap[:, list(st["last_live"])] = 0
-    entry, _tot = k2_compose.k2_compose(exmap, 0)
+    entry, _tot = compare("k2_compose",
+                          lambda: k2_compose.k2_compose(exmap, 0),
+                          lambda: k2_compose.k2_compose_ref(exmap, 0),
+                          (exmap,))
+    k2_line(torch, name, lambda: k2_compose.k2_compose(exmap, 0), exmap, rows)
     cut, cut_slot = ws.fix_rows(entry, mrowmap, st["lim"], H, md)
     kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=md)
     s_k, v_k = sym.clone(), val.clone()
@@ -1103,8 +1237,8 @@ def check_batch(torch, name, raws, hfs, dev):
         if not np.array_equal(denseT[g0:g0 + gk][mask[g0:g0 + gk]].cpu()
                               .numpy(), raw):
             raise AssertionError(f"{name}: member {k} decoded wrong")
-    print(f"[kernels] {name}: k1_scan2_c01, k3_fix2_c01 and K4 bit-exact; "
-          "every member decoded", flush=True)
+    print(f"[kernels] {name}: k1_scan2_c01, K2, k3_fix2_c01 and K4 "
+          "bit-exact; every member decoded", flush=True)
     return rows
 
 
@@ -1385,6 +1519,8 @@ def main() -> int:
         checked[k] = check_oneshot(torch, *hfs[k], dev)
     checked.update(check_oneshot_cases(torch, dev))
     checked.update(check_k1_cases(torch, dev))
+    checked.update(check_k1_main_cases(torch, dev))
+    checked.update(check_k2_cases(torch, dev))
     for k in ENCODE_CHECKED:
         checked.setdefault(k, {}).update(check_encoder(torch, *hfs[k], dev))
     for k in INDEXED:
@@ -2066,21 +2202,27 @@ def time_oneshot(torch, ws, oneshot, name, raw, hf, dev, card):
 PROFILER_TRIES = 3
 
 
-def device_breakdown(torch, fn, runs=5, ops_by_name=False, per_launch=False):
+def device_breakdown(torch, fn, runs=5, ops_by_name=False, per_launch=False,
+                     counts=False, symbols=None):
     """Device time per call of ``fn`` (ms) by kernel, from torch.profiler:
-    the port's kernels by name, everything else (the torch ops around them)
-    together, or with ``ops_by_name`` each under its own kernel name.  Each
-    session follows a one-call session that is thrown away (it takes any
-    records a session before left late).  A session that saw no device
-    time, or a kernel a number of times that is not a multiple of the runs,
-    is taken again, up to PROFILER_TRIES sessions; if none was whole,
-    returns {} and says so (the callers then print "not measured": no
-    other clock stands in for the card's).  With ``per_launch`` each value
-    is instead the mean time of one launch of that kernel over the launches
-    a session recorded, which a lost or late record does not bias: the
-    time a call of a ``fn`` that launches one kernel once."""
+    the port's kernels by name (``symbols``, default DEVICE_SYMBOLS: a
+    key and the device names that count under it), everything else (the
+    torch ops around them) together, or with ``ops_by_name`` each under its
+    own kernel name.  Each session follows a one-call session that is
+    thrown away (it takes any records a session before left late).  A
+    session that saw no device time, or a kernel a number of times that is
+    not a multiple of the runs, is taken again, up to PROFILER_TRIES
+    sessions; if none was whole, returns {} and says so (the callers then
+    print "not measured": no other clock stands in for the card's).  With
+    ``per_launch`` each value is instead the mean time of one launch of
+    that kernel over the launches a session recorded, which a lost or late
+    record does not bias: the time a call of a ``fn`` that launches one
+    kernel once.  With ``counts`` it returns (times, launches): each key's
+    kernel launches a call, from a whole session only (({}, {}) if none
+    was whole)."""
     from torch.profiler import ProfilerActivity, profile
 
+    symbols = symbols or DEVICE_SYMBOLS
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILER_TRIES):
@@ -2096,17 +2238,20 @@ def device_breakdown(torch, fn, runs=5, ops_by_name=False, per_launch=False):
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             whole = whole and e.count % runs == 0
-            key = next((k for k, syms in DEVICE_SYMBOLS.items()
+            key = next((k for k, syms in symbols.items()
                         if any(sym in e.key for sym in syms)),
                        e.key[:60] if ops_by_name else "torch ops")
             out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3
             count[key] = count.get(key, 0) + e.count
-        if out and (whole or per_launch):
-            return {k: v / (count[k] if per_launch else runs)
-                    for k, v in out.items()}
+        if out and (whole or (per_launch and not counts)):
+            times = {k: v / (count[k] if per_launch else runs)
+                     for k, v in out.items()}
+            if not counts:
+                return times
+            return times, {k: n // runs for k, n in count.items()}
     print(f"[profiler] no whole record in {PROFILER_TRIES} sessions: not "
           "measured", flush=True)
-    return {}
+    return ({}, {}) if counts else {}
 
 
 if __name__ == "__main__":

@@ -6,16 +6,31 @@
 // chain runs: no candidate chains, no maps, no exit.  The TPU kernel walks
 // SEG-bit segments as a sequential grid dimension, SEG = lcm(4*md, 32) (96
 // for md 3 and 6, 160 for md 5, 224 for md 7), carrying the lane state in
-// scratch; here one thread owns one lane and walks it one cell (4*md bits,
-// 2*md chunks) at a time, so the segment length does not appear at all and
-// K1's SEG <= 32 bound (k1_scan2.cu) does not apply.  A chunk at or past
-// the lane's limit reads entry 0: no emission, the root as its state.  A
-// lane stops walking at its limit and zeroes the rest of its cells.
+// scratch.  Here one thread owns one lane and walks it by the segments of
+// the team body (widescan.cuh Seg<MD>: 32 bits for md 2, 4 and 8, 24 for 3
+// and 6, 20 for 5, 28 for 7), which divide the indexed SEG, so no lane ends
+// in part of a segment of its own.  The walk is k1_team's "main chains go on
+// alone" loop without the team: the step table in shared memory (state as
+// a byte offset: lookup, one LOP3, lookup; C0/C1 baked into the wide
+// layout's entries), main_fast for a segment wholly below the lane's limit,
+// team_walk's main-chain body for the segment that holds it (a chunk at or
+// past the limit reads entry 0: no emission, the root as its state), and
+// zero cells past it; each segment's bits loaded a segment ahead
+// (segment_bits on the word matrix, which has no halo rows: words past it
+// read 0).  The body is templated on md (with_md).  The main chain's exit
+// row is set past every row (NO_EXIT), so no emission is ever cut.
 //
-// What bounds it on the H100: a dependent chain of shared-memory table
-// lookups per lane (latency): steps_p / 2 chunk steps for the longest
-// block, one thread a lane, G / 128 blocks of 128 threads.  Word reads
-// (lane-minor rows) and cell writes are coalesced across a warp.
+// The plan (ops/k1_main.py k1_main_plan) gives a block 128 threads: on an
+// H100 that beat or tied 64 and 32, within 8 % (PERF.md), though they
+// spread the indexed (a)'s lanes over all 132 SMs where 128 fill 88: their
+// blocks stage the step table with fewer threads.  The launcher refuses
+// any other plan (k1_main_plan_ok).  The step table takes at most 16 KB
+// (NS 8), under the 48 KB a block has without opting in.
+//
+// What bounds it on the H100: each lane's chain of dependent step-table
+// lookups, one a 2-bit chunk (the chain floor: the longest lane's chunks x
+// about 40 cycles).  Word reads (lane-minor rows, a segment ahead) and cell
+// writes are coalesced across a warp.
 
 #include "widescan.cuh"
 
@@ -23,46 +38,54 @@ using namespace ws;
 
 namespace {
 
+// an exit row no lane reaches: the indexed lanes have none
+constexpr int NO_EXIT = 1 << 30;
+
+template <int MD>
+__device__ __forceinline__ void k1_main_lane(const K1Args& a,
+                                             const WmatWords& words, int lim,
+                                             const int32_t* step, int g) {
+  using SG = Seg<MD>;
+  const int S = a.steps_p / SG::SEG;
+  Chain m{0, 0, 0, 0};
+  uint32_t next = segment_bits(words, 0, S, SG::SEG, g);
+  for (int seg = 0; seg < S; ++seg) {
+    const uint32_t bits = next;
+    const int base = seg * SG::SEG;
+    if (lim <= base) {  // the block ended before this segment
+      zero_cells(a, seg, SG::CELLS, g);
+      continue;
+    }
+    next = segment_bits(words, seg + 1, S, SG::SEG, g);
+    if (base + SG::SEG <= lim)
+      main_fast<MD>(m, bits, step, a, seg * SG::CELLS, g);
+    else
+      team_walk<MD, true>(m, 0, true, false, 0, 0, base, bits, lim, step, a,
+                          nullptr, nullptr, 0, seg * SG::CELLS, g);
+  }
+}
+
 __global__ void __launch_bounds__(128) k1_main_kernel(
     const int32_t* __restrict__ wmat, const uint32_t* __restrict__ tab,
-    const int32_t* __restrict__ lim2, int32_t* __restrict__ sym,
-    uint8_t* __restrict__ val, int G, int steps_w, int steps_p, int md,
-    int C0, int C1, int NS) {
-  __shared__ uint32_t tab_s[TAB_WORDS];
-  load_table(tab_s, tab, NS);
+    const int32_t* __restrict__ lim2, K1Args a, int steps_w, int md,
+    int NS) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t* step = reinterpret_cast<int32_t*>(smem);
+  stage_step_table(step, tab, NS, a.C0, a.C1);
+  __syncthreads();
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const WmatWords words{wmat, G, steps_w};
+  if (g >= a.G) return;
+  const WmatWords words{wmat, a.G, steps_w};
   const int lim = lim2[g];
-  const int cells_p = steps_p / (md * CELL);
-  int node = 0, wcur = -1;
-  uint32_t word = 0;
-  for (int c = 0; c < cells_p; ++c) {
-    const int base = c * CELL * md;
-    uint32_t cacc = 0, nacc = 0;
-    if (base < lim) {
-      for (int k = 0; k < 2 * md; ++k) {
-        const int jbit = base + 2 * k;
-        if ((jbit >> 5) != wcur) {
-          wcur = jbit >> 5;
-          word = words(wcur, g);
-        }
-        const int b0 = (word >> (jbit & 31)) & 1;
-        const int b1 = (word >> ((jbit & 31) + 1)) & 1;
-        const uint32_t e =
-            jbit < lim ? quad_entry(tab_s, NS, node, b0, b1) : 0u;
-        const Step st = decode_entry(e, NS, b1 ? C1 : C0);
-        node = st.node;
-        if (st.emit) {  // slot (jbit + pos) / md, counted from the cell start
-          const int sl = (2 * k + st.pos) / md;
-          cacc |= (uint32_t)st.sym << (8 * sl);
-          nacc |= 1u << sl;
-        }
-      }
-    }
-    sym[(size_t)c * G + g] = (int32_t)cacc;
-    val[(size_t)c * G + g] = (uint8_t)nacc;
-  }
+  with_md(md, [&](auto m) {
+    k1_main_lane<decltype(m)::value>(a, words, lim, step, g);
+  });
+}
+
+// The launcher's check of a plan (rules in ops/k1_main.py k1_main_plan).
+bool k1_main_plan_ok(int G, int md, int NS, int threads, int shared) {
+  return G >= 1 && md >= 2 && md <= 8 && NS >= 1 && NS <= MAX_NS &&
+         threads == 128 && shared == step_bytes(NS);
 }
 
 }  // namespace
@@ -70,12 +93,14 @@ __global__ void __launch_bounds__(128) k1_main_kernel(
 extern "C" int ws_k1_main(const int32_t* wmat, const uint32_t* tab,
                           const int32_t* lim2, int32_t* sym, uint8_t* val,
                           int G, int steps_w, int steps_p, int md, int C0,
-                          int C1, int NS, cudaStream_t stream) {
-  if (md < 2 || NS > MAX_NS || steps_p % (md * CELL) ||
-      steps_w * 32 < steps_p)
+                          int C1, int NS, int threads, int shared,
+                          cudaStream_t stream) {
+  if (!k1_main_plan_ok(G, md, NS, threads, shared) ||
+      steps_p % seg_bits(md) || steps_w * 32 < steps_p)
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  k1_main_kernel<<<(G + threads - 1) / threads, threads, 0, stream>>>(
-      wmat, tab, lim2, sym, val, G, steps_w, steps_p, md, C0, C1, NS);
+  const K1Args a{sym, val, nullptr, nullptr, nullptr, G, NO_EXIT, steps_p,
+                 steps_p, C0, C1};
+  k1_main_kernel<<<(G + threads - 1) / threads, threads, shared, stream>>>(
+      wmat, tab, lim2, a, steps_w, md, NS);
   return (int)cudaGetLastError();
 }

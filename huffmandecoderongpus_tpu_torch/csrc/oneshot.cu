@@ -136,6 +136,35 @@ __device__ __forceinline__ void k3_lane(const K1Args& a,
   }
 }
 
+// K2's steps (1) and (3) of the one-shot (k2_compose.cu is one launch of
+// another design): exmap[state, lane], or 0 for an entry offset at or past
+// the map rows (HP), as the TPU kernel's zero padding to 128 reads.
+__device__ __forceinline__ int k2_ex_at(const int32_t* exmap, int G, int HP,
+                                        int state, int lane) {
+  return (state >= 0 && state < HP) ? exmap[(size_t)state * G + lane] : 0;
+}
+
+// K2 step (1): group grp's composite map (L lanes) at entry offset e.
+__device__ __forceinline__ int k2_group_map(const int32_t* exmap, int G,
+                                            int HP, int L, int grp, int e) {
+  int st = e;
+  for (int l = 0; l < L; ++l) st = k2_ex_at(exmap, G, HP, st, grp * L + l);
+  return st;
+}
+
+// K2 step (3): group grp re-walks its L lanes from its first-lane entry.
+__device__ __forceinline__ void k2_apply_group(const int32_t* exmap,
+                                               const int32_t* goff,
+                                               int32_t* entry, int G, int HP,
+                                               int L, int grp) {
+  int st = goff[grp];
+  for (int l = 0; l < L; ++l) {
+    const int lane = grp * L + l;
+    entry[lane] = st;
+    st = k2_ex_at(exmap, G, HP, st, lane);
+  }
+}
+
 struct KeepArr {
   const int* keep;
   __device__ __forceinline__ int operator()(int l) const { return keep[l]; }

@@ -1,9 +1,13 @@
 // Shared device helpers for the wide-lane kernels (K1, K3 and their 1-bit
 // versions) and the lane-DFA scans: K1's team body (k1_team, a team of
 // threads a lane), which k1_scan2.cu, k1_scan2_c01.cu and the fused
-// one-shot kernel (oneshot.cu) all run, K3's per-lane body (k3_fix2_lane),
-// and K2's three steps and K4's block-wide body (k4_block), which the
-// separate kernels and the one-shot share.
+// one-shot kernel (oneshot.cu) all run and whose main-chain walks
+// (main_fast, team_walk) k1_main.cu runs a thread a lane, K3's per-lane
+// body (k3_fix2_lane), and K4's block-wide body (k4_block), which the
+// separate kernels and the one-shot share.  K2 is one launch of its own
+// (k2_compose.cu: tiles composed in shared memory, chained by a look-back);
+// the one-shot keeps a three-step K2 between its grid barriers
+// (oneshot.cu).
 //
 // The quad table (2*NS rows of 128 uint32 words, see
 // ops/widescan.py pack_quad_tables) is staged in shared memory: row
@@ -28,7 +32,7 @@ constexpr int MAX_SEGH = 16;      // chunk rows per segment: SEG <= 32
 constexpr int MAX_NL = 8;         // leaders: one per residue mod md, md <= 8
 constexpr int MAX_CH = 127;       // candidate chains: HP <= 128
 constexpr int K2_NE = 128;        // K2: entry offsets per map
-constexpr int K2_MAX_GROUPS = 256;  // K2: group maps its scan step stages
+constexpr int K2_MAX_GROUPS = 256;  // the one-shot's K2: group maps it stages
 // the lane-DFA scans' fused table (ops/lanedfa.py LaneDFA.entry, padded)
 constexpr int EMIT_BIT = 1 << 10;
 constexpr int STATE_MASK = (1 << 10) - 1;
@@ -692,53 +696,6 @@ inline cudaError_t allow_shared(const void* kernel,
                              227 * 1024);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
-}
-
-// K2 (k2_compose.cu): exmap[state, lane], or 0 for an entry offset at or
-// past the map rows (HP), as the TPU kernel's zero padding to 128 reads.
-__device__ __forceinline__ int k2_ex_at(const int32_t* exmap, int G, int HP,
-                                        int state, int lane) {
-  return (state >= 0 && state < HP) ? exmap[(size_t)state * G + lane] : 0;
-}
-
-// K2 step (1): group grp's composite map (L lanes) at entry offset e.
-__device__ __forceinline__ int k2_group_map(const int32_t* exmap, int G,
-                                            int HP, int L, int grp, int e) {
-  int st = e;
-  for (int l = 0; l < L; ++l) st = k2_ex_at(exmap, G, HP, st, grp * L + l);
-  return st;
-}
-
-// K2 step (2), for one block of K2_NE threads: stage the NGp group maps in
-// shared memory `gm`, walk them for all K2_NE lane-0 entries at once; the
-// thread of entry `start` records each group's first-lane entry in goff,
-// and the final states are the composite map `tot`.
-__device__ __forceinline__ void k2_scan_block(uint8_t* gm,
-                                              const uint8_t* gmap,
-                                              int32_t* goff, uint8_t* tot,
-                                              int NGp, int start) {
-  for (int i = threadIdx.x; i < NGp * K2_NE; i += blockDim.x) gm[i] = gmap[i];
-  __syncthreads();
-  const int e = threadIdx.x;
-  int st = e;
-  for (int grp = 0; grp < NGp; ++grp) {
-    if (e == start) goff[grp] = st;
-    st = gm[grp * K2_NE + st];
-  }
-  tot[e] = (uint8_t)st;
-}
-
-// K2 step (3): group grp re-walks its L lanes from its first-lane entry.
-__device__ __forceinline__ void k2_apply_group(const int32_t* exmap,
-                                               const int32_t* goff,
-                                               int32_t* entry, int G, int HP,
-                                               int L, int grp) {
-  int st = goff[grp];
-  for (int l = 0; l < L; ++l) {
-    const int lane = grp * L + l;
-    entry[lane] = st;
-    st = k2_ex_at(exmap, G, HP, st, lane);
-  }
 }
 
 // K3 (k3_fix2.cu) for lane g, entered at e0 with cut row ct and cut slot

@@ -1,7 +1,7 @@
 """K4, the one-shot launch and K1 of one tree of the PyTorch port on a GPU,
 for timing two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1]
+    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2]
 
 Run it as a file, not with ``-m``, as ``scan_turns.py`` beside it: it
 imports the port from TREE (a checkout of this repository; default the one
@@ -32,6 +32,17 @@ beside the card's name and power limit:
              where the tree has ``k1_plan``, its plan; and
              ``wide_decode_program`` on (a) and (b) by events (median of 25
              after 3)
+  k1main     k1_main on the indexed (a) at 512 symbols a block, (b) at 1024
+             and (i) at 512 (chip_smoke.py's INDEXED): by events and on the
+             card, beside the chain floor and, where the tree has
+             ``k1_main_plan``, its plan (another block size is timed as a
+             variant tree, ``_parent/<name>``, the same way)
+  k2         K2 on the exit maps K1 gives it on (a)-(d) and on both
+             batches (the batch's last-lane rows zeroed, as the batch
+             program does): by events, and on the card the time a call and
+             the kernel launches a call (profiler over every K2 kernel
+             name, the three-launch design's too; "not measured" where no
+             session's record was whole)
 
 The last line is one JSON object of every number.
 """
@@ -58,7 +69,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--sections", default="k4,oneshot,k1")
+    ap.add_argument("--sections", default="k4,oneshot,k1,k1main,k2")
     args = ap.parse_args()
     sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
@@ -158,13 +169,17 @@ def main() -> int:
               + f"; K1 floor {floor:.4f} ms; four-kernel program {ev4:.4f} "
               f"ms (events); G={p['G']} B={p['B']} H={st['H']} "
               f"md={st['md']}; card {card}", flush=True)
+    # the batches, drawn after (a)-(i) as chip_smoke.py draws them
+    small = [cs.text_like(rng, cs.PAPER1_BYTES, n) for n in cs.BATCH_SYMBOLS]
+    trio = [streams["f"][1], streams["g"][1],
+            cs.text_like(rng, cs.BOOK2_BYTES)]
     if "k1" in sections:
-        small = [cs.text_like(rng, cs.PAPER1_BYTES, n)
-                 for n in cs.BATCH_SYMBOLS]
-        trio = [streams["f"][1], streams["g"][1],
-                cs.text_like(rng, cs.BOOK2_BYTES)]
         k1_section(torch, cs, out, streams, small, trio, dev, card, clock,
                    args.tag)
+    if "k1main" in sections:
+        k1main_section(torch, cs, out, streams, dev, card, clock, args.tag)
+    if "k2" in sections:
+        k2_section(torch, cs, out, streams, small, trio, dev, card, args.tag)
     print(json.dumps(out))
     return 0
 
@@ -233,6 +248,102 @@ def k1_section(torch, cs, out, streams, small, trio, dev, card, clock,
             lambda st=st, wmat=wmat, kw=kw: k1_scan2_c01.k1_scan2_c01(
                 wmat, st["tabs"], st["lim"], st["c01"], st["bstream"], **kw),
             st["lim"], kw)
+
+
+def k1main_section(torch, cs, out, streams, dev, card, clock, tag):
+    """The k1main section: k1_main on the indexed streams."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import _build, k1_main
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    plan_fn = getattr(k1_main, "k1_main_plan", None)
+    for k, K in cs.INDEXED.items():
+        hf = encode_bytes(streams[k][1], block_symbols=K)
+        st = ws.stage_widescan_indexed(hf, *hf.index, device=dev)
+        p = st["plan"]
+        wmat = ws.normalize_lane_words(st["raw"], st["sh"]).t().contiguous()
+        kw = dict(steps_p=p["steps_p"], md=st["md"], C0=st["C0"],
+                  C1=st["C1"], NS=st["NS"])
+
+        def fn(wmat=wmat, st=st, kw=kw):
+            return k1_main.k1_main(wmat, st["tab"], st["lim"], **kw)
+
+        G = p["G"]
+        chunks = min(int(st["lim"].max()), p["steps_p"]) // 2
+        floor = chunks * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+        plan = plan_fn and plan_fn(G, st["md"], st["NS"], p["steps_p"],
+                                   _build.sm_count(dev))
+        ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+        card_ms = cs.device_breakdown(torch, fn, per_launch=True).get(
+            "k1_main")
+        key = f"k1_main_{k}"
+        out[key] = dict(G=G, md=st["md"], NS=st["NS"],
+                        steps_p=p["steps_p"], events_ms=ev, card_ms=card_ms,
+                        floor_ms=floor,
+                        plan=plan and {x: plan[x] for x in (
+                            "threads", "blocks", "waves", "shared")})
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.4f} ms, {card_ms / floor:.1f} times the floor")
+        print(f"[k1] {tag} {key} ({K} symbols a block): events {ev:.4f} ms, "
+              f"card {own}; floor {floor:.4f} ms ({chunks} chunks); plan "
+              f"{out[key]['plan']}; G={G} md={st['md']} NS={st['NS']} steps_p={p['steps_p']}; "
+              f"card {card}", flush=True)
+
+
+#: K2's kernel names: this design's one, and the three-launch design's
+K2_KERNELS = ("k2_compose_kernel", "k2_groups", "k2_scan", "k2_apply")
+
+
+def k2_section(torch, cs, out, streams, small, trio, dev, card, tag):
+    """The k2 section: K2 on the exit maps of (a)-(d) and both batches."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import (
+        batch,
+        k1_scan2_c01,
+        k2_compose,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    cases = []
+    for k in "abcd":
+        st = ws.stage_widescan_inputs(encode_bytes(streams[k][1]),
+                                      device=dev)
+        a = ws.program_args(st)
+        kw = {x: a[x] for x in ("H", "steps_p", "SEG", "md", "chunk2", "C0",
+                                "C1", "NS")}
+        exmap = ws.stage_k1(st["words"], st["tab"], st["lim"], B=a["B"],
+                            steps=a["steps"], **kw)[4]
+        cases.append((k, exmap))
+    for key, raws in (("five", small), ("trio", trio)):
+        st = batch.stage_batch_inputs([encode_bytes(r) for r in raws],
+                                      device=dev)
+        p = st["plan"]
+        wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+        exmap = k1_scan2_c01.k1_scan2_c01(
+            wmat, st["tabs"], st["lim"], st["c01"], st["bstream"], B=p["B"],
+            H=st["H"], steps=p["steps"], steps_p=p["steps_p"], SEG=p["SEG"],
+            md=st["md"])[3]
+        exmap[:, list(st["last_live"])] = 0
+        cases.append((key, exmap))
+    for k, exmap in cases:
+        def fn(exmap=exmap):
+            return k2_compose.k2_compose(exmap, 0)
+
+        ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+        times, launches = cs.device_breakdown(
+            torch, fn, per_launch=True, counts=True,
+            symbols={"k2": K2_KERNELS})
+        per_call = launches.get("k2")
+        card_ms = per_call and times["k2"] * per_call
+        HP, G = exmap.shape
+        out[f"k2_{k}"] = dict(G=G, HP=HP, events_ms=ev, card_ms=card_ms,
+                              kernels_a_call=per_call)
+        own = "not measured" if card_ms is None else f"{card_ms:.4f} ms"
+        print(f"[k2] {tag} ({k}): events {ev:.4f} ms, card {own} in "
+              f"{per_call} kernel launches a call; G={G} HP={HP}; card "
+              f"{card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -72,8 +72,9 @@ _SIGNATURES = {
     # G, steps_w, B, H, steps, steps_p, SEG, md, C0, C1, NS, T, shared,
     # stream
     "ws_k1_scan2": [_P] * 8 + [_I] * 13 + [_P],
-    # exmap, entry, tot, gmap, goff, G, HP, start, L, NGp, stream
-    "ws_k2_compose": [_P] * 5 + [_I] * 5 + [_P],
+    # exmap, entry, tot, state, cap, G, HP, start, TL, SL, threads, shared,
+    # stream
+    "ws_k2_compose": [_P] * 4 + [_I] * 8 + [_P],
     # wmat, tab, ent, cut, cutsl, sym, val,
     # G, steps_w, steps_p, SEG, md, C0, C1, NS, stream
     "ws_k3_fix2": [_P] * 7 + [_I] * 8 + [_P],
@@ -100,8 +101,9 @@ _SIGNATURES = {
     "ws_e2_compact": [_P] * 3 + [_I] * 3 + [_P],
     # shifted, word_off, occ, out, G, ORP, n_out, stream
     "ws_e3_place": [_P] * 4 + [_I] * 2 + [_LL, _P],
-    # wmat, tab, lim, sym, val, G, steps_w, steps_p, md, C0, C1, NS, stream
-    "ws_k1_main": [_P] * 5 + [_I] * 7 + [_P],
+    # wmat, tab, lim, sym, val, G, steps_w, steps_p, md, C0, C1, NS,
+    # threads, shared, stream
+    "ws_k1_main": [_P] * 5 + [_I] * 9 + [_P],
     # bits, tab, lane_len, sym, valid, G, B, tab_words, stream
     "ws_lane_scan_indexed": [_P] * 5 + [_I] * 3 + [_P],
     # wmat, tabs, lim, c01, bstream, sym, val, cntmap, exmap, mrowmap,

@@ -4,16 +4,33 @@ Replaces ``huffmandecoderongpus_tpu/ops/pallas_widescan.py`` ``k2_compose`` /
 ``_k2_kernel``.  CUDA source: ``csrc/k2_compose.cu``.
 
 ``entry[0] = start`` and ``entry[l + 1] = exmap[entry[l], l]``: a sequential
-composition of G small maps.  Both versions split it in three steps over
-NGp groups of L lanes: (1) each group's composite map over all 128 entry
-offsets, (2) one scan over the group composites, (3) each group applies its
-first lane's entry.  An entry offset at or past the map rows (HP) reads 0,
-as the TPU kernel's 128-wide padding does.  Also returns the block's
-composite map ``tot`` (128,) uint8: lane G-1's exit for each entry offset of
-lane 0.
+composition of G small maps, where an entry offset at or past the map rows
+(HP) reads 0, as the TPU kernel's 128-wide padding does; the map values are
+entry offsets below 128.  Also returns the composite map ``tot`` (128,)
+uint8: lane G-1's exit for each entry offset of lane 0.
+
+On the card it is one launch (``k2_plan``): blocks take tiles of
+consecutive lanes by an atomic ticket, compose each tile's maps in shared
+memory (byte maps over the HP + 1 entry classes, a thread a sub-tile and
+class, then a log-depth scan), chain the tiles by a decoupled look-back
+over their published maps, and walk each sub-tile from its entry.  The
+look-back's state is a buffer held per device and stream
+(``_lookback_state``), zeroed once when made; its flags carry the epoch of
+the call that wrote them, which each call advances on the card, so no call
+resets it.  A call captured in a CUDA graph gets a state of its own, which
+the graph zeroes at each replay, so a replay may run on any stream beside
+eager calls, and a later call's larger state frees nothing it holds.
+
+The plain version keeps the three steps of the JAX kernel over NGp groups
+of L lanes: (1) each group's composite map over all 128 entry offsets, (2)
+one scan over the group composites, (3) each group applies its first
+lane's entry.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
 
 import torch
 
@@ -24,8 +41,19 @@ launches = 0
 
 #: entry offsets a map is evaluated at (the TPU kernel's lane width)
 NE = 128
-#: most groups the scan step walks
+#: most groups the plain version's scan step walks
 MAX_GROUPS = 256
+#: the kernel's block, and its tile of lanes (``k2_plan``)
+THREADS = 512
+TILE = 256
+#: predecessors a look-back step reads, and a published map's bytes
+#: (``csrc/k2_compose.cu``)
+LOOKBACK = 32
+MAP_BYTES = 256
+#: tiles the first look-back buffer of a stream holds
+STATE_TILES = 256
+#: streams whose look-back state is kept, the most recently used
+MAX_STREAMS = 8
 
 
 def groups(G: int) -> tuple[int, int]:
@@ -34,6 +62,85 @@ def groups(G: int) -> tuple[int, int]:
     if G % L:
         raise ValueError(f"k2_compose: {G} lanes do not split into groups")
     return L, G // L
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def shared_bytes(HP: int, TL: int, threads: int) -> int:
+    """Dynamic shared bytes of a K2 block (``k2_compose.cu`` ``K2Smem``):
+    the staged rows (HP x TL bytes), the entries (TL int32), two buffers
+    of the sub-tile maps (threads // (HP + 1) maps of HP + 1 bytes), two of
+    a look-back window's (LOOKBACK maps) and the look-back's composite,
+    each 16-byte aligned."""
+    NC = HP + 1
+    S = threads // NC
+    return (_up16(HP * TL) + 4 * TL + 2 * _up16(S * NC)
+            + 2 * _up16(LOOKBACK * NC) + _up16(NC))
+
+
+@functools.lru_cache(maxsize=256)
+def k2_plan(G: int, HP: int, sm_count: int = _build.SM_COUNT) -> dict:
+    """Launch plan of K2 on a card of ``sm_count`` SMs: ``tile`` = TILE
+    lanes a block, ``tiles`` = ceil(G / tile) blocks of
+    ``threads``; ``sub``: the lanes of a sub-tile, the tile over the
+    threads // (HP + 1) sub-tiles a block walks at once (the last tile's
+    sub-tiles are as long and fewer); ``shared`` (``shared_bytes``),
+    ``per_sm`` (the blocks an SM holds by threads and shared memory) and
+    ``waves`` (the tiles over what the card holds at once; a block waits
+    only on tiles of earlier tickets, so more than one wave is slower, not
+    stuck).  Raises ValueError outside the kernel's bounds."""
+    if not 1 <= HP <= NE or G < 1:
+        raise ValueError("k2_compose: map rows must be 1 to 128, lanes >= 1")
+    tile = TILE
+    S = THREADS // (HP + 1)
+    shared = shared_bytes(HP, tile, THREADS)
+    per_sm = min(_build.SM_THREADS // THREADS,
+                 _build.SM_SHARED // (shared + _build.BLOCK_RESERVED))
+    tiles = -(-G // tile)
+    return dict(tile=tile, sub=-(-tile // S), threads=THREADS, tiles=tiles,
+                shared=shared, per_sm=per_sm,
+                waves=-(-tiles // (sm_count * per_sm)), sm_count=sm_count)
+
+
+#: (device index, stream) -> the look-back's state: 2 + cap int32 words
+#: (the epoch and ticket word, a flag a tile) and 2 x cap maps of
+#: MAP_BYTES; the MAX_STREAMS most recently used
+_states: collections.OrderedDict = collections.OrderedDict()
+
+
+def _state_words(cap: int) -> int:
+    return 2 + cap + 2 * cap * MAP_BYTES // 4
+
+
+def _lookback_state(dev, stream: int, tiles: int):
+    """(state, cap) for ``tiles`` tiles on this device and stream: made
+    zeroed (one fill) the first time, and again, twice as large, when a
+    call needs more tiles.  Each call leaves its tickets at 0 and the
+    epoch one further (the first int32 word 0, the second the calls).
+
+    A state dropped, for a larger one or for a stream used less recently,
+    goes back to the allocator on the stream it was made on, so a K2 call
+    still running there keeps it until it ends.  While a CUDA graph is
+    being captured the call gets a state of its own instead, its tickets
+    and flags zeroed in the graph (a fill before the launch): no eager
+    call shares it, and the graph's pool keeps it for every replay."""
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        state = torch.empty(_state_words(tiles), dtype=torch.int32,
+                            device=dev)
+        state[:2 + tiles].zero_()
+        return state, tiles
+    key = (dev.index, stream)
+    st = _states.pop(key, None)
+    if st is None or st[1] < tiles:
+        cap = max(STATE_TILES, 2 * tiles)
+        st = (torch.zeros(_state_words(cap), dtype=torch.int32, device=dev),
+              cap)
+    _states[key] = st
+    while len(_states) > MAX_STREAMS:
+        _states.popitem(last=False)
+    return st
 
 
 def k2_compose(exmap, start: int = 0):
@@ -47,23 +154,24 @@ def k2_compose(exmap, start: int = 0):
     HP, G = exmap.shape
     if not 0 <= start < NE or HP > NE:
         raise ValueError("k2_compose: start and map rows must be below 128")
-    L, NGp = groups(G)
+    groups(G)  # the lanes the plain version takes
     dev = exmap.device
+    p = k2_plan(G, HP, _build.sm_count(dev))
+    stream = _build.stream_ptr(exmap)
+    state, cap = _lookback_state(dev, stream, p["tiles"])
     entry = torch.empty(G, dtype=torch.int32, device=dev)
     tot = torch.empty(NE, dtype=torch.uint8, device=dev)
-    gmap = torch.empty((NGp, NE), dtype=torch.uint8, device=dev)
-    goff = torch.empty(NGp, dtype=torch.int32, device=dev)
     rc = _build.get_lib().ws_k2_compose(
-        exmap.data_ptr(), entry.data_ptr(), tot.data_ptr(),
-        gmap.data_ptr(), goff.data_ptr(), G, HP, start, L, NGp,
-        _build.stream_ptr(exmap))
+        exmap.data_ptr(), entry.data_ptr(), tot.data_ptr(), state.data_ptr(),
+        cap, G, HP, start, p["tile"], p["sub"], p["threads"], p["shared"],
+        stream)
     launches += 1
     _build.check(rc, "k2_compose")
     return entry, tot
 
 
 def k2_compose_ref(exmap, start: int = 0):
-    """Plain torch K2, in the kernel's three steps."""
+    """Plain torch K2, in the JAX kernel's three steps."""
     HP, G = exmap.shape
     L, NGp = groups(G)
     dev = exmap.device

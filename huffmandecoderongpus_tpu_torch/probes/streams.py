@@ -270,3 +270,108 @@ def k4_cells(case, device):
         t.copy_(torch.from_numpy(a))
         views.append(t)
     return tuple(views)
+
+
+def spread_states(tab, C0: int, C1: int, NS: int, NS_to: int, seed=0):
+    """(tab, C0, C1) of the wide-layout quad table ``tab`` (2 * NS, 128)
+    int32 relabelled onto NS_to table chunks: every state but the root
+    moves to a distinct state below 128 * NS_to (at most 1023) drawn from
+    ``seed``.  The relabelled table decodes every stream as the original
+    does; no byte tree has enough states to fill eight chunks itself."""
+    if NS < 2 or NS_to < NS:
+        raise ValueError("spread_states takes a wide-layout table")
+    n = NS * 128
+    top = min(128 * NS_to, 1024)
+    rng = np.random.default_rng(seed)
+    perm = np.zeros(n, dtype=np.int64)
+    perm[1:] = rng.choice(np.arange(1, top), size=n - 1, replace=False)
+    t = np.asarray(tab, dtype=np.int64) & 0xFFFFFFFF
+    out = np.zeros((2 * NS_to, 128), dtype=np.int64)
+    for s in range(n):
+        s2 = int(perm[s])
+        for b0 in (0, 1):
+            w = int(t[b0 * NS + s // 128, s % 128])
+            for b1 in (0, 1):
+                e = (w >> (16 * b1)) & 0xFFFF
+                if not e & 0x8000:  # a bare state: relabel it
+                    e = int(perm[e])
+                out[b0 * NS_to + s2 // 128, s2 % 128] |= e << (16 * b1)
+    return (out.astype(np.uint32).view(np.int32), int(perm[C0]),
+            int(perm[C1]))
+
+
+#: K1's main scan (``k1_main``) at its edges (``k1_main_case``): every
+#: block's limit at steps_p with its last code ending on the last bit,
+#: beside pad lanes (the cheap case); the same at G = 1; text at 512
+#: symbols a block ((a)'s index); md 3, 5 and 7 (SEG 96, 160 and 224: the
+#: kernel's segments 24, 20 and 28 divide them); 256 symbols (md 5-6, NS 2)
+#: and its table spread over eight chunks (NS 8)
+K1_MAIN_CASES = ("full", "full-g1", "text-512", "md3", "md5", "md7", "ns2",
+                 "ns8")
+
+
+def k1_main_case(case, device):
+    """(inputs, kw, hf) of one of K1_MAIN_CASES, drawn from seed 41:
+    ``k1_main``'s tensors (wmat, tab, lim) on ``device``, its keyword
+    arguments and the indexed stream (a HuffFile with its index)."""
+    import torch
+
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    rng = np.random.default_rng(41)
+    if case.startswith("full"):  # 4 symbols, 2-bit codes: 128-bit blocks
+        raw, k = rng.integers(0, 4, 64 * 130).astype(np.uint8), 64
+    elif case == "text-512":
+        raw, k = text_like(rng, 512 * 130), 512
+    elif case == "md3":
+        raw, k = rng.integers(65, 77, 200 * 130).astype(np.uint8), 200
+    elif case in ("md5", "md7"):
+        sym = 32 if case == "md5" else 128
+        raw, k = rng.integers(0, sym, 256 * 130).astype(np.uint8), 256
+    else:  # ns2, ns8: all 256 symbols, skewed
+        w = rng.random(256) ** 3 + 1e-4
+        raw = rng.choice(np.arange(256, dtype=np.uint8), size=300 * 130,
+                         p=w / w.sum()).astype(np.uint8)
+        k = 300
+    hf = encode_bytes(raw, block_symbols=k)
+    st = ws.stage_widescan_indexed(hf, *hf.index, device=device)
+    wmat = ws.normalize_lane_words(st["raw"], st["sh"]).t().contiguous()
+    tab, lim = st["tab"], st["lim"]
+    kw = dict(steps_p=st["plan"]["steps_p"], md=st["md"], C0=st["C0"],
+              C1=st["C1"], NS=st["NS"])
+    if case == "ns8":
+        t, C0, C1 = spread_states(tab.cpu().numpy(), st["C0"], st["C1"],
+                                  st["NS"], 8)
+        tab = torch.from_numpy(t).to(device)
+        kw.update(C0=C0, C1=C1, NS=8)
+    if case == "full-g1":
+        wmat, lim = wmat[:, :1].contiguous(), lim[:1].contiguous()
+    return (wmat, tab, lim), kw, hf
+
+
+#: K2 (``k2_compose``) at the edges of its tiles (``k2_case``): (G, HP,
+#: start, values): one lane; one tile, not a multiple of 16; a tile and a
+#: part; HP 128 with start 127; entries past HP (values up to HP + 3,
+#: start past HP); (a)'s shape (32 tiles, one look-back window); 65 tiles
+#: (three windows for the last); maps that mostly agree, as merged chains
+#: leave them
+K2_CASES = ((1, 2, 1, "random"), (200, 9, 5, "random"),
+            (300, 64, 0, "random"), (1024, 128, 127, "random"),
+            (4096, 24, 30, "past"), (8192, 16, 0, "random"),
+            (16640, 16, 3, "random"), (8192, 16, 0, "merged"))
+
+
+def k2_exmap(case, device):
+    """The (HP, G) int32 exit maps of one of K2_CASES on ``device``, drawn
+    from seed G + HP: entry offsets below HP ("random"), up to HP + 3
+    ("past"), or every row but a few lanes' equal to row 0's ("merged")."""
+    import torch
+
+    G, HP, _start, values = case
+    rng = np.random.default_rng(G + HP)
+    top = HP + 4 if values == "past" else HP
+    ex = rng.integers(0, min(top, 128), size=(HP, G)).astype(np.int32)
+    if values == "merged":
+        keep = rng.random(G) < 0.02
+        ex[1:, ~keep] = ex[0, ~keep]
+    return torch.from_numpy(ex).to(device)

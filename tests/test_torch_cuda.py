@@ -33,7 +33,11 @@ to the current stream.  The block-wide K4 is checked at its plan's edges
 offset, rows in windows), the one-shot's team K1 at its (one candidate
 chain, md 8, a tree 128 tall, G = 128 and 4,096, the envelope-edge
 stream), its stamps against a launch's events, and both launchers refuse
-a plan outside their rules.  Tolerance: bit-exact (integer outputs).
+a plan outside their rules.  The indexed main scan (``k1_main``) runs at
+its edges (``probes.streams.K1_MAIN_CASES``) at every block size its plan
+may pick, and K2 at the edges of its tiles (``K2_CASES``): one launch and
+one kernel a call, each leaving its tickets at 0 and its look-back's epoch
+one further, on two streams; both launchers refuse other plans.  Tolerance: bit-exact (integer outputs).
 """
 
 import numpy as np
@@ -392,6 +396,142 @@ def test_k1_launchers_refuse_other_plans(cuda):
             assert c1(**bad) != 0, bad
         assert k1(**bad) != 0, bad
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ps.K1_MAIN_CASES)
+def test_k1_main_edges_match_plain(cuda, case):
+    # the indexed main scan at its edges: every block ending on the last
+    # bit of steps_p beside pad lanes, one lane, md 3/5/7 (SEG 96/160/224),
+    # NS 2 and 8
+    inputs, kw, _hf = ps.k1_main_case(case, cuda)
+    want = k1_main.k1_main_ref(*inputs, **kw)
+    got, ran = _launched(lambda: k1_main.k1_main(*inputs, **kw))
+    assert ran == {"k1_main": 1}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ps.K2_CASES)
+def test_k2_edges_match_plain(cuda, case):
+    # one launch a call: one lane, part tiles, HP 128 from start 127,
+    # entries past HP, 65 tiles (look-back windows), merged maps; each call
+    # leaves its tickets at 0 and the look-back's epoch one further, on
+    # this stream and on another
+    G, HP, start, _values = case
+    ex = ps.k2_exmap(case, cuda)
+    want = k2_compose.k2_compose_ref(ex, start)
+    for stream in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            k2_compose.k2_compose(ex, start)
+            state, _cap = k2_compose._lookback_state(
+                ex.device, _build.stream_ptr(ex), 1)
+            before = int(state[1])
+            for k in range(3):
+                got, ran = _launched(lambda: k2_compose.k2_compose(ex, start))
+                assert ran == {"k2_compose": 1}
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+                assert (int(state[0]), int(state[1])) == (0, before + k + 1)
+
+
+def test_k2_many_waves_and_a_graph(cuda):
+    # 1,200 tiles, more than the card holds at once (blocks wait only on
+    # earlier tickets), past the look-back buffer's first size (it grows);
+    # then K2 captured in a CUDA graph on a stream no K2 ran on before
+    # replays right on another stream, after the capture stream's own state
+    # grew and beside eager calls there: the graph's state is its own
+    G, HP = 256 * 1200, 16
+    rng = np.random.default_rng(5)
+    ex = torch.from_numpy(rng.integers(0, HP + 2, (HP, G)).astype(
+        np.int32)).to(cuda)
+    assert k2_compose.k2_plan(G, HP)["waves"] > 1
+    want = k2_compose.k2_compose_ref(ex, 7)
+    for g, w in zip(k2_compose.k2_compose(ex, 7), want):
+        assert torch.equal(g, w)
+    ex2 = ps.k2_exmap(ps.K2_CASES[5], cuda)
+    want2 = k2_compose.k2_compose_ref(ex2, 0)
+    stream = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = k2_compose.k2_compose(ex2, 0)
+    assert (cuda.index, stream.cuda_stream) not in k2_compose._states
+    other = torch.cuda.Stream()
+    for _ in range(3):
+        with torch.cuda.stream(stream):  # eager calls on the capture stream
+            eager = [k2_compose.k2_compose(ex, 7) for _ in range(2)]
+        with torch.cuda.stream(other):
+            graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want2):
+            assert torch.equal(g, w)
+        for out in eager:
+            for g, w in zip(out, want):
+                assert torch.equal(g, w)
+
+
+def test_k2_one_kernel_a_call(cuda):
+    # the profiler sees one K2 kernel a call, none of the old three
+    from torch.profiler import ProfilerActivity, profile
+
+    ex = ps.k2_exmap(ps.K2_CASES[5], cuda)
+    k2_compose.k2_compose(ex, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            k2_compose.k2_compose(ex, 0)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        pytest.skip("the profiler recorded no device activity")
+    k2 = [n for n in names if "k2_" in n]
+    assert len(k2) == 1 and "k2_compose_kernel" in k2[0], names
+    assert not any(old in n for n in names
+                   for old in ("k2_groups", "k2_scan", "k2_apply"))
+
+
+def test_k1_main_and_k2_launchers_refuse_other_plans(cuda):
+    lib = _build.get_lib()
+    G, md, NS, steps_p = 256, 2, 1, 64
+    wmat = torch.zeros((2, G), dtype=torch.int32, device=cuda)
+    tab = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    lim = torch.full((G,), 64, dtype=torch.int32, device=cuda)
+    sym = torch.empty((8, G), dtype=torch.int32, device=cuda)
+    val = torch.empty((8, G), dtype=torch.uint8, device=cuda)
+    p = k1_main.k1_main_plan(G, md, NS, steps_p)
+
+    def k1(threads=p["threads"], shared=p["shared"], steps_p=steps_p):
+        return lib.ws_k1_main(
+            wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), sym.data_ptr(),
+            val.data_ptr(), G, 2, steps_p, md, 1, 2, NS, threads, shared,
+            _build.stream_ptr(wmat))
+
+    assert k1() == 0
+    for bad in (dict(threads=32), dict(threads=64), dict(threads=96),
+                dict(threads=256), dict(shared=4096), dict(steps_p=40)):
+        assert k1(**bad) != 0, bad
+    HP = 16
+    ex = torch.zeros((HP, G), dtype=torch.int32, device=cuda)
+    entry = torch.empty(G, dtype=torch.int32, device=cuda)
+    tot = torch.empty(128, dtype=torch.uint8, device=cuda)
+    q = k2_compose.k2_plan(G, HP)
+    state, cap = k2_compose._lookback_state(cuda, _build.stream_ptr(ex),
+                                            q["tiles"])
+
+    def k2(tile=q["tile"], sub=q["sub"], threads=q["threads"],
+           shared=q["shared"], cap=cap, start=0):
+        return lib.ws_k2_compose(
+            ex.data_ptr(), entry.data_ptr(), tot.data_ptr(),
+            state.data_ptr(), cap, G, HP, start, tile, sub, threads, shared,
+            _build.stream_ptr(ex))
+
+    assert k2() == 0
+    for bad in (dict(tile=24), dict(sub=q["sub"] + 1), dict(threads=96),
+                dict(shared=q["shared"] + 16), dict(cap=0), dict(start=128)):
+        assert k2(**bad) != 0, bad
+    torch.cuda.synchronize()
+    assert int(state[0]) == 0  # no ticket left taken
 
 
 @pytest.mark.parametrize("case", ps.K4_CASES)

@@ -332,21 +332,32 @@ def test_port_never_imports_jax(tmp_path):
     assert res.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("G,start", [(512, 0), (1024, 3), (256, 5)])
-def test_k2_composes_sequentially(G, start):
-    # the three-step composition equals the lane-by-lane definition,
-    # including entry offsets at or past the map rows (they read 0)
+@pytest.mark.parametrize("G,start,HP", [
+    pytest.param(512, 0, 16, id="512-0"),
+    pytest.param(1024, 3, 16, id="1024-3"),
+    pytest.param(256, 5, 16, id="256-5"),
+    # the card's tiles (k2_plan): one lane; one part tile; HP 128 (tiles of
+    # 128) from start 127 over a tile and a part; a start past HP over 65
+    # tiles, three look-back windows for the last
+    pytest.param(1, 1, 2, id="1-1-hp2"),
+    pytest.param(200, 7, 9, id="200-7-hp9"),
+    pytest.param(300, 127, 128, id="300-127-hp128"),
+    pytest.param(16640, 30, 24, id="16640-30-hp24"),
+])
+def test_k2_composes_sequentially(G, start, HP):
+    # the composition equals the lane-by-lane definition, including entry
+    # offsets at or past the map rows (they read 0)
     rng = np.random.default_rng(G + start)
-    HP = 16
-    exmap = torch.from_numpy(rng.integers(0, HP + 4, size=(HP, G),
+    exmap = torch.from_numpy(rng.integers(0, min(HP + 4, 128), size=(HP, G),
                                           dtype=np.int32))
     entry, tot = k2_compose.k2_compose(exmap, start)
+    ex = exmap.numpy().tolist()
 
     def walk(e):
         seen = []
         for lane in range(G):
             seen.append(e)
-            e = int(exmap[e, lane]) if e < HP else 0
+            e = ex[e][lane] if e < HP else 0
         return seen, e
 
     want, _ = walk(start)
