@@ -42,7 +42,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               trimmed), k1_scan/K2/k3_fix/K4 on (c), with K1's plan, its
               own time on the card (profiler) and its chain floor (the
               longest lane's chunks x CHAIN_CYCLES_A_ROW) on (a), (b), (d)
-              ([k1] lines), K2's card time and kernel launches a call
+              and K1''s (its bits to row B + H, a lookup a bit) on (c)
+              ([k1] lines), K3''s card time beside its longest cut's
+              floor on (c) ([k3]), K2's card time and kernel launches a call
               beside its bytes bound and the launch floor (P1's card time)
               on (a)-(d) and both batches ([k2] lines) and K4's own time
               on the card against its bytes bound ([k4] lines), both K1
@@ -50,7 +52,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               (probes.streams.K1_CASES: md 2 at G 512, md 6 with two table
               chunks at G 16,384, md 8, one candidate chain, a 128-tall
               tree at two G, lanes past the stream end, a blank run, a
-              batch ending in pad lanes; a [k1] line each),
+              batch ending in pad lanes; a [k1] line each), K1' and K3'
+              at theirs (probes.streams.K1P_CASES: a two-leaf tree, 128
+              and 255 states, a 31-bit comb tree, 1 and 37 lanes, lanes
+              past the stream end, a phase-locked run, (c)'s plan at an
+              eighth, K3' cuts on a cell boundary, mid-cell and past the
+              last segment; a [k1] and a [k3] line each),
               K4 also at its plan's edges (probes.streams.K4_CASES: one
               lane, three, a tail block, lanes past ORP, none valid, views
               at an offset, rows in windows), candidate_scan/
@@ -94,7 +101,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               bytes equal to the input, and each stream's kernels launched
               ((d) through the fallback, (f)-(i) the one-shot alone); then
               get_decoder("lane_oneshot", ...) on (f)-(i) and on (c), which
-              falls back to lane_wide's md = 1 kernels; then for (a)-(c)
+              falls back to lane_wide's md = 1 kernels; decode_widescan on
+              two trees of exactly 128 internal states (129 symbols, md 1
+              and md >= 2, seed 1) through the four kernels and, for md >=
+              2, the one-shot, each decode counted on its own; then for (a)-(c)
               the device program's median time over 25 runs (CUDA events)
               and its device time by kernel (torch.profiler), for (f)-(i)
               the one-shot and the four-kernel program the same way, and
@@ -200,6 +210,9 @@ WIDE_BYTES = 8 << 20
 #: most frequent byte
 RUN_START, RUN_END, RUN_BYTE = 2_621_440, 2_883_584, 32
 TINY_BYTES = 2000
+#: the trees of exactly 128 internal states (129 symbols, drawn from seed
+#: 1), which the port packs compact in one table chunk
+STATES128_BYTES = 60_000
 #: the one-shot streams (f)-(i): paper1- (PAPER1_BYTES) and news-sized
 #: text, 256 KiB over all 256 symbols, 400,000 bytes uniform over 12 symbols
 NEWS_BYTES = 377_109
@@ -512,6 +525,9 @@ def check_kernels(torch, name, raw, hf, dev, decodes=True):
     if st["chunk2"]:
         k1_line(torch, name, "k1_scan2", lambda: scan[1](
             wmat, st["tab"], st["lim"], **k1a), st["lim"], k1a, rows)
+    else:
+        k1p_line(torch, name, lambda: scan[1](
+            wmat, st["tab"], st["lim"], **k1a), st["lim"], k1a, rows)
     entry, _tot = compare("k2_compose",
                           lambda: k2_compose.k2_compose(exmap, 0),
                           lambda: k2_compose.k2_compose_ref(exmap, 0),
@@ -527,6 +543,10 @@ def check_kernels(torch, name, raw, hf, dev, decodes=True):
         lambda: fix[1](wmat, st["tab"], entry, cut, cut_slot, s_k, v_k, **kw),
         lambda: fix[2](wmat, st["tab"], entry, cut, cut_slot, s_p, v_p, **kw),
         (), moved=k3_moved(st["tab"], cut, cut_slot))
+    if not st["chunk2"]:
+        k3_line(torch, name, lambda: fix[1](
+            wmat, st["tab"], entry, cut, cut_slot, s_k, v_k, **kw), cut,
+            p["steps_p"], rows)
     (denseT,) = compare("k4_compact",
                         lambda: k4_compact.k4_compact(msym, mval, ORP=p["ORP"]),
                         lambda: k4_compact.k4_compact_ref(msym, mval,
@@ -584,6 +604,59 @@ def k1_line(torch, name, kname, kernel, lim, kw, rows):
           f"shared {plan['shared']} on {plan['sm_count']} SMs; G="
           f"{lim.shape[0]} H={kw['H']} md={kw['md']} NS={kw.get('NS', 1)}",
           flush=True)
+
+
+def k1p_line(torch, name, kernel, lim, kw, rows):
+    """A [k1] line for one k1_scan launch (``kernel()`` on lanes of limits
+    ``lim`` and keyword arguments ``kw``): its plan (T, lanes a block,
+    blocks, waves, shared bytes), its card time (profiler, the mean a
+    launch) and events time, and the chain floor: the longest lane's bits
+    to row steps (B + H) x CHAIN_CYCLES_A_ROW at the maximum SM clock, one
+    lookup a bit.  The card time goes into rows["k1_scan"] as device_ms."""
+    from huffmandecoderongpus_tpu_torch.ops import _build
+    from huffmandecoderongpus_tpu_torch.ops.k1_scan import k1_scan_plan
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    plan = k1_scan_plan(lim.shape[0], kw["H"], kw["steps_p"], kw["NS"],
+                        _build.sm_count(lim.device))
+    card_ms = device_breakdown(torch, kernel, per_launch=True).get("k1_scan")
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6
+    bits = max(min(int(lim.max()), kw["steps"]), 0)
+    floor_ms = bits * CHAIN_CYCLES_A_ROW / clock * 1e3
+    rows["k1_scan"]["device_ms"] = card_ms
+    card = ("not measured" if card_ms is None else
+            f"{card_ms:.4f} ms (profiler), {card_ms / floor_ms:.1f} times "
+            "the floor" if floor_ms else f"{card_ms:.4f} ms (profiler)")
+    print(f"[k1] {name}: k1_scan card {card}; events "
+          f"{rows['k1_scan']['ms']:.4f} ms; chain floor {floor_ms:.4f} ms "
+          f"({bits} bits x {CHAIN_CYCLES_A_ROW} cycles at "
+          f"{clock / 1e6:.0f} MHz); plan T={plan['T']} lanes "
+          f"{plan['lanes']} blocks {plan['blocks']} waves {plan['waves']} "
+          f"shared {plan['shared']} on {plan['sm_count']} SMs; G="
+          f"{lim.shape[0]} H={kw['H']} md=1 NS={kw['NS']}", flush=True)
+
+
+def k3_line(torch, name, kernel, cut, steps_p, rows):
+    """A [k3] line for one k3_fix launch (``kernel()`` on cut rows
+    ``cut``): its card time (profiler, the mean a launch) and events time
+    beside the chain floor: the longest cut in bits (at most steps_p) x
+    CHAIN_CYCLES_A_ROW at the maximum SM clock.  The card time goes into
+    rows["k3_fix"] as device_ms."""
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    card_ms = device_breakdown(torch, kernel, per_launch=True).get("k3_fix")
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6
+    longest = int(cut.clamp(0, steps_p).max()) if cut.numel() else 0
+    floor_ms = longest * CHAIN_CYCLES_A_ROW / clock * 1e3
+    rows["k3_fix"]["device_ms"] = card_ms
+    card = ("not measured" if card_ms is None else
+            f"{card_ms:.4f} ms (profiler), {card_ms / floor_ms:.1f} times "
+            "the floor" if floor_ms else f"{card_ms:.4f} ms (profiler)")
+    print(f"[k3] {name}: k3_fix card {card}; events "
+          f"{rows['k3_fix']['ms']:.4f} ms; longest cut {longest} bits, "
+          f"chain floor {floor_ms:.4f} ms ({CHAIN_CYCLES_A_ROW} cycles a bit "
+          f"at {clock / 1e6:.0f} MHz); lanes fixed "
+          f"{int((cut > 0).sum())} of {cut.numel()}", flush=True)
 
 
 _launch_floor = []
@@ -726,6 +799,75 @@ def check_k1_cases(torch, dev):
         k1_line(torch, what, kernel, lambda: getattr(mod, kernel)(
             *inputs, **kw), inputs[2], kw, rows)
     return out
+
+
+def check_k1p_cases(torch, dev):
+    """Phase 3, K1' and K3' at their edge cases (``probes.streams.
+    K1P_CASES``: a two-leaf tree, 128 and 255 states, a 31-bit comb tree,
+    1 and 37 lanes, lanes past the stream end, a phase-locked run, (c)'s
+    plan at an eighth, and K3' cuts on a cell boundary, mid-cell and past
+    the last segment) against their plain versions, with a [k1] and a [k3]
+    line each.  Returns {case: rows}, as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import k1_scan, k3_fix
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.K1P_CASES:
+        inputs, kw, cuts, _hf = ps.k1p_case(case, dev)
+        wmat, tab, lim = inputs
+        what = f"k1p {case}"
+        rows = out[what] = {}
+        compare = comparer(torch, what, rows)
+        compare("k1_scan", lambda: k1_scan.k1_scan(*inputs, **kw),
+                lambda: k1_scan.k1_scan_ref(*inputs, **kw), inputs)
+        k1p_line(torch, what, lambda: k1_scan.k1_scan(*inputs, **kw), lim,
+                 kw, rows)
+        ent, cut, cut_slot, sym, val = ps.k3p_inputs(inputs, kw, cuts)
+        k3 = dict(steps_p=kw["steps_p"], SEG=kw["SEG"], md=1, NS=kw["NS"])
+        s_k, v_k = sym.clone(), val.clone()
+        s_p, v_p = sym.clone(), val.clone()
+
+        def fix(s_k=s_k, v_k=v_k, ent=ent, cut=cut, cut_slot=cut_slot):
+            return k3_fix.k3_fix(wmat, tab, ent, cut, cut_slot, s_k, v_k,
+                                 **k3)
+
+        compare("k3_fix", fix, lambda: k3_fix.k3_fix_ref(
+            wmat, tab, ent, cut, cut_slot, s_p, v_p, **k3), (),
+            moved=k3_moved(tab, cut, cut_slot))
+        k3_line(torch, what, fix, cut, kw["steps_p"], rows)
+    return out
+
+
+def drive_states128(torch, mods, dev):
+    """Phase 4, the trees of exactly 128 internal states (129 symbols,
+    seed 1: one dominant byte, md 1; near-uniform weights, md >= 2), which
+    the port packs compact in one table chunk: decode_widescan through the
+    four-kernel program and, for md >= 2, the one-shot, each decode
+    counted on its own; raises unless the bytes are the input and the
+    path's kernels each launched once.  Returns the launch counts."""
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    total = dict.fromkeys(mods, 0)
+    for gen, path in ((lambda r: ps.dominant_byte(r, STATES128_BYTES, 129),
+                       MD1_PATH),
+                      (lambda r: ps.near_uniform(r, STATES128_BYTES, 129),
+                       PATHS["a"])):
+        raw = gen(np.random.default_rng(1))
+        hf = encode_bytes(raw)
+        st = ws.stage_widescan_inputs(hf, device=dev)
+        what = f"128 states, md {st['md']}, NS {st['NS']}"
+        routes = [(False, path)] + ([(True, ("oneshot",))]
+                                    if st["md"] > 1 else [])
+        for one, want in routes:
+            out, ran = counted(torch, mods, lambda: ws.decode_widescan(
+                hf, device=dev, oneshot=one))
+            expect(f"{what}, {'one-shot' if one else 'four kernels'}",
+                   np.array_equal(out, raw), ran, dict.fromkeys(want, 1))
+            for n, c in ran.items():
+                total[n] += c
+    return total
 
 
 def check_lanedfa(torch, name, raw, hf, dev):
@@ -1519,6 +1661,7 @@ def main() -> int:
         checked[k] = check_oneshot(torch, *hfs[k], dev)
     checked.update(check_oneshot_cases(torch, dev))
     checked.update(check_k1_cases(torch, dev))
+    checked.update(check_k1p_cases(torch, dev))
     checked.update(check_k1_main_cases(torch, dev))
     checked.update(check_k2_cases(torch, dev))
     for k in ENCODE_CHECKED:
@@ -1571,6 +1714,8 @@ def main() -> int:
         raise AssertionError(f"a kernel was not launched: {launches}")
     for k in ONESHOT_PATHS:
         drive("lane_oneshot", k)
+    for n, c in drive_states128(torch, mods, dev).items():
+        launches[n] += c
 
     for k, (name, r, h) in hfs.items():
         if k in "abc":

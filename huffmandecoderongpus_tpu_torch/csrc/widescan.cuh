@@ -337,6 +337,31 @@ __device__ __forceinline__ int32_t step_at(const int32_t* step, int off) {
       reinterpret_cast<const char*>(step) + off);
 }
 
+// The 1-bit step table (k1_scan.cu, k3_fix.cu: md = 1): the pair table
+// rewritten as one 32-bit entry a (state, bit), at byte offset state * 8 +
+// bit * 4: the post-bit state's byte offset (state * 8, bits 3-12), emit
+// (bit 15) and the symbol (bits 16-23, zero unless emit).  A chain carries
+// its state as that byte offset, so a step is lookup, one LOP3 (offset |
+// bit << 2), lookup.  Entry 0 (an invalid row) is the root with no
+// emission.  Both pair-table layouts decode through e1_fields (compact at
+// NS 1, wide past it); at NS 8 the table is 8 KB.
+constexpr int STEP1_NODE = 0x1FF8;
+constexpr int STEP1_EMIT = 1 << 15;
+
+__host__ __device__ constexpr int step1_bytes(int NS) { return NS * 128 * 8; }
+
+// The 1-bit step table of pair table `tab` (NS, 128) into shared memory, by
+// all threads of the block.
+__device__ __forceinline__ void stage_step_table1(int32_t* step,
+                                                  const uint32_t* tab,
+                                                  int NS) {
+  for (int i = threadIdx.x; i < NS * 256; i += blockDim.x) {
+    const uint32_t w = __ldg(&tab[i >> 1]);
+    const Bit st = e1_fields((w >> ((i & 1) << 4)) & 0xFFFFu, NS);
+    step[i] = st.node << 3 | st.emit << 15 | (st.emit ? st.sym : 0) << 16;
+  }
+}
+
 // The segment geometry of min code length MD, as ops/widescan.py _plan
 // makes it: SEG bits, SEGH 2-bit chunks, CELLS cells of 2 * MD chunks.
 template <int MD>

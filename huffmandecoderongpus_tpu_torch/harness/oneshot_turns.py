@@ -1,7 +1,7 @@
 """K4, the one-shot launch and K1 of one tree of the PyTorch port on a GPU,
 for timing two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2]
+    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1]
 
 Run it as a file, not with ``-m``, as ``scan_turns.py`` beside it: it
 imports the port from TREE (a checkout of this repository; default the one
@@ -43,6 +43,14 @@ beside the card's name and power limit:
              the kernel launches a call (profiler over every K2 kernel
              name, the three-launch design's too; "not measured" where no
              session's record was whole)
+  md1        k1_scan and k3_fix (md = 1) on (c) and on this checkout's
+             probes.streams.K1P_CASES (K3' on the cuts K1', K2 and
+             fix_rows give, or the case's own): by events and on the card,
+             beside each one's chain floor (K1': the longest lane's bits to
+             row steps, K3': the longest cut's bits, x 40 cycles at the
+             maximum SM clock) and, where the tree has ``k1_scan_plan``,
+             K1''s plan; and (c)'s ``wide_decode_program`` by events
+             (median of 25 after 3)
 
 The last line is one JSON object of every number.
 """
@@ -69,7 +77,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--sections", default="k4,oneshot,k1,k1main,k2")
+    ap.add_argument("--sections", default="k4,oneshot,k1,k1main,k2,md1")
     args = ap.parse_args()
     sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
@@ -180,6 +188,8 @@ def main() -> int:
         k1main_section(torch, cs, out, streams, dev, card, clock, args.tag)
     if "k2" in sections:
         k2_section(torch, cs, out, streams, small, trio, dev, card, args.tag)
+    if "md1" in sections:
+        md1_section(torch, cs, out, streams, dev, card, clock, args.tag)
     print(json.dumps(out))
     return 0
 
@@ -289,6 +299,83 @@ def k1main_section(torch, cs, out, streams, dev, card, clock, tag):
               f"card {own}; floor {floor:.4f} ms ({chunks} chunks); plan "
               f"{out[key]['plan']}; G={G} md={st['md']} NS={st['NS']} steps_p={p['steps_p']}; "
               f"card {card}", flush=True)
+
+
+def md1_section(torch, cs, out, streams, dev, card, clock, tag):
+    """The md1 section: K1' and K3' on (c) and on the K1P cases, and (c)'s
+    program.  The cases come from this checkout's ``probes/streams.py``
+    (a parent tree may not have them), staged by the tree's own code."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import _build, k1_scan, k3_fix
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    spec = importlib.util.spec_from_file_location(
+        "k1p_streams",
+        HERE / "huffmandecoderongpus_tpu_torch" / "probes" / "streams.py")
+    ps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ps)
+    st = ws.stage_widescan_inputs(encode_bytes(streams["c"][1]), device=dev)
+    p = st["plan"]
+    wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+    kw = dict(B=p["B"], H=st["H"], steps=p["steps"], steps_p=p["steps_p"],
+              SEG=p["SEG"], md=st["md"], NS=st["NS"])
+    cases = [("c", (wmat, st["tab"], st["lim"]), kw, None)]
+    for case in ps.K1P_CASES:
+        inputs, kwc, cuts, _hf = ps.k1p_case(case, dev)
+        cases.append((case, inputs, kwc, cuts))
+    plan_fn = getattr(k1_scan, "k1_scan_plan", None)
+    for key, inputs, kw, cuts in cases:
+        wmat, tab, lim = inputs
+        ent, cut, cut_slot, sym, val = ps.k3p_inputs(inputs, kw, cuts)
+        k3kw = dict(steps_p=kw["steps_p"], SEG=kw["SEG"], md=1, NS=kw["NS"])
+
+        def k1(inputs=inputs, kw=kw):
+            return k1_scan.k1_scan(*inputs, **kw)
+
+        def k3(wmat=wmat, tab=tab, ent=ent, cut=cut, cut_slot=cut_slot,
+               sym=sym, val=val, k3kw=k3kw):
+            return k3_fix.k3_fix(wmat, tab, ent, cut, cut_slot, sym, val,
+                                 **k3kw)
+
+        row = dict(G=lim.shape[0], H=kw["H"], NS=kw["NS"],
+                   steps_p=kw["steps_p"])
+        bits = max(min(int(lim.max()), kw["steps"]), 0)
+        longest = int(cut.clamp(0, kw["steps_p"]).max())
+        for name, fn, n in (("k1_scan", k1, bits), ("k3_fix", k3, longest)):
+            ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+            card_ms = cs.device_breakdown(torch, fn, per_launch=True).get(
+                name)
+            floor = n * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+            row[name] = dict(events_ms=ev, card_ms=card_ms, floor_ms=floor,
+                             floor_bits=n)
+        plan = plan_fn and plan_fn(lim.shape[0], kw["H"], kw["steps_p"],
+                                   kw["NS"], _build.sm_count(dev))
+        row["plan"] = plan and {x: plan[x] for x in (
+            "T", "lanes", "blocks", "waves", "shared")}
+        out[f"md1_{key}"] = row
+
+        def own(r):
+            if r["card_ms"] is None:
+                return "not measured"
+            x = r["card_ms"] / r["floor_ms"] if r["floor_ms"] else 0.0
+            return f"{r['card_ms']:.4f} ms, {x:.1f} times the floor"
+
+        print(f"[md1] {tag} ({key}): k1_scan events "
+              f"{row['k1_scan']['events_ms']:.4f} ms, card "
+              f"{own(row['k1_scan'])} ({bits} bits); k3_fix events "
+              f"{row['k3_fix']['events_ms']:.4f} ms, card "
+              f"{own(row['k3_fix'])} (longest cut {longest} bits); plan "
+              f"{row['plan']}; G={lim.shape[0]} H={kw['H']} NS={kw['NS']}; "
+              f"card {card}", flush=True)
+    args1 = (st["words"], st["tab"], st["lim"])
+    a4 = ws.program_args(st)
+    ts = event_ms(lambda: ws.wide_decode_program(*args1, **a4),
+                  WARMUP + RUNS)[WARMUP:]
+    out["program_c"] = dict(events_ms=statistics.median(ts))
+    print(f"[md1] {tag} program_c: wide_decode_program events "
+          f"{statistics.median(ts):.4f} ms (min {min(ts):.4f}); card {card}",
+          flush=True)
 
 
 #: K2's kernel names: this design's one, and the three-launch design's

@@ -82,8 +82,8 @@ _SIGNATURES = {
     # shared, stream
     "ws_k4_compact": [_P] * 3 + [_I] * 9 + [_P],
     # wmat, tab, lim, sym, val, cntmap, exmap, mrowmap,
-    # G, steps_w, B, H, steps, steps_p, NS, stream
-    "ws_k1_scan": [_P] * 8 + [_I] * 7 + [_P],
+    # G, steps_w, B, H, steps, steps_p, NS, T, shared, stream
+    "ws_k1_scan": [_P] * 8 + [_I] * 9 + [_P],
     # wmat, tab, ent, cut, cutsl, sym, val, G, steps_w, steps_p, NS, stream
     "ws_k3_fix": [_P] * 7 + [_I] * 4 + [_P],
     # bits, tab, cnt, ex, G, B, H, N, tab_words, L, R, vec, shared, stream

@@ -9,7 +9,10 @@ walk at the root) up to its ``cut`` row, and the re-decoded slots below
 ``cut_slot`` replace the main scan's; the cell holding ``cut_slot`` is
 spliced under a mask.  There is no stream-limit mask: the splice bounds
 what is used.  Both versions update ``sym``/``val`` IN PLACE (the TPU kernel
-aliases them to its outputs) and return them.
+aliases them to its outputs) and return them.  On the card a thread walks a
+lane on the 1-bit step table in shared memory (``csrc/widescan.cuh``
+``stage_step_table1``, K1''s table) and stores the cells below the one
+holding ``cut_slot`` without reading them.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def k3_fix(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, NS):
     global launches
     _build.require_cuda("k3_fix", wmat, tab, ent, cut, cut_slot, sym, val)
     steps_w, G = wmat.shape
-    if (md != 1 or SEG != 32 or NS > 8 or tab.shape[0] != NS
+    if (md != 1 or SEG != 32 or not 1 <= NS <= 8 or tab.shape[0] != NS
             or steps_p % SEG or steps_w * 32 < steps_p
             or sym.shape != (steps_p // CELL, G)):
         raise ValueError("geometry outside the K3' kernel's bounds (see _plan)")

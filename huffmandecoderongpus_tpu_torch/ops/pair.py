@@ -4,7 +4,7 @@ The pair table (``widescan.pack_pair_table``) holds one 32-bit word per
 state whose 16-bit half ``b`` is the entry for reading bit ``b``; row c of
 the (NS, 128) table holds states [c*128, c*128+128), so the flattened table
 is indexed by the state itself.  Entries come in two layouts: compact (up to
-127 states, ``NS == 1``) sym<<8 | emit<<7 | next state, and wide (``NS >
+128 states, ``NS == 1``) sym<<8 | emit<<7 | next state, and wide (``NS >
 1``) emit<<15 | sym<<1 when emitting (the next state is the root), the bare
 state otherwise.
 """

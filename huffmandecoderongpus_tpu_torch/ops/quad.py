@@ -2,7 +2,7 @@
 
 The quad table (``widescan.pack_quad_tables``) holds, for every state and
 first chunk bit b0, one 32-bit word whose 16-bit half b1 is the entry for the
-2-bit chunk (b0, b1).  Entries come in two layouts: compact (up to 127
+2-bit chunk (b0, b1).  Entries come in two layouts: compact (up to 128
 states, ``NS == 1``) and wide (``NS > 1``).  Values are carried as int64 so
 the table's uint32 bit patterns never meet a sign.
 """

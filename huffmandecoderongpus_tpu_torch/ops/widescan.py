@@ -57,7 +57,13 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import (
 )
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL, to_i32, u32
 
-MAX_STATES = 127  # compact-entry limit: the state field is 7 bits
+#: the batched decode's state limit, the JAX package's compact-entry limit
+#: (its ``MAX_STATES``); the port's tables hold up to 128 states compact
+MAX_STATES = 127
+#: states a compact entry holds (its 7-bit state field: states 0-127), so
+#: every table of one chunk (NS = 1) is compact and every larger one wide,
+#: which is how every reader picks the layout
+COMPACT_STATES = 128
 MAX_STATES_WIDE = 1023  # LaneDFA STATE_MASK bound; wide entries hold 15 bits
 #: the map rows (HP) must fit K2's 128 entry offsets
 MAX_HEIGHT = 128
@@ -74,10 +80,12 @@ ONESHOT_MAX_BITS = 1 << 21
 def pack_pair_table(dfa: LaneDFA) -> np.ndarray:
     """(NS, 128) int32 pair table for the 1-bit kernels: one word per state,
     entry(bit 0) | entry(bit 1) << 16; row c holds states [c*128,
-    c*128+128).  Up to 127 states the compact entry sym<<8 | emit<<7 |
-    next state (an emitting entry's next state is the root, and a
-    non-emitting one carries zero sym bits); beyond that the wide entry
-    emit<<15 | sym<<1 when emitting, the bare state otherwise."""
+    c*128+128).  Up to 128 states (NS = 1) the compact entry sym<<8 |
+    emit<<7 | next state (an emitting entry's next state is the root, and
+    a non-emitting one carries zero sym bits); beyond that the wide entry
+    emit<<15 | sym<<1 when emitting, the bare state otherwise.  The JAX
+    package packs 128 states wide in one chunk, which its readers take
+    for compact (``compact_from_jax``)."""
     n_states = dfa.entry.shape[0] // 2
     if n_states > MAX_STATES_WIDE:
         raise ValueError(
@@ -89,7 +97,7 @@ def pack_pair_table(dfa: LaneDFA) -> np.ndarray:
         emit = (e & EMIT_BIT) != 0
         state = np.where(emit, 0, e & STATE_MASK)
         sym = np.where(emit, (e >> 16) & 0xFF, 0)
-        if n_states > MAX_STATES:
+        if n_states > COMPACT_STATES:
             e16 = np.where(emit, 0x8000 | (sym << 1), state)
         else:
             e16 = (sym << 8) | (emit.astype(np.int64) << 7) | state
@@ -102,16 +110,16 @@ def pack_quad_tables(dfa: LaneDFA):
     states [c*128, c*128+128), selected by the chunk's first bit; the second
     bit picks the 16-bit half.  Requires md >= 2.
 
-    Two 16-bit entry layouts: up to 127 states the compact layout
+    Two 16-bit entry layouts: up to 128 states (NS = 1) the compact layout
     sym<<8 | emit<<7 | post_state (post state 0 = root if the chunk's second
     bit emitted, else C[b1]; non-emitting entries carry zero sym bits);
-    beyond 127 states the wide layout (emit<<15 | sym<<1 | pos when
+    beyond 128 states the wide layout (emit<<15 | sym<<1 | pos when
     emitting, the bare state otherwise)."""
     n_states = dfa.entry.shape[0] // 2
     if n_states > MAX_STATES_WIDE:
         raise ValueError(
             f"{n_states} states > {MAX_STATES_WIDE} (wide quad table)")
-    big = n_states > MAX_STATES
+    big = n_states > COMPACT_STATES
     NS = max(1, -(-n_states // 128))
     ent = dfa.entry.astype(np.int64)
 
@@ -254,13 +262,40 @@ def stage_widescan_inputs(hf, *, device, lanes=None):
                 lim=torch.from_numpy(lim).to(device))
 
 
+def compact_from_jax(tab: np.ndarray, NS: int, quad: bool, C0: int,
+                     C1: int) -> np.ndarray:
+    """A JAX package's pair (``quad`` False) or quad table in the port's
+    layout: the JAX packers take the wide layout past 127 states, so a
+    tree of exactly 128 states comes packed wide in one chunk, which every
+    reader (theirs too) decodes as compact.  Such a table (NS = 1 and
+    state 127 present: column 127 is nonzero, since every live state has
+    nonzero entries) is rewritten compact, entry for entry; every other
+    table is the port's already and comes back as it is."""
+    tab = np.asarray(tab, dtype=np.int32)
+    if NS != 1 or not tab[:, 127].any():
+        return tab
+    w = tab.astype(np.int64) & 0xFFFFFFFF
+    out = np.zeros_like(w)
+    for half in (0, 1):
+        e = (w >> (16 * half)) & 0xFFFF
+        emit = (e & 0x8000) != 0
+        post = 0
+        if quad:  # an emission on the chunk's first bit ends at C[b1]
+            post = np.where(e & 1, 0, C1 if half else C0)
+        comp = np.where(emit, ((e >> 1) & 0xFF) << 8 | 0x80 | post, e)
+        out |= comp << (16 * half)
+    return out.astype(np.uint32).view(np.int32)
+
+
 def from_jax_staging(st: dict, device) -> dict:
     """The port's staged tensors from a staging dict of the JAX package,
     its arrays given as numpy beside the plan scalars: that of
     ``stage_widescan_inputs`` (``tabw``, ``words``, ``lim2``), of
     ``stage_widescan_indexed`` (``raw``/``sh`` for ``words``, with the
     index ``counts`` and ``nb``) or of ``stage_batch_inputs`` (``tab_bounds``
-    and ``c01``: per-stream tables, see ``batch.from_jax_batch``)."""
+    and ``c01``: per-stream tables, see ``batch.from_jax_batch``).  A
+    table the JAX package packed wide at 128 states comes converted to
+    the port's compact layout (``compact_from_jax``)."""
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
@@ -269,8 +304,10 @@ def from_jax_staging(st: dict, device) -> dict:
         from huffmandecoderongpus_tpu_torch.ops.batch import from_jax_batch
 
         return from_jax_batch(st, device)
+    tab = compact_from_jax(np.asarray(st["tabw"]), st["NS"],
+                           st.get("chunk2", True), st["C0"], st["C1"])
     out = dict(plan=dict(st["plan"]), H=st["H"], md=st["md"], C0=st["C0"],
-               C1=st["C1"], NS=st["NS"], tab=t(st["tabw"]),
+               C1=st["C1"], NS=st["NS"], tab=t(tab),
                lim=t(st["lim2"]).reshape(-1))
     if "raw" in st:  # indexed
         out.update(raw=t(st["raw"]), sh=t(st["sh"]),

@@ -375,3 +375,128 @@ def k2_exmap(case, device):
         keep = rng.random(G) < 0.02
         ex[1:, ~keep] = ex[0, ~keep]
     return torch.from_numpy(ex).to(device)
+
+
+def dominant_byte(rng, n, symbols=256, weight=300.0):
+    """``n`` bytes over ``symbols`` byte values, byte 0 at ``weight`` and the
+    rest at 1: byte 0 takes a 1-bit code (md 1), and the tree has
+    ``symbols - 1`` internal states (``chip_smoke.py``'s (c) at 256)."""
+    w = np.full(symbols, 1.0)
+    w[0] = weight
+    return rng.choice(np.arange(symbols, dtype=np.uint8), size=n,
+                      p=w / w.sum()).astype(np.uint8)
+
+
+def near_uniform(rng, n, symbols):
+    """``n`` bytes over ``symbols`` byte values at weights 1-2."""
+    w = 1.0 + rng.random(symbols)
+    return rng.choice(np.arange(symbols, dtype=np.uint8), size=n,
+                      p=w / w.sum()).astype(np.uint8)
+
+
+def fib_md1_stream(rng, n, n_sym=32):
+    """(raw, HuffFile) of ``n`` bytes drawn from Fibonacci weights over
+    ``n_sym`` symbols, with each of the 8 deepest symbols 20 times: a comb
+    tree (md 1, codes up to n_sym - 1 bits), which the encoder builds from
+    the weights, not the sample."""
+    from huffmandecoderongpus_tpu_torch.huffio import build_tree
+
+    fib = [1, 1]
+    while len(fib) < n_sym:
+        fib.append(fib[-1] + fib[-2])
+    counts = np.array(fib[::-1], dtype=np.int64)
+    raw = rng.choice(np.arange(n_sym, dtype=np.uint8), size=n,
+                     p=counts / counts.sum()).astype(np.uint8)
+    raw[rng.choice(n, size=160, replace=False)] = np.repeat(
+        np.arange(n_sym - 8, n_sym, dtype=np.uint8), 20)
+    freqs = np.zeros(256, dtype=np.int64)
+    freqs[:n_sym] = counts
+    return raw, encode_bytes(raw, tree=build_tree(freqs))
+
+
+#: K1''s and K3''s edge cases (``k1p_case``; md 1 throughout): a two-leaf
+#: tree (height 1: the leader alone, no follower; the cheap case); a tree of
+#: exactly 128 internal states (129 symbols: the compact layout's largest,
+#: NS 1) and of 255 (256 symbols, the most a byte tree has: NS 2); a comb
+#: tree from Fibonacci weights (codes up to 31 bits: 30 candidate chains,
+#: several followers a thread); small and odd G (1 and 37 lanes cut from a
+#: staging); lanes past the stream end; a run of a 10-bit code, where
+#: chains phase-lock and live for many segments; (c)'s shape at an eighth
+#: of its size (its plan's team of 4); and K3' cuts on a cell boundary,
+#: mid-cell and past the last segment (a full replay), set by hand
+K1P_CASES = ("h1", "ns1-128", "ns2-255", "fib", "g1", "g37", "tail-4096",
+             "blank", "c-small", "cut-cell", "cut-mid", "cut-full")
+#: (c)'s shape at an eighth: the bytes and the lanes, which keep (c)'s ~76
+#: segments a lane and a grid busy enough for its plan's team of 4
+C_SMALL_BYTES, C_SMALL_LANES = 1 << 20, 4352
+
+
+def k1p_case(case, device):
+    """(inputs, kw, cuts, hf) of one of K1P_CASES, drawn from seed 51:
+    ``k1_scan``'s tensors (wmat, tab, lim) on ``device``, its keyword
+    arguments, K3''s (ent, cut, cut_slot) where the case sets them by hand
+    (else None: they come from K1', K2 and ``fix_rows``) and the stream."""
+    import torch
+
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    rng = np.random.default_rng(51)
+    G = None
+    if case == "h1":
+        hf = encode_bytes((rng.random(60_000) < 0.3).astype(np.uint8))
+    elif case == "ns1-128":
+        hf = encode_bytes(dominant_byte(rng, 60_000, 129))
+    elif case == "fib":
+        _raw, hf = fib_md1_stream(rng, 40_000)
+    elif case == "tail-4096":
+        hf = encode_bytes(dominant_byte(rng, 20_000))
+        G = 4096
+    elif case == "blank":
+        raw = dominant_byte(rng, 200_000)
+        raw[60_000:100_000] = 1  # a 10-bit code, over and over
+        hf = encode_bytes(raw)
+    elif case == "c-small":
+        hf = encode_bytes(dominant_byte(rng, C_SMALL_BYTES))
+        G = C_SMALL_LANES
+    else:  # ns2-255, g1, g37 and the cuts: 256 symbols
+        hf = encode_bytes(dominant_byte(rng, 40_000))
+    st = (staging_at(hf, G, device) if G is not None
+          else ws.stage_widescan_inputs(hf, device=device))
+    p = st["plan"]
+    wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+    tab, lim = st["tab"], st["lim"]
+    if case in ("g1", "g37"):  # a lane's K1 reads its own column only
+        n = int(case[1:])
+        wmat, lim = wmat[:, :n].contiguous(), lim[:n].contiguous()
+    kw = dict(B=p["B"], H=st["H"], steps=p["steps"], steps_p=p["steps_p"],
+              SEG=p["SEG"], md=st["md"], NS=st["NS"])
+    cuts = None
+    if case.startswith("cut-"):
+        Gl = lim.shape[0]
+        ent = rng.integers(0, st["H"], Gl)
+        if case == "cut-full":  # past the last segment: every cell
+            cut = np.full(Gl, p["steps_p"] + 1)
+        else:  # past the entry, on a cell's first slot or its third
+            k = rng.integers(st["H"] // 4 + 1, p["steps_p"] // 4, Gl)
+            cut = 4 * k + (2 if case == "cut-mid" else 0)
+        cut = np.where(rng.random(Gl) < 0.1, 0, cut)
+        cuts = tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                     for a in (ent, cut, cut))
+    return (wmat, tab, lim), kw, cuts, hf
+
+
+def k3p_inputs(inputs, kw, cuts):
+    """K3''s (ent, cut, cut_slot, sym, val) on a K1P case: its own cuts or
+    those the plain K1', K2 and ``fix_rows`` give, and the plain K1''s
+    cells (which K3' splices in place: callers clone them)."""
+    from huffmandecoderongpus_tpu_torch.ops import k1_scan, k2_compose
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    wmat, tab, lim = inputs
+    sym, val, _cntmap, exmap, mrowmap = k1_scan.k1_scan_ref(wmat, tab, lim,
+                                                            **kw)
+    if cuts is None:
+        entry, _tot = k2_compose.k2_compose_ref(exmap, 0)
+        cut, cut_slot = ws.fix_rows(entry, mrowmap, lim, kw["H"], 1)
+        cuts = (entry, cut, cut_slot)
+    return (*cuts, sym, val)

@@ -37,7 +37,14 @@ a plan outside their rules.  The indexed main scan (``k1_main``) runs at
 its edges (``probes.streams.K1_MAIN_CASES``) at every block size its plan
 may pick, and K2 at the edges of its tiles (``K2_CASES``): one launch and
 one kernel a call, each leaving its tickets at 0 and its look-back's epoch
-one further, on two streams; both launchers refuse other plans.  Tolerance: bit-exact (integer outputs).
+one further, on two streams; both launchers refuse other plans.  The
+1-bit K1' (a team a lane on the 1-bit step table) and K3' run at their
+edges (``K1P_CASES``: a two-leaf tree, 128 and 255 states, a 31-bit comb
+tree, 1 and 37 lanes, lanes past the stream end, a phase-locked run, (c)'s
+plan at an eighth, K3' cuts on a cell boundary, mid-cell and past the last
+segment), K1''s launcher refuses other plans, and trees of exactly 128
+internal states decode through the four kernels and the one-shot.
+Tolerance: bit-exact (integer outputs).
 """
 
 import numpy as np
@@ -62,7 +69,8 @@ from huffmandecoderongpus_tpu_torch.ops import widescan
 from huffmandecoderongpus_tpu_torch.ops import k4_stripped, probe_arith
 from huffmandecoderongpus_tpu_torch.ops import probe_gather, probe_inc
 from huffmandecoderongpus_tpu_torch.probes import streams as ps
-from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, comb_stream
+from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, STATES128
+from torch_streams import comb_stream
 from torch_streams import fib_tree_data
 from torch_streams import fuzz, fuzz_any, make, make_batch, make_indexed
 from torch_streams import placed_lanes, text_like
@@ -330,6 +338,78 @@ def test_k1_edges_match_plain(cuda, case):
     want = getattr(mod, kernel + "_ref")(*inputs, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ps.K1P_CASES)
+def test_k1p_edges_match_plain(cuda, case):
+    # the 1-bit K1' (a team a lane on the 1-bit step table) and K3' (no
+    # read but the cut cell) at their edges: a two-leaf tree, 128 and 255
+    # states (NS 1 and 2), a 31-bit comb tree (30 chains), 1 and 37 lanes,
+    # lanes past the stream end, a phase-locked run, (c)'s plan at an
+    # eighth, and K3' cuts on a cell boundary, mid-cell and past the last
+    # segment
+    inputs, kw, cuts, _hf = ps.k1p_case(case, cuda)
+    got, ran = _launched(lambda: k1_scan.k1_scan(*inputs, **kw))
+    assert ran == {"k1_scan": 1}
+    want = k1_scan.k1_scan_ref(*inputs, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    ent, cut, cut_slot, sym, val = ps.k3p_inputs(inputs, kw, cuts)
+    k3 = dict(steps_p=kw["steps_p"], SEG=kw["SEG"], md=1, NS=kw["NS"])
+    (s, v), ran = _launched(lambda: k3_fix.k3_fix(
+        inputs[0], inputs[1], ent, cut, cut_slot, sym.clone(), val.clone(),
+        **k3))
+    assert ran == {"k3_fix": 1}
+    rs, rv = k3_fix.k3_fix_ref(inputs[0], inputs[1], ent, cut, cut_slot,
+                               sym.clone(), val.clone(), **k3)
+    assert torch.equal(s, rs) and torch.equal(v, rv)
+
+
+@pytest.mark.parametrize("name", sorted(STATES128))
+def test_128_states_decode_on_cuda(cuda, name):
+    # a tree of exactly 128 internal states (the compact layout's largest):
+    # the four-kernel program, and the one-shot route for md >= 2
+    raw, hf = make(name, seed=1)
+    path = (("k1_scan", "k3_fix") if name == "s128md1"
+            else ("k1_scan2", "k3_fix2"))
+    out, ran = _launched(lambda: widescan.decode_widescan(
+        hf, device=cuda, oneshot=False))
+    assert ran == dict.fromkeys((*path, "k2_compose", "k4_compact"), 1)
+    np.testing.assert_array_equal(out, raw)
+    if name == "s128":
+        out, ran = _launched(lambda: widescan.decode_widescan(
+            hf, device=cuda, oneshot=True))
+        assert ran == {"oneshot": 1}
+        np.testing.assert_array_equal(out, raw)
+
+
+def test_k1_scan_launcher_refuses_other_plans(cuda):
+    # a K1' plan outside the launcher's rules is refused, nothing launched
+    lib = _build.get_lib()
+    G, H, NS, B = 37, 9, 1, 32
+    steps, steps_p = B + H, 64
+    wmat = torch.zeros((2, G), dtype=torch.int32, device=cuda)
+    tab = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
+    lim = torch.full((G,), 32, dtype=torch.int32, device=cuda)
+    sym = torch.empty((16, G), dtype=torch.int32, device=cuda)
+    val = torch.empty((16, G), dtype=torch.uint8, device=cuda)
+    maps = [torch.empty((16, G), dtype=torch.int32, device=cuda)
+            for _ in range(3)]
+    p = k1_scan.k1_scan_plan(G, H, steps_p, NS)
+
+    def k1(G=G, H=H, NS=NS, T=p["T"], shared=p["shared"], steps_p=steps_p):
+        return lib.ws_k1_scan(
+            wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), sym.data_ptr(),
+            val.data_ptr(), *(m.data_ptr() for m in maps), G, 2, B, H, steps,
+            steps_p, NS, T, shared, _build.stream_ptr(wmat))
+
+    assert k1() == 0
+    for bad in (dict(T=2), dict(T=12), dict(T=64), dict(shared=16),
+                dict(shared=p["shared"] - 16), dict(shared=p["shared"] + 8),
+                dict(shared=228 * 1024), dict(G=0), dict(NS=0), dict(NS=9),
+                dict(H=129), dict(steps_p=48), dict(steps_p=96)):
+        assert k1(**bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 def _tall_stream():

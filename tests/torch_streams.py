@@ -88,6 +88,22 @@ def md1_phase_locked(rng):
     return data
 
 
+def states128_md1(rng, n):
+    """129 symbols, byte 0 at weight 300: md 1 over a tree of exactly 128
+    internal states, the most the compact table layout holds."""
+    return port_streams.dominant_byte(rng, n, 129)
+
+
+def states128(rng, n):
+    """129 near-uniform symbols: md >= 2 over 128 internal states."""
+    return port_streams.near_uniform(rng, n, 129)
+
+
+#: trees of exactly 128 internal states (drawn from seed 1): the port packs
+#: them compact in one table chunk, the JAX package wide, which its readers
+#: take for compact (ROADMAP Queue 3)
+STATES128 = {"s128md1": (states128_md1, 60000), "s128": (states128, 60000)}
+
 #: name -> (generator, symbols): the shapes of the chunked (md >= 2) path
 SHAPES = {
     "text": (text_like, 20000),
@@ -107,7 +123,7 @@ MD1_SHAPES = {
 
 def make(name, seed=0):
     """(raw bytes, HuffFile) of one named shape."""
-    gen, n = {**SHAPES, **MD1_SHAPES}[name]
+    gen, n = {**SHAPES, **MD1_SHAPES, **STATES128}[name]
     rng = np.random.default_rng(seed)
     raw = gen(rng) if n is None else gen(rng, n)
     return raw, encode_bytes(raw)
