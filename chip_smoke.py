@@ -72,7 +72,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               (probes.streams.ONESHOT_CASES: one candidate chain, md 8, a
               tree 128 tall, the envelope-edge stream, G = 128 and 4,096),
               the encoder's E1/E2/E3 on the
-              staging of (a), (b), (c), (e) and (f); K1's main scan
+              staging of (a)-(c) and (e)-(i), with an [e1] and an [e2]
+              line each (the plan, the card time (profiler, taken in a
+              fresh process of this script run with --encode-card-ms,
+              which prints it as JSON and exits) and the bytes bound),
+              E1 and E2 also at their edges (probes.streams.
+              E_CASES: all 256 symbols, 26-bit codes, a one-symbol tree,
+              lanes with no symbol, row blocks starting in pad rows and
+              inside a granule, the overflow stream; E2 also at an ORP
+              that drops ranks, E_SMALL_ORP); K1's main scan
               (k1_main) and K4 on the indexed (a), (b) and (i) (a [k1]
               line each: card ms, plan, chain floor), k1_main also at its
               edges (probes.streams.K1_MAIN_CASES: every block ending on
@@ -324,7 +332,7 @@ BATCH_PATH = ("k1_scan2_c01", "k2_compose", "k3_fix2_c01", "k4_compact")
 ENCODE_PATH = ("e1_pack", "e2_compact", "e3_place")
 #: the streams whose staging phase 3 runs E1-E3 on, and those whose
 #: device-encoded stream lane_wide decodes in phase 4
-ENCODE_CHECKED = "abcef"
+ENCODE_CHECKED = "abcefghi"
 ENCODE_DECODED = "acf"
 #: the one-shot streams
 ONESHOT = "fghi"
@@ -1080,12 +1088,15 @@ def check_oneshot_cases(torch, dev):
     return out
 
 
-def check_encoder(torch, name, raw, hf, dev):
+def check_encoder(torch, name, raw, hf, dev, card_ms):
     """Phase 3 of the encoder on one stream: E1, E2 and E3 against their
     plain versions on the staging encode_lanes gives them, each stage fed
     by the previous kernel's output, then the payload against the host
-    encoder's.  Returns and raises as check_kernels."""
+    encoder's; an [e1] and an [e2] line with ``card_ms`` ({kernel: card
+    ms}, from ``encode_card_ms_fresh``).  Returns and raises as
+    check_kernels."""
     from huffmandecoderongpus_tpu_torch.ops import (
+        _build,
         e1_pack,
         e2_compact,
         e3_place,
@@ -1102,10 +1113,16 @@ def check_encoder(torch, name, raw, hf, dev):
     gran, gval, cnt, bits = compare(
         "e1_pack", lambda: e1_pack.e1_pack(*args),
         lambda: e1_pack.e1_pack_ref(*args), args)
+    e_line(name, "e1_pack", card_ms.get("e1_pack"),
+           e1_pack.e1_plan(p["G"], p["K"], _build.sm_count(dev),
+                           st["data3"].data_ptr()), rows)
     ORP, NROWS = p["ORP"], p["NROWS"]
     (denseT,) = compare(
         "e2_compact", lambda: e2_compact.e2_compact(gran, gval, ORP=ORP),
         lambda: e2_compact.e2_compact_ref(gran, gval, ORP=ORP), (gran, gval))
+    e_line(name, "e2_compact", card_ms.get("e2_compact"),
+           e2_compact.e2_plan(p["G"], 2 * p["K"], ORP, _build.sm_count(dev),
+                              gran.data_ptr(), gval.data_ptr()), rows)
     shift, word_off, occ = encode.lane_offsets(bits)
     e3a = (encode.shift_lanes(denseT, cnt, shift), word_off, occ)
     # E3 reads only each lane's occupied granules, and writes the payload
@@ -1121,6 +1138,93 @@ def check_encoder(torch, name, raw, hf, dev):
     print(f"[kernels] {name}: E1-E3 bit-exact; payload equal to the host "
           "encoder's", flush=True)
     return rows
+
+
+def e_line(name, kname, card_ms, plan, rows):
+    """An [e1] or [e2] line for one E1 or E2 stream: the kernel's plan, its
+    card time ``card_ms`` (or None) against its bytes bound, and its events
+    time.  The card time goes into rows[kname] as device_ms."""
+    r = rows[kname]
+    r["device_ms"] = card_ms
+    card = ("not measured" if card_ms is None else
+            f"{card_ms:.4f} ms (profiler, a fresh process), "
+            f"{card_ms / r['bound_ms']:.1f} times the bound")
+    tag = "e1" if kname == "e1_pack" else "e2"
+    print(f"[{tag}] {name}: {kname} card {card}; events {r['ms']:.4f} ms; "
+          f"bytes bound {r['bound_ms']:.6f} ms; plan {plan}", flush=True)
+
+
+#: the option that runs this script as encode_card_ms_fresh's child
+ENCODE_CARD_ARG = "--encode-card-ms"
+
+
+def encode_card_ms(torch, streams, dev):
+    """{stream: {"e1_pack": ms, "e2_compact": ms}}: E1's and E2's card time
+    a launch (profiler, device_breakdown's per_launch mean; None where it
+    recorded none) on the encoder's staging of ENCODE_CHECKED."""
+    from huffmandecoderongpus_tpu_torch.ops import e1_pack, e2_compact, encode
+
+    out = {}
+    for k in ENCODE_CHECKED:
+        st = encode.stage_encode_inputs(streams[k][1], device=dev)
+        args = (st["data3"], st["lo"], st["hi"], st["nval"])
+        gran, gval, _cnt, _bits = e1_pack.e1_pack(*args)
+        ORP = st["plan"]["ORP"]
+        out[k] = {
+            "e1_pack": device_breakdown(
+                torch, lambda: e1_pack.e1_pack(*args),
+                per_launch=True).get("e1_pack"),
+            "e2_compact": device_breakdown(
+                torch, lambda: e2_compact.e2_compact(gran, gval, ORP=ORP),
+                per_launch=True).get("e2_compact")}
+    return out
+
+
+def encode_card_ms_fresh():
+    """encode_card_ms from a fresh process of this script (its last line):
+    this long process's profiler records nothing in most sessions after its
+    first phases (PERF.md section 7), a new one's in each.  {} if the child
+    fails."""
+    r = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
+                        ENCODE_CARD_ARG], capture_output=True, text=True,
+                       timeout=600)
+    lines = r.stdout.strip().splitlines()
+    if r.returncode or not lines:
+        print(f"[e1] the card-time process failed (rc {r.returncode}): "
+              f"{r.stderr.strip()[-500:]}", flush=True)
+        return {}
+    return json.loads(lines[-1])
+
+
+def check_encoder_cases(torch, dev):
+    """Phase 3, E1 and E2 at their edge cases (``probes.streams.E_CASES``)
+    against their plain versions: E1 on the case's staging, E2 on E1's rows
+    at the plan's ORP and at E_SMALL_ORP, which drops ranks.  Returns
+    {case: rows}, as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import _build, e1_pack, e2_compact
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.E_CASES:
+        _raw, _tree, _lanes, st = ps.e_case(case, dev)
+        p = st["plan"]
+        args = (st["data3"], st["lo"], st["hi"], st["nval"])
+        what = f"encode {case} G={p['G']} K={p['K']}"
+        plan = e1_pack.e1_plan(p["G"], p["K"], _build.sm_count(dev),
+                               st["data3"].data_ptr())
+        print(f"[kernels] {what}: E1 plan {plan}", flush=True)
+        rows = out[what] = {}
+        gran, gval, _cnt, _bits = comparer(torch, what, rows)(
+            "e1_pack", lambda: e1_pack.e1_pack(*args),
+            lambda: e1_pack.e1_pack_ref(*args), args)
+        for ORP in (p["ORP"], ps.E_SMALL_ORP):
+            at = f"{what} ORP={ORP}"
+            comparer(torch, at, out.setdefault(at, {}))(
+                "e2_compact",
+                lambda: e2_compact.e2_compact(gran, gval, ORP=ORP),
+                lambda: e2_compact.e2_compact_ref(gran, gval, ORP=ORP),
+                (gran, gval))
+    return out
 
 
 def check_indexed(torch, name, raw, hf, dev):
@@ -1640,6 +1744,9 @@ def main() -> int:
     # ---- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(SEED)
     streams = draw_streams(rng)
+    if sys.argv[1:] == [ENCODE_CARD_ARG]:
+        print(json.dumps(encode_card_ms(torch, streams, dev)))
+        return 0
     hfs = {k: (f"{k} {name}", r, encode_bytes(r))
            for k, (name, r) in streams.items()}
     small = []
@@ -1664,8 +1771,11 @@ def main() -> int:
     checked.update(check_k1p_cases(torch, dev))
     checked.update(check_k1_main_cases(torch, dev))
     checked.update(check_k2_cases(torch, dev))
+    card_ms = encode_card_ms_fresh()
     for k in ENCODE_CHECKED:
-        checked.setdefault(k, {}).update(check_encoder(torch, *hfs[k], dev))
+        checked.setdefault(k, {}).update(
+            check_encoder(torch, *hfs[k], dev, card_ms.get(k, {})))
+    checked.update(check_encoder_cases(torch, dev))
     for k in INDEXED:
         checked[IDX[k]] = check_indexed(torch, *idx[k], dev)
     for k in ("a", INDEXED_MD1[0]):

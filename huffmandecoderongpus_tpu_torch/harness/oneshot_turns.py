@@ -1,7 +1,7 @@
 """K4, the one-shot launch and K1 of one tree of the PyTorch port on a GPU,
 for timing two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1]
+    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1,encode]
 
 Run it as a file, not with ``-m``, as ``scan_turns.py`` beside it: it
 imports the port from TREE (a checkout of this repository; default the one
@@ -51,6 +51,14 @@ beside the card's name and power limit:
              maximum SM clock) and, where the tree has ``k1_scan_plan``,
              K1''s plan; and (c)'s ``wide_decode_program`` by events
              (median of 25 after 3)
+  encode     E1 and E2 on the encoder's staging of (a), (b), (c) and
+             (g)-(i) (E2 on E1's rows at the plan's ORP): by events and on
+             the card, beside the bytes each must move at 3.35 TB/s and,
+             where the tree has ``e1_plan``/``e2_plan``, their plans; and
+             ``encode_program`` by events (median of 25 after 3) with its
+             card time by kernel (E1, E2, E3 and the torch ops between),
+             and the ``encode_lanes`` wall (host clock, staging included,
+             median of chip_smoke's WALL_RUNS)
 
 The last line is one JSON object of every number.
 """
@@ -77,7 +85,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--sections", default="k4,oneshot,k1,k1main,k2,md1")
+    ap.add_argument("--sections",
+                    default="k4,oneshot,k1,k1main,k2,md1,encode")
     args = ap.parse_args()
     sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
@@ -190,6 +199,8 @@ def main() -> int:
         k2_section(torch, cs, out, streams, small, trio, dev, card, args.tag)
     if "md1" in sections:
         md1_section(torch, cs, out, streams, dev, card, clock, args.tag)
+    if "encode" in sections:
+        encode_section(torch, cs, out, streams, dev, card, args.tag)
     print(json.dumps(out))
     return 0
 
@@ -376,6 +387,72 @@ def md1_section(torch, cs, out, streams, dev, card, clock, tag):
     print(f"[md1] {tag} program_c: wide_decode_program events "
           f"{statistics.median(ts):.4f} ms (min {min(ts):.4f}); card {card}",
           flush=True)
+
+
+def encode_section(torch, cs, out, streams, dev, card, tag):
+    """The encode section: E1 and E2 on (a)-(c) and (g)-(i), and the
+    encode program."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.ops import (
+        _build,
+        e1_pack,
+        e2_compact,
+        encode,
+    )
+
+    sms = _build.sm_count(dev)
+    for k in "abcghi":
+        st = encode.stage_encode_inputs(streams[k][1], device=dev)
+        p = st["plan"]
+        args = (st["data3"], st["lo"], st["hi"], st["nval"])
+        gran, gval, cnt, bits = e1_pack.e1_pack(*args)
+        ORP = p["ORP"]
+        plans = {
+            "e1_pack": getattr(e1_pack, "e1_plan", None) and e1_pack.e1_plan(
+                p["G"], p["K"], sms, st["data3"].data_ptr()),
+            "e2_compact": getattr(e2_compact, "e2_plan", None)
+            and e2_compact.e2_plan(p["G"], 2 * p["K"], ORP, sms,
+                                   gran.data_ptr(), gval.data_ptr())}
+        runs = {"e1_pack": (lambda args=args: e1_pack.e1_pack(*args),
+                            cs.nbytes(*args, gran, gval, cnt, bits)),
+                "e2_compact": (
+                    lambda gran=gran, gval=gval, ORP=ORP:
+                    e2_compact.e2_compact(gran, gval, ORP=ORP),
+                    cs.nbytes(gran, gval) + 4 * p["G"] * ORP)}
+        row = dict(G=p["G"], K=p["K"], ORP=ORP)
+        for name, (fn, moved) in runs.items():
+            ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+            card_ms = cs.device_breakdown(torch, fn, per_launch=True).get(
+                name)
+            bound = moved / cs.HBM_BYTES_PER_S * 1e3
+            row[name] = dict(events_ms=ev, card_ms=card_ms, bound_ms=bound,
+                             plan=plans[name])
+            own = ("not measured" if card_ms is None else
+                   f"{card_ms:.4f} ms, {card_ms / bound:.1f} times the bound")
+            print(f"[encode] {tag} ({k}): {name} events {ev:.4f} ms, card "
+                  f"{own}; bound {bound:.6f} ms ({moved} bytes); plan "
+                  f"{plans[name]}; G={p['G']} K={p['K']} ORP={ORP}; card "
+                  f"{card}", flush=True)
+
+        def program(args=args, p=p):
+            return encode.encode_program(*args, ORP=p["ORP"],
+                                         NROWS=p["NROWS"])
+
+        ts = event_ms(program, WARMUP + RUNS)[WARMUP:]
+        split = cs.device_breakdown(torch, program)
+        wall, wall_min = cs.wall_ms(
+            torch, lambda raw=streams[k][1]: encode.encode_lanes(
+                raw, device=dev))
+        row["program"] = dict(events_ms=statistics.median(ts),
+                              min_ms=min(ts), card_ms=split)
+        row["encode_lanes_wall_ms"] = dict(median=wall, min=wall_min)
+        out[f"encode_{k}"] = row
+        print(f"[encode] {tag} ({k}): encode_program events "
+              f"{statistics.median(ts):.4f} ms (min {min(ts):.4f}); card ms "
+              "a program " + "  ".join(f"{n} {v:.4f}"
+                                       for n, v in split.items())
+              + f"; encode_lanes wall {wall:.4f} ms (min {wall_min:.4f}, "
+              f"{cs.WALL_RUNS} runs); card {card}", flush=True)
 
 
 #: K2's kernel names: this design's one, and the three-launch design's

@@ -44,7 +44,7 @@ SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
            "k3_fix2_c01.cu", "short_candidate_scan.cu",
            "lane_decode_dense.cu", "compact.cu", "probe_inc.cu",
            "probe_arith.cu", "probe_gather.cu", "k4_stripped.cu")
-HEADERS = ("widescan.cuh",)
+HEADERS = ("widescan.cuh", "lookback.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -95,10 +95,12 @@ _SIGNATURES = {
     # stamps, G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, L, NGp,
     # T, K4's lanes, vec, chunks and window, shared, stream
     "ws_oneshot": [_P] * 8 + [_LL, _P] + [_I] * 20 + [_P],
-    # data, lo, hi, nval, gran, gval, cnt, bits, K, G, stream
-    "ws_e1_pack": [_P] * 8 + [_I] * 2 + [_P],
-    # gran, gval, out, rows, G, ORP, stream
-    "ws_e2_compact": [_P] * 3 + [_I] * 3 + [_P],
+    # data, lo, hi, nval, gran, gval, cnt, bits, state, cap, K, G, lanes,
+    # vec, chunks, rows, row blocks, threads, shared, blocks, stream
+    "ws_e1_pack": [_P] * 9 + [_I] * 11 + [_P],
+    # gran, gval, out, state, cap, rows, G, ORP, lanes, vec, chunks, block
+    # rows, row blocks, window, threads, shared, blocks, stream
+    "ws_e2_compact": [_P] * 4 + [_I] * 13 + [_P],
     # shifted, word_off, occ, out, G, ORP, n_out, stream
     "ws_e3_place": [_P] * 4 + [_I] * 2 + [_LL, _P],
     # wmat, tab, lim, sym, val, G, steps_w, steps_p, md, C0, C1, NS,

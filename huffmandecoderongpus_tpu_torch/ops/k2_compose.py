@@ -15,7 +15,7 @@ memory (byte maps over the HP + 1 entry classes, a thread a sub-tile and
 class, then a log-depth scan), chain the tiles by a decoupled look-back
 over their published maps, and walk each sub-tile from its entry.  The
 look-back's state is a buffer held per device and stream
-(``_lookback_state``), zeroed once when made; its flags carry the epoch of
+(``lookback.States``), zeroed once when made; its flags carry the epoch of
 the call that wrote them, which each call advances on the card, so no call
 resets it.  A call captured in a CUDA graph gets a state of its own, which
 the graph zeroes at each replay, so a replay may run on any stream beside
@@ -29,12 +29,11 @@ lane's entry.
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import torch
 
-from huffmandecoderongpus_tpu_torch.ops import _build
+from huffmandecoderongpus_tpu_torch.ops import _build, lookback
 
 #: kernel launches made by ``k2_compose`` on CUDA tensors
 launches = 0
@@ -52,8 +51,6 @@ LOOKBACK = 32
 MAP_BYTES = 256
 #: tiles the first look-back buffer of a stream holds
 STATE_TILES = 256
-#: streams whose look-back state is kept, the most recently used
-MAX_STREAMS = 8
 
 
 def groups(G: int) -> tuple[int, int]:
@@ -104,43 +101,14 @@ def k2_plan(G: int, HP: int, sm_count: int = _build.SM_COUNT) -> dict:
                 waves=-(-tiles // (sm_count * per_sm)), sm_count=sm_count)
 
 
-#: (device index, stream) -> the look-back's state: 2 + cap int32 words
-#: (the epoch and ticket word, a flag a tile) and 2 x cap maps of
-#: MAP_BYTES; the MAX_STREAMS most recently used
-_states: collections.OrderedDict = collections.OrderedDict()
-
-
 def _state_words(cap: int) -> int:
+    """int32 words of K2's look-back state for ``cap`` tiles: the epoch and
+    ticket word (two), a flag a tile, and two maps of MAP_BYTES a tile."""
     return 2 + cap + 2 * cap * MAP_BYTES // 4
 
 
-def _lookback_state(dev, stream: int, tiles: int):
-    """(state, cap) for ``tiles`` tiles on this device and stream: made
-    zeroed (one fill) the first time, and again, twice as large, when a
-    call needs more tiles.  Each call leaves its tickets at 0 and the
-    epoch one further (the first int32 word 0, the second the calls).
-
-    A state dropped, for a larger one or for a stream used less recently,
-    goes back to the allocator on the stream it was made on, so a K2 call
-    still running there keeps it until it ends.  While a CUDA graph is
-    being captured the call gets a state of its own instead, its tickets
-    and flags zeroed in the graph (a fill before the launch): no eager
-    call shares it, and the graph's pool keeps it for every replay."""
-    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        state = torch.empty(_state_words(tiles), dtype=torch.int32,
-                            device=dev)
-        state[:2 + tiles].zero_()
-        return state, tiles
-    key = (dev.index, stream)
-    st = _states.pop(key, None)
-    if st is None or st[1] < tiles:
-        cap = max(STATE_TILES, 2 * tiles)
-        st = (torch.zeros(_state_words(cap), dtype=torch.int32, device=dev),
-              cap)
-    _states[key] = st
-    while len(_states) > MAX_STREAMS:
-        _states.popitem(last=False)
-    return st
+#: the look-back's state, a device and stream each
+_states = lookback.States(_state_words, STATE_TILES)
 
 
 def k2_compose(exmap, start: int = 0):
@@ -158,7 +126,7 @@ def k2_compose(exmap, start: int = 0):
     dev = exmap.device
     p = k2_plan(G, HP, _build.sm_count(dev))
     stream = _build.stream_ptr(exmap)
-    state, cap = _lookback_state(dev, stream, p["tiles"])
+    state, cap = _states.get(dev, stream, p["tiles"])
     entry = torch.empty(G, dtype=torch.int32, device=dev)
     tot = torch.empty(NE, dtype=torch.uint8, device=dev)
     rc = _build.get_lib().ws_k2_compose(

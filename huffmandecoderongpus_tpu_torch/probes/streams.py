@@ -500,3 +500,70 @@ def k3p_inputs(inputs, kw, cuts):
         cut, cut_slot = ws.fix_rows(entry, mrowmap, lim, kw["H"], 1)
         cuts = (entry, cut, cut_slot)
     return (*cuts, sym, val)
+
+
+#: the encoder's edge cases (``e_case``): every one of the 256 symbols; the
+#: longest codes E1 takes (26 bits, both halves 13, from Fibonacci weights
+#: over 27 symbols); a one-symbol tree (a 1-bit code); 40 symbols over 128
+#: lanes (88 lanes with no symbol); 32 lanes of exactly 32 symbols but the
+#: last (E1's last row block starts in every lane's pad rows); a text
+#: stream at 512 lanes (row blocks start inside a granule); and the
+#: Fibonacci stream whose tail lanes overflow their dense rows (ranks past
+#: ORP).  E2 also runs each at a smaller ORP (``E_SMALL_ORP``)
+E_CASES = ("alpha256", "code26", "one-symbol", "nval0", "pad-start", "g512",
+           "fib600")
+#: an ORP that cuts the longest rows of most cases, not a multiple of 4
+E_SMALL_ORP = 37
+
+
+def fib_tree_stream(rng, n_sym, body, deep):
+    """(raw, tree) over a tree built from Fibonacci weights over ``n_sym``
+    symbols (not the sample, so the deepest symbol keeps its code): a body
+    of ``body`` symbols drawn from the weights, then ``deep`` copies of the
+    deepest symbol."""
+    from huffmandecoderongpus_tpu_torch.huffio import build_tree
+
+    fib = [1, 1]
+    while len(fib) < n_sym:
+        fib.append(fib[-1] + fib[-2])
+    counts = np.array(fib[::-1], dtype=np.int64)
+    head = rng.choice(np.arange(n_sym, dtype=np.uint8), size=body,
+                      p=counts / counts.sum()).astype(np.uint8)
+    raw = np.concatenate([head, np.full(deep, n_sym - 1, dtype=np.uint8)])
+    freqs = np.zeros(256, dtype=np.int64)
+    freqs[:n_sym] = counts
+    return raw, build_tree(freqs)
+
+
+def e_case(case, device):
+    """(raw, tree or None, lanes, staged encoder inputs on ``device``) of
+    one of E_CASES, drawn from seed 14 (``encode.stage_encode_inputs``)."""
+    from huffmandecoderongpus_tpu_torch.ops import encode
+
+    rng = np.random.default_rng(14)
+    tree, lanes = None, None
+    if case == "alpha256":
+        w = rng.random(256) ** 3 + 1e-4
+        raw = np.concatenate([
+            np.arange(256, dtype=np.uint8),
+            rng.choice(np.arange(256, dtype=np.uint8), size=19744,
+                       p=w / w.sum()).astype(np.uint8)])
+    elif case == "code26":
+        raw, tree = fib_tree_stream(rng, 27, 4000, 200)
+        lanes = 128
+    elif case == "one-symbol":
+        raw = np.full(5000, 65, dtype=np.uint8)
+    elif case == "nval0":
+        raw, lanes = text_like(rng, 40), 128
+    elif case == "pad-start":
+        raw, lanes = text_like(rng, 32 * 32 - 10), 32
+    elif case == "g512":
+        raw, lanes = text_like(rng, 512 * 100), 512
+    elif case == "fib600":
+        raw, tree = fib_tree_stream(rng, 26, 16000, 600)
+        lanes = 128
+    else:
+        raise ValueError(f"unknown encoder case {case!r}")
+    st = encode.stage_encode_inputs(raw, tree=tree, lanes=lanes,
+                                    device=device)
+    return raw, tree, lanes, st

@@ -14,8 +14,11 @@ multiples of 16 or 32, the stream end mid-tile, misaligned matrices, row
 slices cut under one tile, trees 40 and 140 tall).  The
 encoder's E1-E3 are checked on the staging of the test shapes and on
 hand-made lanes (granules shared by up to 16 lanes, trailing empty lanes,
-counts reaching ORP), and ``encode_lanes`` and the ``encode`` command
-byte-equal to the host encoder.  The sidecar-indexed route (K1's main scan
+counts reaching ORP), E1 and E2 at their edges (``probes.streams.E_CASES``,
+E2 also at rows offset from their alignment), their look-back over calls,
+streams and a CUDA graph, and their launchers refuse other plans, and
+``encode_lanes`` and the ``encode`` command byte-equal to the host
+encoder.  The sidecar-indexed route (K1's main scan
 ``k1_main``, the indexed lane scan) and the batched route (``k1_scan2_c01``,
 ``k3_fix2_c01``) are checked kernel by kernel and end to end with their
 launch counts, and so is the self-synchronizing discovery (the short
@@ -47,6 +50,11 @@ internal states decode through the four kernels and the one-shot.
 Tolerance: bit-exact (integer outputs).
 """
 
+import json
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -63,6 +71,7 @@ from huffmandecoderongpus_tpu_torch.ops import k2_compose, k3_fix, k3_fix2
 from huffmandecoderongpus_tpu_torch.ops import k3_fix2_c01, k4_compact
 from huffmandecoderongpus_tpu_torch.ops import lane_scan, lane_scan_indexed
 from huffmandecoderongpus_tpu_torch.ops import lane_decode_dense, lanedfa
+from huffmandecoderongpus_tpu_torch.ops import lookback
 from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode, lanedfa_sync
 from huffmandecoderongpus_tpu_torch.ops import oneshot, short_candidate_scan
 from huffmandecoderongpus_tpu_torch.ops import widescan
@@ -503,7 +512,7 @@ def test_k2_edges_match_plain(cuda, case):
     for stream in (torch.cuda.current_stream(), torch.cuda.Stream()):
         with torch.cuda.stream(stream):
             k2_compose.k2_compose(ex, start)
-            state, _cap = k2_compose._lookback_state(
+            state, _cap = k2_compose._states.get(
                 ex.device, _build.stream_ptr(ex), 1)
             before = int(state[1])
             for k in range(3):
@@ -596,8 +605,8 @@ def test_k1_main_and_k2_launchers_refuse_other_plans(cuda):
     entry = torch.empty(G, dtype=torch.int32, device=cuda)
     tot = torch.empty(128, dtype=torch.uint8, device=cuda)
     q = k2_compose.k2_plan(G, HP)
-    state, cap = k2_compose._lookback_state(cuda, _build.stream_ptr(ex),
-                                            q["tiles"])
+    state, cap = k2_compose._states.get(cuda, _build.stream_ptr(ex),
+                                        q["tiles"])
 
     def k2(tile=q["tile"], sub=q["sub"], threads=q["threads"],
            shared=q["shared"], cap=cap, start=0):
@@ -777,6 +786,153 @@ def test_encode_kernels_overflow_and_empty_lanes(cuda):
                                     device=cuda)
     assert int((st["nval"] == 0).sum()) == 88
     _encode_kernels_match_plain(st)
+
+
+@pytest.mark.parametrize("case", ps.E_CASES)
+def test_encode_edges_match_plain(cuda, case):
+    # E1 and E2 at their edges: all 256 symbols, 26-bit codes, a one-symbol
+    # tree, lanes with no symbol, row blocks starting in pad rows and inside
+    # a granule, a lane overflowing ORP; E2 also at an ORP that drops ranks
+    _raw, _tree, _lanes, st = ps.e_case(case, cuda)
+    args = (st["data3"], st["lo"], st["hi"], st["nval"])
+    got, ran = _launched(lambda: e1_pack.e1_pack(*args))
+    assert ran == {"e1_pack": 1}
+    want = e1_pack.e1_pack_ref(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    gran, gval = want[:2]
+    for ORP in (st["plan"]["ORP"], ps.E_SMALL_ORP):
+        d, ran = _launched(lambda: e2_compact.e2_compact(gran, gval, ORP=ORP))
+        assert ran == {"e2_compact": 1}
+        assert torch.equal(d, e2_compact.e2_compact_ref(gran, gval, ORP=ORP))
+
+
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_e2_views_match_plain(cuda, off):
+    # rows at an offset: a lane a thread where the addresses refuse 4
+    rng = np.random.default_rng(off)
+    rows, G, ORP = 600, 512, 128
+    views = []
+    for a, dt in ((rng.integers(0, 1 << 16, (rows, G)), torch.int32),
+                  (rng.random((rows, G)) < 0.2, torch.uint8)):
+        t = torch.zeros(rows * G + off, dtype=dt, device=cuda)[off:]
+        t = t.view(rows, G)
+        t.copy_(torch.from_numpy(np.asarray(a)).to(dt))
+        views.append(t)
+    gran, gval = views
+    p = e2_compact.e2_plan(G, rows, ORP, _build.sm_count(cuda),
+                           gran.data_ptr(), gval.data_ptr())
+    assert p["vec"] == (4 if off == 0 else 1)
+    d = e2_compact.e2_compact(gran, gval, ORP=ORP)
+    assert torch.equal(d, e2_compact.e2_compact_ref(gran, gval, ORP=ORP))
+
+
+def test_e1_e2_launchers_refuse_other_plans(cuda):
+    # a plan outside the launchers' rules is refused, nothing launched
+    lib = _build.get_lib()
+    K, G, ORP = 48, 128, 128
+    i32 = dict(dtype=torch.int32, device=cuda)
+    data = torch.zeros((K, G), dtype=torch.uint8, device=cuda)
+    lo, hi, nval = (torch.zeros(256, **i32), torch.zeros(256, **i32),
+                    torch.zeros(G, **i32))
+    gran = torch.zeros((2 * K, G), **i32)
+    gval = torch.zeros((2 * K, G), dtype=torch.uint8, device=cuda)
+    cnt, bits = torch.empty(G, **i32), torch.empty(G, **i32)
+    out = torch.empty((G, ORP), **i32)
+    stream = _build.stream_ptr(data)
+    p = e1_pack.e1_plan(G, K, _build.sm_count(cuda), data.data_ptr())
+    assert p["vec"] == 16
+    state = torch.zeros(lookback.state_words(p["blocks"]), **i32)
+
+    def e1(shift=0, cap=p["blocks"], **change):
+        q = {**p, **change}
+        return lib.ws_e1_pack(
+            data.data_ptr() + shift, lo.data_ptr(), hi.data_ptr(),
+            nval.data_ptr(), gran.data_ptr(), gval.data_ptr(),
+            cnt.data_ptr(), bits.data_ptr(), state.data_ptr(), cap, K, G,
+            q["lanes"], q["vec"], q["chunks"], q["rows"], q["row_blocks"],
+            q["threads"], q["shared"], q["blocks"], stream)
+
+    assert e1() == 0
+    for bad in (dict(lanes=16), dict(vec=2), dict(chunks=33),
+                dict(threads=p["threads"] + 32), dict(rows=p["rows"] + 1),
+                dict(row_blocks=p["row_blocks"] + 1),
+                dict(blocks=p["blocks"] - 1), dict(shared=p["shared"] + 32),
+                dict(cap=p["blocks"] - 1), dict(shift=4)):
+        assert e1(**bad) != 0, bad
+    q = e2_compact.e2_plan(G, 2 * K, ORP, _build.sm_count(cuda),
+                           gran.data_ptr(), gval.data_ptr())
+    assert q["vec"] == 4
+
+    state2 = torch.zeros(lookback.state_words(q["blocks"]), **i32)
+
+    def e2(shift=0, cap=q["blocks"], **change):
+        r = {**q, **change}
+        return lib.ws_e2_compact(
+            gran.data_ptr() + shift, gval.data_ptr(), out.data_ptr(),
+            state2.data_ptr(), cap, 2 * K, G, ORP, r["lanes"], r["vec"],
+            r["chunks"], r["block_rows"], r["row_blocks"], r["window"],
+            r["threads"], r["shared"], r["blocks"], stream)
+
+    assert e2() == 0
+    for bad in (dict(lanes=33), dict(vec=2), dict(cap=q["blocks"] - 1),
+                dict(chunks=33), dict(window=q["window"] + 2),
+                dict(threads=q["threads"] + 32), dict(shared=q["shared"] + 16),
+                dict(row_blocks=q["row_blocks"] + 1),
+                dict(blocks=q["blocks"] + 1), dict(shift=4)):
+        assert e2(**bad) != 0, bad
+    torch.cuda.synchronize()
+
+
+def test_e1_e2_lookback_calls_and_a_graph(cuda):
+    # E1 and E2 called again and again on one stream (each call's epoch
+    # one further, no reset), on a second stream, past the state's first
+    # size (it grows), and captured in a CUDA graph that replays on another
+    # stream beside eager calls: every output equal to the plain versions'
+    _raw, _tree, _lanes, st = ps.e_case("g512", cuda)
+    args = (st["data3"], st["lo"], st["hi"], st["nval"])
+    want = e1_pack.e1_pack_ref(*args)
+    ORP = st["plan"]["ORP"]
+    want2 = e2_compact.e2_compact_ref(want[0], want[1], ORP=ORP)
+
+    def both():
+        got = e1_pack.e1_pack(*args)
+        return got, e2_compact.e2_compact(got[0], got[1], ORP=ORP)
+
+    def check(got, d):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert torch.equal(d, want2)
+
+    for _ in range(3):
+        check(*both())
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        out = both()
+    torch.cuda.synchronize()
+    check(*out)
+    # 65,536 lanes: more blocks than the state's first size
+    raw = text_like(np.random.default_rng(9), 65536 * 20)
+    big = encode.stage_encode_inputs(raw, lanes=65536, device=cuda)
+    bargs = (big["data3"], big["lo"], big["hi"], big["nval"])
+    p = e1_pack.e1_plan(65536, big["plan"]["K"], _build.sm_count(cuda))
+    assert p["blocks"] > lookback.MIN_BLOCKS
+    for g, w in zip(e1_pack.e1_pack(*bargs), e1_pack.e1_pack_ref(*bargs)):
+        assert torch.equal(g, w)
+    stream, other = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = both()
+    for _ in range(3):
+        with torch.cuda.stream(stream):
+            eager = [both() for _ in range(2)]
+        with torch.cuda.stream(other):
+            graph.replay()
+        torch.cuda.synchronize()
+        check(*captured)
+        for out in eager:
+            check(*out)
 
 
 #: case -> E1, E2 and E3 launches and retries of one encode_lanes: fib600
@@ -1236,37 +1392,77 @@ def test_roll_and_16bit_gathers_match_plain(cuda, make_):
     assert torch.equal(_bits(got), _bits(want))
 
 
-def _kernels_a_call(fn, calls=5):
-    """Kernels the card ran a call of ``fn`` (torch.profiler), or None
-    where two sessions in a row record none."""
+def _kernels_a_call(fn, calls=5, tries=3):
+    """Kernels the card ran a call of ``fn`` (torch.profiler), from the
+    first of ``tries`` sessions whose records are a whole number a call,
+    each after a one-call session that is thrown away (it takes any records
+    a session before left late), as chip_smoke.py's device_breakdown
+    takes them; None where no session was whole."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]):
+            fn()
+            torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         n = sum(e.count for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if n:
+        if n and n % calls == 0:
             return n / calls
     return None
 
 
-def test_roll_and_16bit_gather_launch_one_kernel(cuda):
+#: a fresh process that prints _kernels_a_call of each call a function of
+#: this module makes (argv: the checkout, this folder, the function's name)
+_FRESH = """
+import json, sys, torch
+sys.path[:0] = sys.argv[1:3]
+import test_torch_cuda as t
+calls = getattr(t, sys.argv[3])(torch.device("cuda"))
+print(json.dumps([t._kernels_a_call(fn) for fn in calls]))
+"""
+
+
+def _kernels_a_call_fresh(make_calls):
+    """_kernels_a_call of each call ``make_calls(device)`` makes, taken in a
+    fresh process: the profiler of a process that has run many tests
+    records no kernel, or part of a session, now and then (PERF.md section
+    7), a new one's every time."""
+    here = pathlib.Path(__file__).resolve().parent
+    r = subprocess.run([sys.executable, "-c", _FRESH, str(here.parent),
+                        str(here), make_calls.__name__], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _roll_and_16bit_gather_calls(cuda):
+    """The one-shot roll along both axes and the 16-bit index gathers."""
     from huffmandecoderongpus_tpu_torch.probes import probe_vpu
 
     x = probe_vpu.roll_case((128, 640), cuda)
+    calls = []
     for dt in probe_vpu.I16_CASES:
         tab, idx = probe_vpu.i16_case(dt, cuda)
-        for fn in (lambda: probe_gather.probe_roll(x, 100, axis=1),
-                   lambda: probe_gather.probe_roll(x, 5, axis=0),
-                   lambda: probe_gather.probe_gather(tab, idx, axis=1)):
-            _, ran = _launched(fn)
-            assert ran == {"probe_gather": 1}
-            assert _kernels_a_call(fn) == 1
+        calls += [lambda: probe_gather.probe_roll(x, 100, axis=1),
+                  lambda: probe_gather.probe_roll(x, 5, axis=0),
+                  lambda tab=tab, idx=idx: probe_gather.probe_gather(
+                      tab, idx, axis=1)]
+    return calls
+
+
+def test_roll_and_16bit_gather_launch_one_kernel(cuda):
+    calls = _roll_and_16bit_gather_calls(cuda)
+    for fn in calls:
+        _, ran = _launched(fn)
+        assert ran == {"probe_gather": 1}
+    assert _kernels_a_call_fresh(_roll_and_16bit_gather_calls) == [1] * len(
+        calls)
 
 
 def test_launches_follow_the_current_stream(cuda):

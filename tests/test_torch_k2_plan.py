@@ -35,6 +35,7 @@ import torch
 
 from huffmandecoderongpus_tpu.ops import pallas_widescan as jws
 from huffmandecoderongpus_tpu_torch.ops import _build, k1_main, k2_compose
+from huffmandecoderongpus_tpu_torch.ops import lookback
 from huffmandecoderongpus_tpu_torch.ops.k1_main import k1_main_plan
 from huffmandecoderongpus_tpu_torch.ops.k2_compose import k2_plan
 from huffmandecoderongpus_tpu_torch.probes import streams as ps
@@ -90,20 +91,21 @@ def test_k2_plan_tiles(HP):
 def test_k2_lookback_states_bounded(monkeypatch):
     # the look-back's state is kept for the MAX_STREAMS streams used last;
     # a stream used again keeps its own, and grows only past its tiles
-    monkeypatch.setattr(k2_compose, "_states", type(k2_compose._states)())
+    states = lookback.States(k2_compose._state_words, k2_compose.STATE_TILES)
+    monkeypatch.setattr(k2_compose, "_states", states)
     cpu = torch.device("cpu")
-    first, cap = k2_compose._lookback_state(cpu, 1, 1)
+    first, cap = states.get(cpu, 1, 1)
     assert cap == k2_compose.STATE_TILES
     assert first.shape == (k2_compose._state_words(cap),)
     assert not first.any()
-    for stream in range(2, 3 * k2_compose.MAX_STREAMS):
-        k2_compose._lookback_state(cpu, stream, 1)
-        assert k2_compose._lookback_state(cpu, 1, cap)[0] is first
-        assert len(k2_compose._states) <= k2_compose.MAX_STREAMS
-    assert (None, 1) in k2_compose._states
-    grown, cap2 = k2_compose._lookback_state(cpu, 1, cap + 1)
+    for stream in range(2, 3 * lookback.MAX_STREAMS):
+        states.get(cpu, stream, 1)
+        assert states.get(cpu, 1, cap)[0] is first
+        assert len(states) <= lookback.MAX_STREAMS
+    assert (None, 1) in states
+    grown, cap2 = states.get(cpu, 1, cap + 1)
     assert grown is not first and cap2 == 2 * (cap + 1)
-    assert k2_compose._lookback_state(cpu, 1, 1)[0] is grown
+    assert states.get(cpu, 1, 1)[0] is grown
 
 
 def _k2_emulated(ex, start, p, seen=None):
