@@ -74,8 +74,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               the encoder's E1/E2/E3 on the
               staging of (a)-(c) and (e)-(i), with an [e1] and an [e2]
               line each (the plan, the card time (profiler, taken in a
-              fresh process of this script run with --encode-card-ms,
-              which prints it as JSON and exits) and the bytes bound),
+              fresh process of this script run with --card-ms, which
+              prints it as JSON and exits) and the bytes bound),
               E1 and E2 also at their edges (probes.streams.
               E_CASES: all 256 symbols, 26-bit codes, a one-symbol tree,
               lanes with no symbol, row blocks starting in pad rows and
@@ -88,13 +88,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               and 7, NS 2 and 8) and K2 at the edges of its tiles
               (K2_CASES: one lane, part tiles, HP 128 from start 127,
               entries past HP, 65 tiles, merged maps), the
-              indexed lane scan on the indexed (a) and (c); the batched
+              indexed lane scan on the indexed (a) and (c) with a [scan]
+              line each (its card time from the --card-ms process, in
+              cycles a row at the maximum SM clock, its plan, and the
+              chain floor: the longest lane's B rows one bit, and B / 2
+              two bits, a lookup) and at its edges (probes.streams.
+              INDEXED_SCAN_CASES: G = 1, 3, 31, 33, an index's lanes
+              untiled and tiled with zero-length pad lanes, B under one
+              tile, an md = 1 tree, a table of 16 chunks, views at +1 and
+              +4 bytes), the short candidate scan at its edges
+              (SHORT_SCAN_CASES: W = H + 1, 128 and every row, the stream
+              end mid-lane, a tree 140 tall, chains that never resolve,
+              merges and exits on one row, bool emissions at +1 byte);
+              the batched
               K1/K3 (k1_scan2_c01, k3_fix2_c01), K2 and K4 on the five small
               streams and on (f), (g) and the book2-sized one (a [k1]
               line each); the
               self-synchronizing
               discovery's short candidate scan on the first round of (a)
-              and (d) in lane_dfa_sync's geometry (all five outputs), and
+              and (d) in lane_dfa_sync's geometry (all five outputs; a
+              [scan] line each: card time from the --card-ms process,
+              cycles a row over W rows, plan, chain floor W rows), and
               the lane scan cut at that round's W rows (its fix scan) from
               the true entry offsets; the dense lane decode on (a) and (d)
               in the tiled geometry from the entry offsets of
@@ -367,6 +381,7 @@ DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "e2_compact": ("e2_compact_kernel",),
                   "e3_place": ("e3_place_kernel",),
                   "k1_main": ("k1_main_kernel",),
+                  "lane_scan_indexed": ("lane_scan_indexed_kernel",),
                   "k1_scan2_c01": ("k1_scan2_c01_kernel",),
                   "k3_fix2_c01": ("k3_fix2_c01_kernel",),
                   # before candidate_scan: its name holds candidate_scan's
@@ -1093,7 +1108,7 @@ def check_encoder(torch, name, raw, hf, dev, card_ms):
     plain versions on the staging encode_lanes gives them, each stage fed
     by the previous kernel's output, then the payload against the host
     encoder's; an [e1] and an [e2] line with ``card_ms`` ({kernel: card
-    ms}, from ``encode_card_ms_fresh``).  Returns and raises as
+    ms}, from ``card_ms_fresh``).  Returns and raises as
     check_kernels."""
     from huffmandecoderongpus_tpu_torch.ops import (
         _build,
@@ -1154,8 +1169,8 @@ def e_line(name, kname, card_ms, plan, rows):
           f"bytes bound {r['bound_ms']:.6f} ms; plan {plan}", flush=True)
 
 
-#: the option that runs this script as encode_card_ms_fresh's child
-ENCODE_CARD_ARG = "--encode-card-ms"
+#: the option that runs this script as card_ms_fresh's child
+CARD_ARG = "--card-ms"
 
 
 def encode_card_ms(torch, streams, dev):
@@ -1180,19 +1195,54 @@ def encode_card_ms(torch, streams, dev):
     return out
 
 
-def encode_card_ms_fresh():
-    """encode_card_ms from a fresh process of this script (its last line):
-    this long process's profiler records nothing in most sessions after its
-    first phases (PERF.md section 7), a new one's in each.  {} if the child
-    fails."""
+def scan_card_ms(torch, streams, dev):
+    """{key: ms}: the card time a launch (as encode_card_ms) of
+    lane_scan_indexed on the indexed (a) and (c) in lane_dfa's geometry
+    (keys IDX["a"], IDX["c"]) and of short_candidate_scan's first round on
+    (a) and (d) in lane_dfa_sync's (keys SYNC["a"], SYNC["d"])."""
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import lane_scan, lanedfa_sync
+    from huffmandecoderongpus_tpu_torch.ops import lane_scan_indexed as lsi
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+    from huffmandecoderongpus_tpu_torch.ops import short_candidate_scan as scs
+
+    out = {}
+    for k, K in (("a", INDEXED["a"]), INDEXED_MD1):
+        hf = encode_bytes(streams[k][1], block_symbols=K)
+        st = ld.stage_lanedfa_indexed(hf, hf.index[0], device=dev,
+                                      tiled=False)
+        args = (st["bits"], st["tab"], st["lane_len"])
+        out[IDX[k]] = device_breakdown(
+            torch, lambda: lsi.lane_scan_indexed(*args),
+            per_launch=True).get("lane_scan_indexed")
+    for k in SYNC:
+        st = ld.stage_lanedfa(encode_bytes(streams[k][1]), device=dev,
+                              tiled=False)
+        kw = dict(B=st["B"], H=st["H"], N=st["N"])
+        bits, tab = st["bits"], st["tab"]
+        zero = torch.zeros(bits.shape[1], dtype=torch.int32, device=dev)
+        valid0 = lane_scan.lane_scan(bits, tab, zero, **kw)[1]
+        W = min(max(lanedfa_sync.W0, st["H"] + 1), bits.shape[0])
+        out[SYNC[k]] = device_breakdown(
+            torch, lambda: scs.short_candidate_scan(bits, tab, valid0, W=W,
+                                                    **kw),
+            per_launch=True).get("short_candidate_scan")
+    return out
+
+
+def card_ms_fresh():
+    """{"encode": encode_card_ms, "scan": scan_card_ms} from a fresh
+    process of this script (its last line): this long process's profiler
+    records nothing in most sessions after its first phases (PERF.md
+    section 7), a new one's in each.  Empty dicts if the child fails."""
     r = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
-                        ENCODE_CARD_ARG], capture_output=True, text=True,
+                        CARD_ARG], capture_output=True, text=True,
                        timeout=600)
     lines = r.stdout.strip().splitlines()
     if r.returncode or not lines:
-        print(f"[e1] the card-time process failed (rc {r.returncode}): "
+        print(f"[card] the card-time process failed (rc {r.returncode}): "
               f"{r.stderr.strip()[-500:]}", flush=True)
-        return {}
+        return {"encode": {}, "scan": {}}
     return json.loads(lines[-1])
 
 
@@ -1262,12 +1312,39 @@ def check_indexed(torch, name, raw, hf, dev):
     return rows
 
 
-def check_lanedfa_indexed(torch, name, raw, hf, dev):
+def scan_line(name, kname, card_ms, rows_walked, floors, plan, rows):
+    """A [scan] line for one run of a redesigned lane-DFA scan: its card
+    time ``card_ms`` (profiler, from a fresh process; None if it recorded
+    none) in cycles a row over ``rows_walked`` rows at the maximum SM clock,
+    its chain floors ({what: rows of dependent lookups}) at
+    CHAIN_CYCLES_A_ROW a row, its plan, and its events time.  The card time
+    goes into rows[kname] as device_ms."""
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6  # nvidia-smi clocks.max.sm, Hz
+    r = rows[kname]
+    r["device_ms"] = card_ms
+    card = ("not measured" if card_ms is None else
+            f"{card_ms:.4f} ms (profiler, a fresh process), "
+            f"{card_ms * 1e-3 * clock / rows_walked:.1f} cycles a row")
+    floor = "; ".join(
+        f"{what} {n} x {CHAIN_CYCLES_A_ROW} cycles = "
+        f"{n * CHAIN_CYCLES_A_ROW / clock * 1e3:.4f} ms"
+        for what, n in floors.items())
+    print(f"[scan] {name}: {kname} card {card}; events {r['ms']:.4f} ms; "
+          f"{rows_walked} rows at {clock / 1e6:.0f} MHz (clocks.max.sm); "
+          f"chain floor {floor}; plan {plan}", flush=True)
+
+
+def check_lanedfa_indexed(torch, name, raw, hf, dev, card_ms=None):
     """Phase 3 of the indexed lane scan on a stream's index, in lane_dfa's
     geometry (one lane per block): kernel against plain version, sym on
-    every row.  Returns and raises as check_kernels."""
+    every row, and a [scan] line (its card time ``card_ms`` from
+    scan_card_ms; the chain floor: the longest lane's B rows one bit, and
+    B / 2 two bits, a lookup).  Returns and raises as check_kernels."""
     from huffmandecoderongpus_tpu_torch.ops import lane_scan_indexed as lsi
     from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+    from huffmandecoderongpus_tpu_torch.ops.lanedfa import indexed_plan
 
     st = ld.stage_lanedfa_indexed(hf, hf.index[0], device=dev, tiled=False)
     B, G = st["bits"].shape
@@ -1281,6 +1358,10 @@ def check_lanedfa_indexed(torch, name, raw, hf, dev):
         raise AssertionError(f"{name}: the indexed lane scan decoded wrong")
     print(f"[kernels] {name}: lane_scan_indexed bit-exact; stream decoded",
           flush=True)
+    scan_line(name, "lane_scan_indexed", card_ms, B,
+              {"1 bit a lookup": B, "2 bits a lookup": -(-B // 2)},
+              indexed_plan(G, st["bits"].data_ptr() | sym.data_ptr()
+                           | valid.data_ptr(), st["tab"].numel()), rows)
     return rows
 
 
@@ -1298,12 +1379,14 @@ def short_scan_moved(torch, out, tab, B, N, W) -> int:
     return 2 * int(rows.sum()) + nbytes(tab) + 14 * H * G
 
 
-def check_sync(torch, name, raw, hf, dev):
+def check_sync(torch, name, raw, hf, dev, card_ms=None):
     """Phase 3 of the sync discovery on one stream, in lane_dfa_sync's
     geometry: the first round's short candidate scan against its plain
-    version on the 0-chain's emissions, all five outputs, and the lane scan
-    cut at that round's W rows (the fix scan's shape) from the true entry
-    offsets.  Returns and raises as check_kernels."""
+    version on the 0-chain's emissions, all five outputs, with a [scan]
+    line (its card time ``card_ms`` from scan_card_ms; the chain floor:
+    the round's W rows), and the lane scan cut at that round's W rows (the
+    fix scan's shape) from the true entry offsets.  Returns and raises as
+    check_kernels."""
     from huffmandecoderongpus_tpu_torch.ops import (
         candidate_scan,
         lane_scan,
@@ -1311,6 +1394,7 @@ def check_sync(torch, name, raw, hf, dev):
         short_candidate_scan,
     )
     from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+    from huffmandecoderongpus_tpu_torch.ops.lanedfa import short_plan
 
     st = ld.stage_lanedfa(hf, device=dev, tiled=False)
     bits, tab = st["bits"], st["tab"]
@@ -1333,6 +1417,9 @@ def check_sync(torch, name, raw, hf, dev):
         "short_candidate_scan",
         short(short_candidate_scan.short_candidate_scan),
         short(short_candidate_scan.short_candidate_scan_ref), (), moved)[:2]
+    scan_line(name, "short_candidate_scan", card_ms, W, {"W rows": W},
+              short_plan(G, st["H"], bits.data_ptr() | valid0.data_ptr()),
+              rows)
     entry = ld.compose(*candidate_scan.candidate_scan(bits, tab, **kw))[0]
     compare("lane_scan",
             lambda: lane_scan.lane_scan(bits[:W], tab, entry, rows=W, **kw),
@@ -1342,6 +1429,46 @@ def check_sync(torch, name, raw, hf, dev):
           f"W rows bit-exact; first round: {int(merged.sum())} chains merged"
           f", {int(exited.sum())} exited, of {merged.numel()}", flush=True)
     return rows
+
+
+def check_scan_cases(torch, dev):
+    """Phase 3, the redesigned lane-DFA scans at their edge cases:
+    lane_scan_indexed at probes.streams.INDEXED_SCAN_CASES and
+    short_candidate_scan at SHORT_SCAN_CASES, each against its plain
+    version (all outputs).  Returns {case: rows}, as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import lane_scan_indexed as lsi
+    from huffmandecoderongpus_tpu_torch.ops import short_candidate_scan as scs
+    from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
+        indexed_plan,
+        short_plan,
+    )
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.INDEXED_SCAN_CASES:
+        args = ps.indexed_scan_case(case, dev)
+        B, G = args[0].shape
+        what = f"indexed scan {case} G={G} B={B}"
+        print(f"[kernels] {what}: plan "
+              f"{indexed_plan(G, args[0].data_ptr(), args[1].numel())}",
+              flush=True)
+        comparer(torch, what, out.setdefault(what, {}))(
+            "lane_scan_indexed", lambda: lsi.lane_scan_indexed(*args),
+            lambda: lsi.lane_scan_indexed_ref(*args), args)
+    for case in ps.SHORT_SCAN_CASES:
+        bits, tab, valid0, kw = ps.short_scan_case(case, dev)
+        G = bits.shape[1]
+        what = f"short scan {case} G={G} " + " ".join(
+            f"{k}={v}" for k, v in kw.items())
+        print(f"[kernels] {what}: plan "
+              f"{short_plan(G, kw['H'], bits.data_ptr() | valid0.data_ptr())}",
+              flush=True)
+        comparer(torch, what, out.setdefault(what, {}))(
+            "short_candidate_scan",
+            lambda: scs.short_candidate_scan(bits, tab, valid0, **kw),
+            lambda: scs.short_candidate_scan_ref(bits, tab, valid0, **kw),
+            (bits[:kw["W"]], tab, valid0[:kw["W"]]))
+    return out
 
 
 def dense_staging(torch, hf, dev):
@@ -1744,8 +1871,9 @@ def main() -> int:
     # ---- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(SEED)
     streams = draw_streams(rng)
-    if sys.argv[1:] == [ENCODE_CARD_ARG]:
-        print(json.dumps(encode_card_ms(torch, streams, dev)))
+    if sys.argv[1:] == [CARD_ARG]:
+        print(json.dumps({"encode": encode_card_ms(torch, streams, dev),
+                          "scan": scan_card_ms(torch, streams, dev)}))
         return 0
     hfs = {k: (f"{k} {name}", r, encode_bytes(r))
            for k, (name, r) in streams.items()}
@@ -1771,22 +1899,25 @@ def main() -> int:
     checked.update(check_k1p_cases(torch, dev))
     checked.update(check_k1_main_cases(torch, dev))
     checked.update(check_k2_cases(torch, dev))
-    card_ms = encode_card_ms_fresh()
+    card_ms = card_ms_fresh()
     for k in ENCODE_CHECKED:
         checked.setdefault(k, {}).update(
-            check_encoder(torch, *hfs[k], dev, card_ms.get(k, {})))
+            check_encoder(torch, *hfs[k], dev, card_ms["encode"].get(k, {})))
     checked.update(check_encoder_cases(torch, dev))
     for k in INDEXED:
         checked[IDX[k]] = check_indexed(torch, *idx[k], dev)
     for k in ("a", INDEXED_MD1[0]):
         checked.setdefault(IDX[k], {}).update(
-            check_lanedfa_indexed(torch, *idx[k], dev))
+            check_lanedfa_indexed(torch, *idx[k], dev,
+                                  card_ms["scan"].get(IDX[k])))
+    checked.update(check_scan_cases(torch, dev))
     for what, members in ((BATCH5, small), (TRIO, trio)):
         checked[what] = check_batch(torch, what,
                                     [r for _n, r, _h in members],
                                     [h for _n, _r, h in members], dev)
     for k in SYNC:
-        checked[SYNC[k]] = check_sync(torch, *hfs[k], dev)
+        checked[SYNC[k]] = check_sync(torch, *hfs[k], dev,
+                                      card_ms["scan"].get(SYNC[k]))
         checked[k].update(check_dense(torch, *hfs[k], dev,
                                       with_compact=k == "d"))
 

@@ -39,20 +39,6 @@ using namespace ws;
 
 namespace {
 
-// One store of `vec` bytes from shared memory.
-struct StoreBytes {
-  __device__ __forceinline__ void operator()(uint8_t* to, const uint8_t* from,
-                                             int vec) const {
-    if (vec == 16)
-      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
-    else if (vec == 4)
-      *reinterpret_cast<uint32_t*>(to) =
-          *reinterpret_cast<const uint32_t*>(from);
-    else
-      *to = *from;
-  }
-};
-
 // Rows [r0, r0 + nr) of the staged sym and valid tiles (src, then src +
 // R*L) to lanes [g0, g0 + w) of the (rows, G) outputs, `vec` bytes a store
 // (whole runs of rows where one block holds every lane, as stage_bit_tile).

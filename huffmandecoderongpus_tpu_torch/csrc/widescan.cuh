@@ -955,8 +955,10 @@ inline bool k4_plan_ok(const void* sym, const void* val, int G, int ORP,
 // a time in a ring of BIT_STAGES tiles (R x L bytes, row stride L) in shared
 // memory, the copies of the next tiles in flight while the current one is
 // scanned (ops/lanedfa.py tile_plan picks L, R and the copy width `vec`).
-// lane_scan_indexed, short_candidate_scan and lane_decode_dense walk the
-// same column layout and can take this staging up.
+// lane_scan stages one matrix this way, short_candidate_scan two
+// (BitRing2); lane_scan_indexed's copy warps stage the same tiles
+// (lane_scan_indexed.cu); lane_decode_dense walks the same column layout
+// and can take this staging up.
 constexpr int BIT_STAGES = 3;
 
 // The fused table as the scans stage it: entry e (next state in bits 0-9,
@@ -1089,12 +1091,15 @@ struct BitRing {
   __device__ __forceinline__ uint8_t* tile(int t) const {
     return smem + (t % BIT_STAGES) * R * L;
   }
+  // the copies of tile t (t < tiles()), not committed
+  __device__ __forceinline__ void stage(int t) const {
+    stage_bit_tile(tile(t), bits, G, g0, w, L, t * R, min(R, rows - t * R),
+                   vec);
+  }
   // copy tile t, if there is one, and commit a group either way, so that
   // wait() always leaves the same number of groups in flight
   __device__ __forceinline__ void issue(int t) const {
-    if (t < tiles())
-      stage_bit_tile(tile(t), bits, G, g0, w, L, t * R, min(R, rows - t * R),
-                     vec);
+    if (t < tiles()) stage(t);
     cp_async_commit();
   }
   __device__ __forceinline__ void begin() const {
@@ -1105,6 +1110,75 @@ struct BitRing {
     cp_async_wait<BIT_STAGES - 2>();
   }
 };
+
+// Two matrices of one (rows, G) layout (short_candidate_scan: the bits and
+// the 0-chain's emissions) in two rings under one plan, a tile of each in
+// one commit group, so wait() keeps the same groups in flight as BitRing.
+struct BitRing2 {
+  BitRing a, b;
+  __device__ __forceinline__ int tiles() const { return a.tiles(); }
+  __device__ __forceinline__ void issue(int t) const {
+    if (t < tiles()) {
+      a.stage(t);
+      b.stage(t);
+    }
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void begin() const {
+    for (int t = 0; t < BIT_STAGES - 1; ++t) issue(t);
+  }
+  __device__ __forceinline__ void wait() const {
+    cp_async_wait<BIT_STAGES - 2>();
+  }
+};
+
+// One store of `vec` bytes from shared memory (lane_scan's and
+// lane_scan_indexed's output tiles).
+struct StoreBytes {
+  __device__ __forceinline__ void operator()(uint8_t* to, const uint8_t* from,
+                                             int vec) const {
+    if (vec == 16)
+      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
+    else if (vec == 4)
+      *reinterpret_cast<uint32_t*>(to) =
+          *reinterpret_cast<const uint32_t*>(from);
+    else
+      *to = *from;
+  }
+};
+
+// The 2-bit step table of lane_scan_indexed: one 32-bit entry a (state, two
+// bits b0 b1) at byte offset state * 16 + b0 * 8 + b1 * 4, holding the state
+// after both bits as its byte offset in this table (state * 16, bits 4-13),
+// the first bit's emit (bit 14) and the second's (bit 15), and the symbol
+// fields of both bits' fused entries (bits 16-23 and 24-31).  A step of two
+// rows is then lookup, one LOP3 (offset | b0 << 3 | b1 << 2), lookup, as
+// the 1-bit table's step of one row.  16 bytes a state: 4 KB at 255 states,
+// 16 KB for a table of 16 chunks (ops/lanedfa.py step2_table builds the
+// same entries on the host).
+constexpr int STEP2_NODE = STATE_MASK << 4;
+
+__host__ __device__ constexpr int step2_bytes(int tab_words) {
+  return (tab_words + 1) / 2 * 16;
+}
+
+// The 2-bit step table of the staged 1-bit table `tab_s`
+// (stage_offset_table, after a block barrier) into shared memory, by all
+// threads of the block.
+__device__ __forceinline__ void stage_step_table2(int32_t* step,
+                                                  const int32_t* tab_s,
+                                                  int tab_words) {
+  for (int i = threadIdx.x; i < step2_bytes(tab_words) / 4;
+       i += blockDim.x) {
+    const int e0 = offset_lookup(tab_s, (i >> 2) << 3 | (i & 2) << 1);
+    const int e1 = offset_lookup(tab_s, (e0 & OFF_MASK) | (i & 1) << 2);
+    step[i] = (int32_t)((uint32_t)(e1 & OFF_MASK) << 1 |
+                        (uint32_t)(e0 & OFF_EMIT) >> 1 |
+                        (uint32_t)(e1 & OFF_EMIT) |
+                        ((uint32_t)e0 >> 16 & 0xFFu) << 16 |
+                        ((uint32_t)e1 >> 16 & 0xFFu) << 24);
+  }
+}
 
 // Most dynamic shared memory a scan takes without opting in: 48 KB less
 // the staged table.

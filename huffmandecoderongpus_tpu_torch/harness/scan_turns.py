@@ -1,16 +1,16 @@
 """The lane-DFA scans of one tree of the PyTorch port on a GPU, for timing
 two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/scan_turns.py [TREE] [--tag NAME]
+    python3 huffmandecoderongpus_tpu_torch/harness/scan_turns.py [TREE] [--tag NAME] [--sections scans,prof,sync,indexed,short,cards]
 
 Run it as a file, not with ``-m``: it imports the port from TREE (a
 checkout of this repository; default the one that holds this file), so
 that a parent tree unpacked beside this one (``git archive``), which may
 not have this file, is timed by the same code: run parent, change, change,
-parent.  Needs one CUDA card and nvcc; imports nothing of JAX.  Takes the
-streams (d) and (e) from ``draw_streams`` of this checkout's
-``chip_smoke.py`` (same seed, same order) and prints, beside the card's name,
-power limit and maximum SM clock:
+parent.  Needs one CUDA card and nvcc; imports nothing of JAX.  Takes its
+streams from ``draw_streams`` of this checkout's ``chip_smoke.py`` (same
+seed, same order; the trio batch from the draws after it, as there) and
+prints, beside the card's name, power limit and maximum SM clock:
 
   scans      on (d) in the tiled geometry (``chip_smoke.py``'s rows 8 and
              9): candidate_scan, and lane_scan from the entry offsets of
@@ -23,6 +23,26 @@ power limit and maximum SM clock:
              lane_scan, the short candidate scans, the tail column's
              candidate_scan, the fix scan and splice) by CUDA events
              (median of 25 after 3) and split by kernel (profiler)
+  indexed    lane_scan_indexed in lane_dfa's geometry (a lane an index
+             block) on the indexed (a) at 512 symbols a block, (b) at
+             1024, (i) at 512 and (c) at 4096 (chip_smoke.py's INDEXED and
+             INDEXED_MD1): by events (median of 20 single launches) and on
+             the card (profiler, mean a launch), cycles a row over the B
+             rows, the chain floor (B rows, and B / 2 two-bit steps, x 40
+             cycles at the maximum SM clock), the bytes bound (the bits
+             read, sym and valid written, at 3.35 TB/s) and, where the tree
+             has ``indexed_plan``, its plan
+  short      short_candidate_scan on every round lane_dfa_sync runs on (a),
+             (d) and (e) (W from 128, doubling while a chain is unresolved,
+             as ``discover_and_splice``): by events and on the card, beside
+             the chain floor (W rows x 40 cycles) and, where the tree has
+             ``short_plan``, its plan
+  cards      the card time a launch (profiler, mean a launch) of every
+             kernel in the wide program on (a), the batch program on the
+             trio (f), (g) and the book2-sized stream, the encode program
+             on (a), and the dense and the compaction pipelines on (d)
+             (candidate_scan, compose, then lane_decode_dense; lane_scan,
+             cumsum, compact)
 
 The last line is one JSON object of every number.
 """
@@ -48,7 +68,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--sections",
+                    default="scans,prof,sync,indexed,short,cards")
     args = ap.parse_args()
+    sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
     sys.path[0] = str(tree)  # not this file's folder
     # the streams from this checkout's chip_smoke.py; its imports of the
@@ -62,18 +85,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("scan_turns: no CUDA device", file=sys.stderr)
         return 1
-    from huffmandecoderongpus_tpu_torch.harness.profiling import (
-        profile_lanedfa,
-    )
-    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
     from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
-    from huffmandecoderongpus_tpu_torch.ops import (
-        _build,
-        candidate_scan,
-        lane_scan,
-        lanedfa_sync,
-    )
-    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+    from huffmandecoderongpus_tpu_torch.ops import _build
 
     if not pathlib.Path(_build.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"the port was not imported from {tree}")
@@ -92,6 +105,28 @@ def main() -> int:
     out = {"tag": args.tag, "tree": str(tree), "card": card,
            "clocks_max_sm_mhz": float(mhz)}
 
+    if "scans" in sections:
+        scans_section(torch, cs, out, hf_d, dev, card, clock, args.tag)
+    if "prof" in sections:
+        prof_section(out, hf_d, hf_e, dev, card, args.tag)
+    if "sync" in sections:
+        sync_section(torch, cs, out, hf_d, dev, card, args.tag)
+    if "indexed" in sections:
+        indexed_section(torch, cs, out, streams, dev, card, clock, args.tag)
+    if "short" in sections:
+        short_section(torch, cs, out, streams, dev, card, clock, args.tag)
+    if "cards" in sections:
+        cards_section(torch, cs, out, streams, dev, card, args.tag)
+    print(json.dumps(out))
+    return 0
+
+
+def scans_section(torch, cs, out, hf_d, dev, card, clock, tag):
+    """The scans section: candidate_scan and lane_scan on (d)."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.ops import candidate_scan, lane_scan
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
     st = ld.stage_lanedfa(hf_d, device=dev)
     bits, tab = st["bits"], st["tab"]
     kw = dict(B=st["B"], H=st["H"], N=st["N"])
@@ -108,16 +143,30 @@ def main() -> int:
         out[kname] = dict(events_ms=ev, card_ms=card_ms, cycles_a_row=cyc)
         own = ("not measured" if card_ms is None else
                f"{card_ms:.4f} ms, {cyc:.1f} cycles a row")
-        print(f"[scans] {args.tag} (d) {kname}: events {ev:.4f} ms, card "
+        print(f"[scans] {tag} (d) {kname}: events {ev:.4f} ms, card "
               f"{own} over {rows} rows (G={bits.shape[1]} B={st['B']} "
               f"H={st['H']}); card {card}", flush=True)
+
+
+def prof_section(out, hf_d, hf_e, dev, card, tag):
+    """The prof section: profile_lanedfa on (d) and (e)."""
+    from huffmandecoderongpus_tpu_torch.harness.profiling import (
+        profile_lanedfa,
+    )
 
     for k, hf in (("d", hf_d), ("e", hf_e)):
         rep = profile_lanedfa(hf, device=dev)
         out[f"prof_{k}_ms"] = {s: v * 1e3 for s, v in rep.items()}
-        print(f"[prof] {args.tag} ({k}) lanedfa ms "
+        print(f"[prof] {tag} ({k}) lanedfa ms "
               + "  ".join(f"{s} {v * 1e3:.4f}" for s, v in rep.items())
               + f"; card {card}", flush=True)
+
+
+def sync_section(torch, cs, out, hf_d, dev, card, tag):
+    """The sync section: sync discovery on (d), events and split."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.ops import lane_scan, lanedfa_sync
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
 
     st = ld.stage_lanedfa(hf_d, device=dev, tiled=False)
     bits, tab = st["bits"], st["tab"]
@@ -133,13 +182,159 @@ def main() -> int:
     out["sync_d"] = dict(G=bits.shape[1], B=st["B"],
                          events_ms=statistics.median(ts), min_ms=min(ts),
                          card_ms=split)
-    print(f"[sync] {args.tag} (d) G={bits.shape[1]} B={st['B']}: events "
+    print(f"[sync] {tag} (d) G={bits.shape[1]} B={st['B']}: events "
           f"median {statistics.median(ts):.4f} ms (min {min(ts):.4f}); card "
           + "  ".join(f"{n} {v:.4f}" for n, v in sorted(
               split.items(), key=lambda kv: -kv[1]))
           + f"; card {card}", flush=True)
-    print(json.dumps(out))
-    return 0
+
+
+def _timed(torch, cs, fn, kname):
+    """(events ms, card ms or None) of one launch of ``fn``: the median of
+    SCAN_RUNS single launches by events, the profiler's mean a launch."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+
+    ev = statistics.median(event_ms(fn, SCAN_RUNS, warmup=2))
+    return ev, cs.device_breakdown(torch, fn, per_launch=True).get(kname)
+
+
+def indexed_section(torch, cs, out, streams, dev, card, clock, tag):
+    """The indexed section: lane_scan_indexed on the indexed streams."""
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa
+    from huffmandecoderongpus_tpu_torch.ops import lane_scan_indexed as lsi
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    plan = getattr(lanedfa, "indexed_plan", None)
+    for k, K in (*cs.INDEXED.items(), cs.INDEXED_MD1):
+        hf = encode_bytes(streams[k][1], block_symbols=K)
+        st = ld.stage_lanedfa_indexed(hf, hf.index[0], device=dev,
+                                      tiled=False)
+        args = (st["bits"], st["tab"], st["lane_len"])
+        B, G = st["bits"].shape
+        ev, card_ms = _timed(torch, cs, lambda args=args:
+                             lsi.lane_scan_indexed(*args),
+                             "lane_scan_indexed")
+        moved = 3 * B * G + cs.nbytes(st["tab"], st["lane_len"])
+        bound = moved / cs.HBM_BYTES_PER_S * 1e3
+        floor1 = B * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+        cyc = None if card_ms is None else card_ms * 1e-3 * clock / B
+        p = plan and plan(G, st["bits"].data_ptr(), st["tab"].numel())
+        out[f"indexed_{k}@{K}"] = dict(
+            G=G, B=B, events_ms=ev, card_ms=card_ms, cycles_a_row=cyc,
+            bound_ms=bound, floor_1bit_ms=floor1, floor_2bit_ms=floor1 / 2,
+            plan=p)
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.4f} ms, {cyc:.1f} cycles a row")
+        print(f"[indexed] {tag} ({k}) at {K}: lane_scan_indexed events "
+              f"{ev:.4f} ms, card {own}; G={G} B={B}; chain floor "
+              f"{floor1:.4f} ms (1 bit a lookup), {floor1 / 2:.4f} (2 bits);"
+              f" bytes bound {bound:.6f} ms; plan {p}; card {card}",
+              flush=True)
+
+
+def short_section(torch, cs, out, streams, dev, card, clock, tag):
+    """The short section: every round's short_candidate_scan on (a), (d)
+    and (e) in lane_dfa_sync's geometry."""
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import (
+        lane_scan,
+        lanedfa,
+        lanedfa_sync,
+        short_candidate_scan,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    plan = getattr(lanedfa, "short_plan", None)
+    for k in "ade":
+        hf = encode_bytes(streams[k][1])
+        st = ld.stage_lanedfa(hf, device=dev, tiled=False)
+        bits, tab = st["bits"], st["tab"]
+        B, H, N = st["B"], st["H"], st["N"]
+        steps, G = bits.shape
+        zero = torch.zeros(G, dtype=torch.int32, device=dev)
+        valid0 = lane_scan.lane_scan(bits, tab, zero, B=B, H=H, N=N)[1]
+        # the rounds discover_and_splice runs
+        dead = ((torch.arange(G, device=dev) * B)[None, :]
+                + torch.arange(H, device=dev)[:, None]) >= N
+        tail = min(max((N - 1) // B, 0), G - 1)
+        W = min(max(lanedfa_sync.W0, H + 1), steps)
+        rounds = []
+        while True:
+            def fn(W=W):
+                return short_candidate_scan.short_candidate_scan(
+                    bits, tab, valid0, B=B, H=H, N=N, W=W)
+
+            res = fn()
+            ev, card_ms = _timed(torch, cs, fn, "short_candidate_scan")
+            floor = W * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+            moved = cs.short_scan_moved(torch, res, tab, B, N, W)
+            p = plan and plan(G, H, bits.data_ptr() | valid0.data_ptr())
+            rounds.append(dict(W=W, events_ms=ev, card_ms=card_ms,
+                               floor_ms=floor,
+                               bound_ms=moved / cs.HBM_BYTES_PER_S * 1e3,
+                               plan=p))
+            own = "not measured" if card_ms is None else f"{card_ms:.4f} ms"
+            print(f"[short] {tag} ({k}) round {len(rounds)} W={W}: "
+                  f"short_candidate_scan events {ev:.4f} ms, card {own}; "
+                  f"chain floor {floor:.4f} ms; G={G} B={B} H={H}; plan "
+                  f"{p}; card {card}", flush=True)
+            merged, exited = res[0], res[1]
+            unresolved = ~(merged | exited | dead)
+            unresolved[:, tail] = False
+            if W >= steps or not bool(unresolved.any()):
+                break
+            W = min(W * 2, steps)
+        out[f"short_{k}"] = dict(G=G, B=B, H=H, rounds=rounds)
+
+
+def cards_section(torch, cs, out, streams, dev, card, tag):
+    """The cards section: each kernel's card time a launch in the wide,
+    batch, encode, dense and compaction programs."""
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import (
+        batch,
+        compact,
+        encode,
+        lane_decode_dense,
+        lane_scan,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    rng = np.random.default_rng(cs.SEED)
+    cs.draw_streams(rng)  # the batches are drawn after (a)-(i)
+    for n in cs.BATCH_SYMBOLS:
+        cs.text_like(rng, cs.PAPER1_BYTES, n)
+    trio = [encode_bytes(r) for r in (streams["f"][1], streams["g"][1],
+                                      cs.text_like(rng, cs.BOOK2_BYTES))]
+    hf_a = encode_bytes(streams["a"][1])
+    sw = ws.stage_widescan_inputs(hf_a, device=dev)
+    sb = batch.stage_batch_inputs(trio, device=dev)
+    se = encode.stage_encode_inputs(streams["a"][1], device=dev)
+    pe = se["plan"]
+    sd, entry, out_rows = cs.dense_staging(torch,
+                                           encode_bytes(streams["d"][1]), dev)
+    kw = dict(B=sd["B"], H=sd["H"], N=sd["N"])
+    _sym, valid = lane_scan.lane_scan(sd["bits"], sd["tab"], entry, **kw)
+    cum = torch.cumsum(valid, 0, dtype=torch.int32)
+    programs = {
+        "wide (a)": lambda: ws.wide_decode_program(
+            sw["words"], sw["tab"], sw["lim"], **ws.program_args(sw)),
+        "batch (f)+(g)+book2": lambda: batch.batch_decode_program(
+            *batch.batch_inputs(sb), **batch.batch_args(sb)),
+        "encode (a)": lambda: encode.encode_program(
+            se["data3"], se["lo"], se["hi"], se["nval"], ORP=pe["ORP"],
+            NROWS=pe["NROWS"]),
+        "dense (d)": lambda: lane_decode_dense.lane_decode_dense(
+            sd["bits"], sd["tab"], entry, out_rows=out_rows, **kw),
+        "compact (d)": lambda: compact.compact(cum, _sym, out_rows=out_rows),
+    }
+    for what, fn in programs.items():
+        split = cs.device_breakdown(torch, fn, per_launch=True)
+        out[f"cards {what}"] = split
+        print(f"[cards] {tag} {what}: card ms a launch "
+              + "  ".join(f"{n} {v:.4f}" for n, v in split.items())
+              + f"; card {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -106,8 +106,9 @@ _SIGNATURES = {
     # wmat, tab, lim, sym, val, G, steps_w, steps_p, md, C0, C1, NS,
     # threads, shared, stream
     "ws_k1_main": [_P] * 5 + [_I] * 9 + [_P],
-    # bits, tab, lane_len, sym, valid, G, B, tab_words, stream
-    "ws_lane_scan_indexed": [_P] * 5 + [_I] * 3 + [_P],
+    # bits, tab, lane_len, sym, valid, G, B, tab_words, L, R, vec, shared,
+    # stream
+    "ws_lane_scan_indexed": [_P] * 5 + [_I] * 7 + [_P],
     # wmat, tabs, lim, c01, bstream, sym, val, cntmap, exmap, mrowmap,
     # G, steps_w, B, H, steps, steps_p, SEG, md, T, shared, stream
     "ws_k1_scan2_c01": [_P] * 10 + [_I] * 10 + [_P],
@@ -115,8 +116,8 @@ _SIGNATURES = {
     # G, steps_w, steps_p, SEG, md, stream
     "ws_k3_fix2_c01": [_P] * 9 + [_I] * 5 + [_P],
     # bits, tab, valid0, merged, exited, mrow, cnt, ex,
-    # G, B, H, N, W, tab_words, stream
-    "ws_short_candidate_scan": [_P] * 8 + [_I] * 6 + [_P],
+    # G, B, H, N, W, tab_words, L, R, vec, shared, stream
+    "ws_short_candidate_scan": [_P] * 8 + [_I] * 10 + [_P],
     # bits, tab, start, dense, counts, G, B, H, N, out_rows, tab_words, stream
     "ws_lane_decode_dense": [_P] * 5 + [_I] * 6 + [_P],
     # cum, sym, out, steps, G, out_rows, stream

@@ -9,6 +9,12 @@ Lane g is one index block: it walks the fused table one bit row at a time
 from the root at row 0 and is active while the row is below its exact bit
 length ``lane_len[g]``.  Outputs (B, G) uint8: ``valid`` marks the active
 rows that emit, and ``sym`` is the symbol field of every row's table entry.
+
+The kernel stages the bit matrix in shared memory a tile at a time and
+walks a lane's active rows two bits a lookup on a 2-bit step table it
+builds at launch; its launch plan (lanes a block, rows a tile, copy width,
+shared bytes with the step table's) is ``lanedfa.indexed_plan``'s,
+computed here and handed to the launcher.
 """
 
 from __future__ import annotations
@@ -16,7 +22,11 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
-from huffmandecoderongpus_tpu_torch.ops.lanedfa import EMIT_BIT, STATE_MASK
+from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
+    EMIT_BIT,
+    STATE_MASK,
+    indexed_plan,
+)
 
 #: kernel launches made by ``lane_scan_indexed`` on CUDA tensors
 launches = 0
@@ -40,9 +50,11 @@ def lane_scan_indexed(bits_t, tab, lane_len):
                          "chunks")
     sym = torch.empty((B, G), dtype=torch.uint8, device=bits_t.device)
     valid = torch.empty((B, G), dtype=torch.uint8, device=bits_t.device)
+    bp, sp, vp = bits_t.data_ptr(), sym.data_ptr(), valid.data_ptr()
+    p = indexed_plan(G, bp | sp | vp, tab.numel())
     rc = _build.get_lib().ws_lane_scan_indexed(
-        bits_t.data_ptr(), tab.data_ptr(), lane_len.data_ptr(),
-        sym.data_ptr(), valid.data_ptr(), G, B, tab.numel(),
+        bp, tab.data_ptr(), lane_len.data_ptr(), sp, vp, G, B, tab.numel(),
+        p["lanes"], p["rows"], p["vec"], p["shared"],
         _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "lane_scan_indexed")

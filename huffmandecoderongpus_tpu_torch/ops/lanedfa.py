@@ -119,9 +119,13 @@ MAX_THREADS = 1024
 SHARED_DEFAULT = 48 * 1024
 #: bytes of the fused table each scan stages beside its tiles
 TABLE_BYTES = 2048 * 4
+#: most dynamic shared memory a scan's plan takes (``csrc/widescan.cuh``
+#: ``BIT_SHARED_MAX``): the default less the staged table
+BIT_SHARED_MAX = SHARED_DEFAULT - TABLE_BYTES
 
 
-def tile_plan(G: int, chains: int, ptr: int, *, out_tiles: bool) -> dict:
+def tile_plan(G: int, chains: int, ptr: int, *, out_tiles: bool,
+              rings: int = 1, extra: int = 0) -> dict:
     """Launch plan of a lane-DFA scan over the (rows, G) bit matrix: a
     block owns ``lanes`` neighbouring lanes (32 where G allows, halved
     while ``chains`` threads a lane would pass ``MAX_THREADS``), stages
@@ -132,21 +136,84 @@ def tile_plan(G: int, chains: int, ptr: int, *, out_tiles: bool) -> dict:
     block and G, or where one block holds every lane (its rows are then
     one run of bytes, copied whole), else 1.  ``out_tiles``: the lane
     scan's plan, one warp a block and two more pairs of tiles for its sym
-    and valid outputs.  ``threads`` a block, ``blocks``, and ``shared``:
-    the dynamic shared memory the wrapper asks for (the table's
-    ``TABLE_BYTES`` are static, beside it)."""
-    if G < 1 or not 1 <= chains <= MAX_THREADS:
-        raise ValueError(f"tile_plan: G={G}, {chains} chains a lane")
+    and valid outputs.  ``rings``: matrices of the same layout staged side
+    by side, a ring each (the short candidate scan's bits and 0-chain
+    emissions; ``ptr`` then or-s both addresses).  ``extra``: bytes of
+    dynamic shared memory beside the tiles (the indexed scan's 2-bit step
+    table); the tiles lose rows, 16 at a time, until the whole stays
+    within ``BIT_SHARED_MAX``.  ``threads`` a block, ``blocks``, and
+    ``shared``: the dynamic shared memory the wrapper asks for (the
+    table's ``TABLE_BYTES`` are static, beside it)."""
+    if G < 1 or not 1 <= chains <= MAX_THREADS or rings < 1 or extra < 0:
+        raise ValueError(f"tile_plan: G={G}, {chains} chains a lane, "
+                         f"{rings} rings, {extra} extra bytes")
     L = min(32, G)
     while L * chains > MAX_THREADS:
         L //= 2
+    tiles = TILE_STAGES * rings + (4 if out_tiles else 0)
     R = max(16, TILE_BYTES // L // 16 * 16)
+    while R > 16 and tiles * R * L + extra > BIT_SHARED_MAX:
+        R -= 16
+    if tiles * R * L + extra > BIT_SHARED_MAX:
+        raise ValueError(f"tile_plan: {extra} extra bytes leave no room "
+                         "for the tiles")
     vec = next(v for v in (16, 4, 1) if ptr % v == 0
                and (L == G or (L % v == 0 and G % v == 0)))
-    shared = (TILE_STAGES + (4 if out_tiles else 0)) * R * L
     return dict(lanes=L, rows=R, stages=TILE_STAGES, vec=vec,
                 blocks=-(-G // L), threads=32 if out_tiles else L * chains,
-                shared=shared)
+                shared=tiles * R * L + extra)
+
+
+def step2_bytes(tab_words: int) -> int:
+    """Bytes of the indexed scan's 2-bit step table for a padded table of
+    ``tab_words`` int32 entries (two a state): 16 a state
+    (``csrc/widescan.cuh`` ``step2_bytes``)."""
+    return (tab_words + 1) // 2 * 16
+
+
+#: threads a block of ``lane_scan_indexed``: a warp that walks the lanes
+#: and three that copy its tiles in and out (``csrc/lane_scan_indexed.cu``)
+INDEXED_THREADS = 128
+
+
+def indexed_plan(G: int, ptr: int, tab_words: int) -> dict:
+    """Launch plan of ``lane_scan_indexed``: the lane scan's tiles
+    (``tile_plan(G, 1, ptr, out_tiles=True)``) with the 2-bit step table
+    of a ``tab_words`` table beside them, and ``INDEXED_THREADS`` a
+    block."""
+    p = tile_plan(G, 1, ptr, out_tiles=True, extra=step2_bytes(tab_words))
+    return dict(p, threads=INDEXED_THREADS)
+
+
+def short_plan(G: int, H: int, ptr: int) -> dict:
+    """Launch plan of ``short_candidate_scan``: the candidate scan's
+    (H chains a lane) with a second ring for the 0-chain's emissions;
+    ``ptr`` or-s the addresses of both matrices."""
+    return tile_plan(G, H, ptr, out_tiles=False, rings=2)
+
+
+def step2_table(tab: np.ndarray) -> np.ndarray:
+    """The indexed scan's 2-bit step table (uint32, 4 entries a state) of
+    the padded fused table ``tab``, as ``csrc/widescan.cuh``
+    ``stage_step_table2`` builds it in shared memory: entry 4 * s + 2 * b0
+    + b1 holds the state after bits b0 then b1 from state s, times 16
+    (bits 4-13), both bits' emit flags (bits 14 and 15) and both fused
+    entries' symbol fields (bits 16-23 and 24-31)."""
+    t = np.asarray(tab, dtype=np.int64).reshape(-1)
+    n = (t.size + 1) // 2
+    full = np.zeros(2 * (STATE_MASK + 1), dtype=np.int64)
+    full[:t.size] = t
+    s = np.repeat(np.arange(n), 4)
+    b0 = np.tile([0, 0, 1, 1], n)
+    b1 = np.tile([0, 1, 0, 1], n)
+    e0 = full[2 * s + b0]
+    e1 = full[2 * (e0 & STATE_MASK) + b1]
+    emit0 = (e0 & EMIT_BIT) != 0
+    emit1 = (e1 & EMIT_BIT) != 0
+    out = (((e1 & STATE_MASK) << 4) | (emit0.astype(np.int64) << 14)
+           | (emit1.astype(np.int64) << 15) | (((e0 >> 16) & 0xFF) << 16)
+           | (((e1 >> 16) & 0xFF) << 24))
+    return out.astype(np.uint32)
 
 
 def lane_limits(N: int, B: int, G: int, device) -> torch.Tensor:

@@ -12,6 +12,11 @@ merges it, or else its first emission at a row j with j + 1 >= B exits it
 into lane g+1.  Outputs (H, G): ``merged`` and ``exited`` bool, ``mrow``
 (the merge row), ``cnt`` (emissions through the resolving one) and
 ``exit_off`` (j + 1 - B) int32, each 0 where the chain never set it.
+
+The kernel stages the first W rows of the bit matrix and of ``valid0`` in
+shared memory a tile at a time, in two rings under one launch plan
+(``lanedfa.short_plan``'s: lanes a block, rows a tile, copy width, shared
+bytes), computed here and handed to the launcher.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     EMIT_BIT,
     STATE_MASK,
     lane_limits,
+    short_plan,
 )
 
 #: kernel launches made by ``short_candidate_scan`` on CUDA tensors
@@ -53,10 +59,12 @@ def short_candidate_scan(bits_t, tab, valid0, *, B, H, N, W):
     exited = torch.empty((H, G), dtype=torch.bool, device=dev)
     mrow, cnt, ex = (torch.empty((H, G), dtype=torch.int32, device=dev)
                      for _ in range(3))
+    bp, vp = bits_t.data_ptr(), valid0.data_ptr()
+    p = short_plan(G, H, bp | vp)
     rc = _build.get_lib().ws_short_candidate_scan(
-        bits_t.data_ptr(), tab.data_ptr(), valid0.data_ptr(),
-        merged.data_ptr(), exited.data_ptr(), mrow.data_ptr(),
-        cnt.data_ptr(), ex.data_ptr(), G, B, H, N, W, tab.numel(),
+        bp, tab.data_ptr(), vp, merged.data_ptr(), exited.data_ptr(),
+        mrow.data_ptr(), cnt.data_ptr(), ex.data_ptr(), G, B, H, N, W,
+        tab.numel(), p["lanes"], p["rows"], p["vec"], p["shared"],
         _build.stream_ptr(bits_t))
     launches += 1
     _build.check(rc, "short_candidate_scan")

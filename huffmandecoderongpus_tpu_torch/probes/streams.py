@@ -567,3 +567,128 @@ def e_case(case, device):
     st = encode.stage_encode_inputs(raw, tree=tree, lanes=lanes,
                                     device=device)
     return raw, tree, lanes, st
+
+
+#: ``lane_scan_indexed``'s edge cases (``indexed_scan_case``): G = 1, 3, 31
+#: and 33 (past one block of 32, not a multiple of 4: byte copies); an
+#: index's lanes untiled (G odd: byte copies) and tiled (padded to 1,024
+#: with zero-length lanes); B under one tile and not a multiple of 8; an
+#: md = 1 tree; a 255-state table padded to 16 chunks (1,023 states: the
+#: 2-bit table's 16 KB shrink the tiles); copies of the matrix at 1 and 4
+#: bytes past an aligned address.  Lane lengths 0, 1, B, B - 1 and 7 lead,
+#: the rest are drawn
+INDEXED_SCAN_CASES = ("g1", "g3", "g31", "g33", "index-odd", "index-tiled",
+                      "short-b", "md1", "16-chunks", "view+1", "view+4")
+#: ``short_candidate_scan``'s edge cases (``short_scan_case``): a text
+#: stream's sync geometry at W = H + 1, 128 (the first round, one tile) and
+#: every row (steps = B + H, past one tile); the stream end cut mid-lane
+#: (the last lanes dead); a comb tree 140 tall (L shrinks to 4); chains
+#: that never resolve within W (the 0-chain never emits); merges and exits
+#: on the same row (the two-leaf tree: a chain emits every row); the
+#: 0-chain's emissions as bool and both matrices 1 byte past an aligned
+#: address
+SHORT_SCAN_CASES = ("w=h+1", "w=128", "w=steps", "cut", "tall",
+                    "unresolved", "merge+exit", "bool+view")
+
+
+def _padded_table(tree, chunks=None):
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa
+
+    tab = lanedfa.pad_table(lanedfa.build_lane_dfa(tree).entry)
+    if chunks is not None:
+        wide = np.zeros((chunks, tab.shape[1]), dtype=np.int32)
+        wide[:tab.shape[0]] = tab
+        tab = wide
+    return tab
+
+
+def _view(t, off):
+    """A copy of ``t`` ``off`` bytes past an aligned address."""
+    import torch
+
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    v = flat[off:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def indexed_scan_case(case, device):
+    """(bits, tab, lane_len) of one of INDEXED_SCAN_CASES on ``device``,
+    drawn from seed 15: ``lane_scan_indexed``'s inputs."""
+    import torch
+
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    rng = np.random.default_rng(15)
+    if case.startswith("index-"):
+        hf = encode_bytes(text_like(rng, 40_000), block_symbols=256)
+        st = ld.stage_lanedfa_indexed(hf, hf.index[0], device=device,
+                                      tiled=case == "index-tiled")
+        return st["bits"], st["tab"], st["lane_len"]
+    G, B = {"g1": (1, 300), "g3": (3, 301), "g31": (31, 203),
+            "g33": (33, 200), "short-b": (40, 13), "md1": (17, 517),
+            "16-chunks": (36, 290)}.get(case, (64, 300))
+    if case == "md1":
+        tree = encode_bytes(dominant_byte(rng, 20_000, 16)).tree
+    elif case == "16-chunks":
+        tree = encode_bytes(dominant_byte(rng, 40_000)).tree
+    else:
+        tree = encode_bytes(text_like(rng, 20_000)).tree
+    tab = _padded_table(tree, 16 if case == "16-chunks" else None)
+    lens = rng.integers(0, B + 1, G)
+    lens[:min(G, 5)] = [0, 1, B, B - 1, 7][:min(G, 5)]
+    bits = torch.from_numpy(rng.integers(0, 2, (B, G), dtype=np.uint8))
+    out = (bits.to(device), torch.from_numpy(tab).to(device),
+           torch.from_numpy(lens.astype(np.int32)).to(device))
+    if case.startswith("view+"):
+        out = (_view(out[0], int(case[5:])), *out[1:])
+    return out
+
+
+def short_scan_case(case, device):
+    """(bits, tab, valid0, kw) of one of SHORT_SCAN_CASES on ``device``,
+    drawn from seed 16: ``short_candidate_scan``'s inputs and its keyword
+    arguments (B, H, N, W).  valid0 is the plain lane scan's from offset 0
+    in lane_dfa_sync's geometry, or set by hand."""
+    import torch
+
+    from huffmandecoderongpus_tpu_torch.ops import lane_scan
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
+
+    rng = np.random.default_rng(16)
+    if case in ("unresolved", "merge+exit"):
+        if case == "unresolved":  # no 0-chain emission, no row near B
+            G, B, H, W = 20, 1000, 9, 130
+            tree = encode_bytes(text_like(rng, 20_000)).tree
+        else:  # a chain emits every row; row B - 1 merges or exits
+            G, B, H, W = 40, 24, 2, 26
+            tree = encode_bytes((rng.random(1000) < 0.3).astype(
+                np.uint8)).tree
+        bits = torch.from_numpy(rng.integers(0, 2, (B + H, G),
+                                             dtype=np.uint8))
+        valid0 = torch.zeros((B + H, G), dtype=torch.uint8)
+        if case == "merge+exit":
+            valid0[B - 1] = 1
+            valid0[B - 1, ::3] = 0  # every third lane exits instead
+        return (bits.to(device), torch.from_numpy(_padded_table(tree)).to(
+            device), valid0.to(device), dict(B=B, H=H, N=G * B, W=W))
+    if case == "tall":
+        _raw, hf = comb_stream(141, 3000, seed=16)
+        lanes = 8
+    elif case == "cut":
+        hf = encode_bytes(near_uniform(rng, 20_000, 12))
+        lanes = 33
+    else:
+        hf = encode_bytes(text_like(rng, 20_000))
+        lanes = 16
+    st = ld.stage_lanedfa(hf, device=device, lanes=lanes, tiled=False)
+    bits, tab, B, H = st["bits"], st["tab"], st["B"], st["H"]
+    N = st["N"] - (B + B // 3 if case == "cut" else 0)
+    steps = bits.shape[0]
+    zero = torch.zeros(bits.shape[1], dtype=torch.int32, device=device)
+    valid0 = lane_scan.lane_scan_ref(bits, tab, zero, B=B, H=H, N=N)[1]
+    W = {"w=h+1": H + 1, "w=steps": steps, "tall": steps}.get(
+        case, min(128, steps))
+    if case == "bool+view":
+        bits, valid0 = _view(bits, 1), _view(valid0 != 0, 1)
+    return bits, tab, valid0, dict(B=B, H=H, N=N, W=W)

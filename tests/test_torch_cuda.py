@@ -41,6 +41,9 @@ its edges (``probes.streams.K1_MAIN_CASES``) at every block size its plan
 may pick, and K2 at the edges of its tiles (``K2_CASES``): one launch and
 one kernel a call, each leaving its tickets at 0 and its look-back's epoch
 one further, on two streams; both launchers refuse other plans.  The
+indexed lane scan and the short candidate scan run at their edges
+(``probes.streams.INDEXED_SCAN_CASES``, ``SHORT_SCAN_CASES``) and both
+launchers refuse other plans.  The
 1-bit K1' (a team a lane on the 1-bit step table) and K3' run at their
 edges (``K1P_CASES``: a two-leaf tree, 128 and 255 states, a 31-bit comb
 tree, 1 and 37 lanes, lanes past the stream end, a phase-locked run, (c)'s
@@ -1043,6 +1046,72 @@ def test_indexed_md1_refused_and_scanned(cuda):
     out, ran = _launched(lambda: get_decoder("lane_dfa", device=cuda)(hf))
     assert ran == dict(lane_scan_indexed=1)
     np.testing.assert_array_equal(out, raw)
+
+
+@pytest.mark.parametrize("case", ps.INDEXED_SCAN_CASES)
+def test_indexed_scan_edges_match_plain(cuda, case):
+    args = ps.indexed_scan_case(case, cuda)
+    got = lane_scan_indexed.lane_scan_indexed(*args)
+    want = lane_scan_indexed.lane_scan_indexed_ref(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ps.SHORT_SCAN_CASES)
+def test_short_scan_edges_match_plain(cuda, case):
+    bits, tab, valid0, kw = ps.short_scan_case(case, cuda)
+    got = short_candidate_scan.short_candidate_scan(bits, tab, valid0, **kw)
+    want = short_candidate_scan.short_candidate_scan_ref(bits, tab, valid0,
+                                                         **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_scan_launchers_refuse_other_plans(cuda):
+    # lane_scan_indexed's and short_candidate_scan's launchers refuse a
+    # plan outside their rules, nothing launched
+    lib = _build.get_lib()
+    G, B, H, W = 64, 100, 9, 100
+    bits = torch.zeros((B + H, G), dtype=torch.uint8, device=cuda)
+    tab = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    lens = torch.zeros(G, dtype=torch.int32, device=cuda)
+    sym, valid = (torch.empty((B, G), dtype=torch.uint8, device=cuda)
+                  for _ in range(2))
+    p = lanedfa.indexed_plan(G, bits.data_ptr() | sym.data_ptr()
+                             | valid.data_ptr(), tab.numel())
+
+    def indexed(shift=0, **change):
+        q = {**p, **change}
+        return lib.ws_lane_scan_indexed(
+            bits.data_ptr() + shift, tab.data_ptr(), lens.data_ptr(),
+            sym.data_ptr(), valid.data_ptr(), G, B, tab.numel(), q["lanes"],
+            q["rows"], q["vec"], q["shared"], _build.stream_ptr(bits))
+
+    assert p["vec"] == 16 and indexed() == 0
+    for bad in (dict(lanes=33), dict(rows=24), dict(vec=2),
+                dict(shared=p["shared"] - 16),
+                dict(shared=lanedfa.BIT_SHARED_MAX + 16), dict(shift=4)):
+        assert indexed(**bad) != 0, bad
+    valid0 = torch.zeros_like(bits)
+    outs = [torch.empty((H, G), dtype=d, device=cuda)
+            for d in (torch.bool, torch.bool, torch.int32, torch.int32,
+                      torch.int32)]
+    q0 = lanedfa.short_plan(G, H, bits.data_ptr() | valid0.data_ptr())
+
+    def short(shift=0, h=H, **change):
+        q = {**q0, **change}
+        return lib.ws_short_candidate_scan(
+            bits.data_ptr(), tab.data_ptr(), valid0.data_ptr() + shift,
+            *(o.data_ptr() for o in outs), G, B, h, B * G, W, tab.numel(),
+            q["lanes"], q["rows"], q["vec"], q["shared"],
+            _build.stream_ptr(bits))
+
+    assert q0["vec"] == 16 and short() == 0
+    for bad in (dict(lanes=33), dict(rows=24), dict(vec=2),
+                dict(shared=q0["shared"] - 16), dict(shift=4),
+                dict(h=129)):  # 32 lanes x 129 chains: past 1,024 threads
+        assert short(**bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("case", BATCHES)
