@@ -44,7 +44,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               longest lane's chunks x CHAIN_CYCLES_A_ROW) on (a), (b), (d)
               and K1''s (its bits to row B + H, a lookup a bit) on (c)
               ([k1] lines), K3''s card time beside its longest cut's
-              floor on (c) ([k3]), K2's card time and kernel launches a call
+              floor on (c) ([k3]), K3's (k3_fix2) on (a), (b) and (d) and
+              the batch K3's (k3_fix2_c01) on both batches, each from the
+              fresh --card-ms process beside its events time, its longest
+              cut, its chain floor (the longest cut's 2-bit chunks x
+              CHAIN_CYCLES_A_ROW) and the lanes it fixes ([k3] lines), both
+              K3 kernels also at their edges (probes.streams.K3_CASES: md
+              2-8, NS 1, 2 and 8, odd entries and entries on a word's last
+              bit, cuts on a cell boundary, mid-cell and past the last
+              segment, lanes with cut 0, G = 200, two trees in adjacent
+              blocks), K2's card time and kernel launches a call
               beside its bytes bound and the launch floor (P1's card time)
               on (a)-(d) and both batches ([k2] lines) and K4's own time
               on the card against its bytes bound ([k4] lines), both K1
@@ -507,11 +516,13 @@ def comparer(torch, name, rows):
     return compare
 
 
-def check_kernels(torch, name, raw, hf, dev, decodes=True):
+def check_kernels(torch, name, raw, hf, dev, decodes=True, k3_card=None):
     """Phase 3 on one stream of the wide program: K1-K4 (the 1-bit K1/K3
     for md = 1) against their plain versions on the inputs the slice gives
-    them, then K4's own time on the card (profiler) against its bytes bound
-    (a [k4] line).  Returns {kernel: (max_abs_err, kernel ms, plain ms)}
+    them, a [k3] line (K3's card time ``k3_card``, from ``card_ms_fresh``,
+    for md >= 2), then K4's own time on the card (profiler) against its
+    bytes bound (a [k4] line).  Returns {kernel: (max_abs_err, kernel ms,
+    plain ms)}
     and raises on any difference, or, with ``decodes``, unless the dense
     rows trimmed by the counts are the input (a stream whose lanes overflow
     their rows, as (d)'s, is checked kernel by kernel only)."""
@@ -566,10 +577,13 @@ def check_kernels(torch, name, raw, hf, dev, decodes=True):
         lambda: fix[1](wmat, st["tab"], entry, cut, cut_slot, s_k, v_k, **kw),
         lambda: fix[2](wmat, st["tab"], entry, cut, cut_slot, s_p, v_p, **kw),
         (), moved=k3_moved(st["tab"], cut, cut_slot))
-    if not st["chunk2"]:
-        k3_line(torch, name, lambda: fix[1](
-            wmat, st["tab"], entry, cut, cut_slot, s_k, v_k, **kw), cut,
-            p["steps_p"], rows)
+    if st["chunk2"]:
+        k3_line(name, "k3_fix2", k3_card, cut, p["steps_p"], rows)
+    else:
+        k3_line(name, "k3_fix", device_breakdown(torch, lambda: fix[1](
+            wmat, st["tab"], entry, cut, cut_slot, s_k, v_k, **kw),
+            per_launch=True).get("k3_fix"), cut, p["steps_p"], rows, 1,
+            "profiler")
     (denseT,) = compare("k4_compact",
                         lambda: k4_compact.k4_compact(msym, mval, ORP=p["ORP"]),
                         lambda: k4_compact.k4_compact_ref(msym, mval,
@@ -659,27 +673,30 @@ def k1p_line(torch, name, kernel, lim, kw, rows):
           f"{lim.shape[0]} H={kw['H']} md=1 NS={kw['NS']}", flush=True)
 
 
-def k3_line(torch, name, kernel, cut, steps_p, rows):
-    """A [k3] line for one k3_fix launch (``kernel()`` on cut rows
-    ``cut``): its card time (profiler, the mean a launch) and events time
-    beside the chain floor: the longest cut in bits (at most steps_p) x
-    CHAIN_CYCLES_A_ROW at the maximum SM clock.  The card time goes into
-    rows["k3_fix"] as device_ms."""
+def k3_line(name, kname, card_ms, cut, steps_p, rows, step_bits=2,
+            source="profiler, a fresh process"):
+    """A [k3] line for one K3 stream (k3_fix2, k3_fix2_c01, or k3_fix with
+    ``step_bits`` 1): the kernel's card time ``card_ms`` (from ``source``,
+    or None) and events time beside the chain floor, the longest cut (at
+    most steps_p) in lookups of ``step_bits`` bits x CHAIN_CYCLES_A_ROW at
+    the maximum SM clock, and the lanes it fixes.  The card time goes into
+    rows[kname] as device_ms."""
     from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
 
-    card_ms = device_breakdown(torch, kernel, per_launch=True).get("k3_fix")
     clock = sm_clock_mhz(DEVICE)[1] * 1e6
     longest = int(cut.clamp(0, steps_p).max()) if cut.numel() else 0
-    floor_ms = longest * CHAIN_CYCLES_A_ROW / clock * 1e3
-    rows["k3_fix"]["device_ms"] = card_ms
+    steps = -(-longest // step_bits)
+    floor_ms = steps * CHAIN_CYCLES_A_ROW / clock * 1e3
+    r = rows[kname]
+    r["device_ms"] = card_ms
     card = ("not measured" if card_ms is None else
-            f"{card_ms:.4f} ms (profiler), {card_ms / floor_ms:.1f} times "
-            "the floor" if floor_ms else f"{card_ms:.4f} ms (profiler)")
-    print(f"[k3] {name}: k3_fix card {card}; events "
-          f"{rows['k3_fix']['ms']:.4f} ms; longest cut {longest} bits, "
-          f"chain floor {floor_ms:.4f} ms ({CHAIN_CYCLES_A_ROW} cycles a bit "
-          f"at {clock / 1e6:.0f} MHz); lanes fixed "
-          f"{int((cut > 0).sum())} of {cut.numel()}", flush=True)
+            f"{card_ms:.4f} ms ({source}), {card_ms / floor_ms:.1f} times "
+            "the floor" if floor_ms else f"{card_ms:.4f} ms ({source})")
+    print(f"[k3] {name}: {kname} card {card}; events {r['ms']:.4f} ms; "
+          f"longest cut {longest} bits, chain floor {floor_ms:.4f} ms "
+          f"({steps} lookups x {CHAIN_CYCLES_A_ROW} cycles at "
+          f"{clock / 1e6:.0f} MHz); lanes fixed {int((cut > 0).sum())} of "
+          f"{cut.numel()}", flush=True)
 
 
 _launch_floor = []
@@ -857,7 +874,110 @@ def check_k1p_cases(torch, dev):
         compare("k3_fix", fix, lambda: k3_fix.k3_fix_ref(
             wmat, tab, ent, cut, cut_slot, s_p, v_p, **k3), (),
             moved=k3_moved(tab, cut, cut_slot))
-        k3_line(torch, what, fix, cut, kw["steps_p"], rows)
+        k3_line(what, "k3_fix", device_breakdown(
+            torch, fix, per_launch=True).get("k3_fix"), cut, kw["steps_p"],
+            rows, 1, "profiler")
+    return out
+
+
+def check_k3_cases(torch, dev):
+    """Phase 3, K3 for md >= 2 (k3_fix2 and the batch's k3_fix2_c01) at its
+    edge cases (``probes.streams.K3_CASES``: md 2-8, NS 1, 2 and 8, odd
+    entries and entries on a word's last bit, cuts on a cell boundary,
+    mid-cell and past the last segment, lanes with cut 0, G = 200, two trees
+    in adjacent blocks) against the plain versions.  Returns {case: rows},
+    as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import k3_fix2, k3_fix2_c01
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.K3_CASES:
+        kernel, inputs, kw, _hfs = ps.k3_case(case, dev)
+        mod = k3_fix2 if kernel == "k3_fix2" else k3_fix2_c01
+        what = f"k3 {case}"
+        rows = out[what] = {}
+        head, (sym, val), tail = inputs[:5], inputs[5:7], inputs[7:]
+        # K3 splices in place and is idempotent on its own output
+        s_k, v_k = sym.clone(), val.clone()
+        s_p, v_p = sym.clone(), val.clone()
+        comparer(torch, what, rows)(
+            kernel,
+            lambda: getattr(mod, kernel)(*head, s_k, v_k, *tail, **kw),
+            lambda: getattr(mod, kernel + "_ref")(*head, s_p, v_p, *tail,
+                                                  **kw),
+            (), moved=k3_moved(inputs[1], inputs[3], inputs[4])
+            + nbytes(*tail))
+    return out
+
+
+def k3_launch(torch, raws, dev, cuts="real"):
+    """(kernel name, fn, cut, steps_p) of K3 (md >= 2) on the cuts that the
+    kernels K1 and K2 and ``fix_rows`` give: k3_fix2 on the staging of one
+    stream (``raws`` a list of one byte array), k3_fix2_c01 on the batch
+    staging of several.  fn() launches it once, in place on a copy of K1's
+    cells (K3 is idempotent on its own output, so repeated launches do the
+    same work).  ``cuts`` "alone" keeps only the lane of the longest cut
+    (every other lane's cut 0), "all" gives every lane that lane's entry
+    and cuts: its chain alone, and beside every lane of its warp."""
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import (
+        batch,
+        k1_scan2,
+        k1_scan2_c01,
+        k2_compose,
+        k3_fix2,
+        k3_fix2_c01,
+    )
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    hfs = [encode_bytes(r) for r in raws]
+    if len(hfs) == 1:
+        st = ws.stage_widescan_inputs(hfs[0], device=dev)
+        tab, extra = st["tab"], ()
+        fix = dict(C0=st["C0"], C1=st["C1"], NS=st["NS"])
+    else:
+        st = batch.stage_batch_inputs(hfs, device=dev)
+        tab, extra, fix = st["tabs"], (st["c01"], st["bstream"]), {}
+    p = st["plan"]
+    wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+    kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"])
+    k1a = dict(B=p["B"], H=st["H"], steps=p["steps"], **kw)
+    if extra:
+        sym, val, _cnt, exmap, mrowmap = k1_scan2_c01.k1_scan2_c01(
+            wmat, tab, st["lim"], *extra, **k1a)
+        exmap[:, list(st["last_live"])] = 0
+    else:
+        sym, val, _cnt, exmap, mrowmap = k1_scan2.k1_scan2(
+            wmat, tab, st["lim"], **fix, **k1a)
+    entry, _tot = k2_compose.k2_compose(exmap, 0)
+    cut, cut_slot = ws.fix_rows(entry, mrowmap, st["lim"], st["H"], st["md"])
+    if cuts != "real":
+        top = int(torch.argmax(cut))
+        keep = torch.arange(cut.numel(), device=cut.device) == top
+        if cuts == "alone":
+            cut, cut_slot = cut * keep, cut_slot * keep
+        else:
+            entry, cut, cut_slot = (torch.full_like(t, int(t[top]))
+                                    for t in (entry, cut, cut_slot))
+    name = "k3_fix2_c01" if extra else "k3_fix2"
+    kernel = getattr(k3_fix2_c01 if extra else k3_fix2, name)
+
+    def fn():
+        return kernel(wmat, tab, entry, cut, cut_slot, sym, val, *extra,
+                      **fix, **kw)
+
+    return name, fn, cut, p["steps_p"]
+
+
+def k3_card_ms(torch, streams, batches, dev):
+    """{key: ms}: K3's card time a launch (as encode_card_ms) on the cuts of
+    (a), (b) and (d) (k3_fix2) and of both batches (k3_fix2_c01; keys
+    BATCH5 and TRIO, ``batches`` their byte arrays)."""
+    out = {}
+    for key, raws in ([(k, [streams[k][1]]) for k in "abd"]
+                      + list(batches.items())):
+        name, fn, _cut, _sp = k3_launch(torch, raws, dev)
+        out[key] = device_breakdown(torch, fn, per_launch=True).get(name)
     return out
 
 
@@ -1231,10 +1351,11 @@ def scan_card_ms(torch, streams, dev):
 
 
 def card_ms_fresh():
-    """{"encode": encode_card_ms, "scan": scan_card_ms} from a fresh
-    process of this script (its last line): this long process's profiler
-    records nothing in most sessions after its first phases (PERF.md
-    section 7), a new one's in each.  Empty dicts if the child fails."""
+    """{"encode": encode_card_ms, "scan": scan_card_ms, "k3": k3_card_ms}
+    from a fresh process of this script (its last line): this long
+    process's profiler records nothing in most sessions after its first
+    phases (PERF.md section 7), a new one's in each.  Empty dicts if the
+    child fails."""
     r = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
                         CARD_ARG], capture_output=True, text=True,
                        timeout=600)
@@ -1242,7 +1363,7 @@ def card_ms_fresh():
     if r.returncode or not lines:
         print(f"[card] the card-time process failed (rc {r.returncode}): "
               f"{r.stderr.strip()[-500:]}", flush=True)
-        return {"encode": {}, "scan": {}}
+        return {"encode": {}, "scan": {}, "k3": {}}
     return json.loads(lines[-1])
 
 
@@ -1547,10 +1668,11 @@ def check_dense(torch, name, raw, hf, dev, with_compact):
     return rows
 
 
-def check_batch(torch, name, raws, hfs, dev):
+def check_batch(torch, name, raws, hfs, dev, k3_card=None):
     """Phase 3 on a batch: the batched K1 and K3 (per-stream tables)
     against their plain versions on the batch staging, K2 and K4 between
-    them, and every member's bytes.  Returns and raises as
+    them, and every member's bytes; a [k3] line with K3's card time
+    ``k3_card`` (from ``card_ms_fresh``).  Returns and raises as
     check_kernels."""
     from huffmandecoderongpus_tpu_torch.ops import (
         batch,
@@ -1599,6 +1721,7 @@ def check_batch(torch, name, raws, hfs, dev):
         lambda: k3_fix2_c01.k3_fix2_c01_ref(wmat, tabs, entry, cut, cut_slot,
                                             s_p, v_p, c01, bs, **kw),
         (), moved=k3_moved(tabs, cut, cut_slot) + nbytes(c01, bs))
+    k3_line(name, "k3_fix2_c01", k3_card, cut, p["steps_p"], rows)
     (denseT,) = compare(
         "k4_compact", lambda: k4_compact.k4_compact(msym, mval, ORP=p["ORP"]),
         lambda: k4_compact.k4_compact_ref(msym, mval, ORP=p["ORP"]),
@@ -1871,24 +1994,30 @@ def main() -> int:
     # ---- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(SEED)
     streams = draw_streams(rng)
+    small_raw = [text_like(rng, PAPER1_BYTES, n) for n in BATCH_SYMBOLS]
+    book2 = text_like(rng, BOOK2_BYTES)
     if sys.argv[1:] == [CARD_ARG]:
+        batches = {BATCH5: small_raw,
+                   TRIO: [streams["f"][1], streams["g"][1], book2]}
         print(json.dumps({"encode": encode_card_ms(torch, streams, dev),
-                          "scan": scan_card_ms(torch, streams, dev)}))
+                          "scan": scan_card_ms(torch, streams, dev),
+                          "k3": k3_card_ms(torch, streams, batches, dev)}))
         return 0
+    card_ms = card_ms_fresh()
     hfs = {k: (f"{k} {name}", r, encode_bytes(r))
            for k, (name, r) in streams.items()}
-    small = []
-    for j, n_sym in enumerate(BATCH_SYMBOLS):
-        r = text_like(rng, PAPER1_BYTES, n_sym)
-        small.append((f"paper1-sized text over {n_sym} symbols", r,
-                      encode_bytes(r)))
-    r = text_like(rng, BOOK2_BYTES)
-    trio = [hfs["f"], hfs["g"], ("book2-sized text", r, encode_bytes(r))]
+    small = [(f"paper1-sized text over {n_sym} symbols", r, encode_bytes(r))
+             for n_sym, r in zip(BATCH_SYMBOLS, small_raw)]
+    trio = [hfs["f"], hfs["g"],
+            ("book2-sized text", book2, encode_bytes(book2))]
     idx = {k: (f"{k} {streams[k][0]}, index every {K} symbols",
                streams[k][1], encode_bytes(streams[k][1], block_symbols=K))
            for k, K in (*INDEXED.items(), INDEXED_MD1)}
-    checked = {k: check_kernels(torch, *hfs[k], dev) for k in "abc"}
-    checked["d"] = check_kernels(torch, *hfs["d"], dev, decodes=False)
+    checked = {k: check_kernels(torch, *hfs[k], dev,
+                                k3_card=card_ms["k3"].get(k))
+               for k in "abc"}
+    checked["d"] = check_kernels(torch, *hfs["d"], dev, decodes=False,
+                                 k3_card=card_ms["k3"].get("d"))
     checked["d"].update(check_lanedfa(torch, *hfs["d"], dev))
     checked.update(check_scan_tiles(torch, hfs, dev))
     checked.update(check_k4_cases(torch, dev))
@@ -1899,7 +2028,7 @@ def main() -> int:
     checked.update(check_k1p_cases(torch, dev))
     checked.update(check_k1_main_cases(torch, dev))
     checked.update(check_k2_cases(torch, dev))
-    card_ms = card_ms_fresh()
+    checked.update(check_k3_cases(torch, dev))
     for k in ENCODE_CHECKED:
         checked.setdefault(k, {}).update(
             check_encoder(torch, *hfs[k], dev, card_ms["encode"].get(k, {})))
@@ -1914,7 +2043,8 @@ def main() -> int:
     for what, members in ((BATCH5, small), (TRIO, trio)):
         checked[what] = check_batch(torch, what,
                                     [r for _n, r, _h in members],
-                                    [h for _n, _r, h in members], dev)
+                                    [h for _n, _r, h in members], dev,
+                                    card_ms["k3"].get(what))
     for k in SYNC:
         checked[SYNC[k]] = check_sync(torch, *hfs[k], dev,
                                       card_ms["scan"].get(SYNC[k]))

@@ -10,12 +10,19 @@
 // here each lane stops at its first cell that keeps every slot, after which
 // nothing it would compute is used.
 //
-// The per-lane body is k3_fix2_lane (widescan.cuh); the fused one-shot
-// kernel runs the same rules on its step table (oneshot.cu k3_lane).
+// A thread a lane (the fix chain is serial from the entry, and K3 has no
+// candidate chains to split over a team), walking the step table
+// (widescan.cuh stage_step_table, C0/C1 in its wide entries) staged in
+// shared memory at launch: a 2-bit chunk is lookup, one LOP3, lookup.  The
+// per-lane body is k3_fix2_lane (widescan.cuh), templated on md (with_md):
+// a cell's chunks unroll, the lane's words come a word ahead of the walk,
+// and every cell below the one that holds cut_slot is stored whole without
+// reading it.  The fused one-shot kernel runs the same rules (oneshot.cu
+// k3_lane).
 //
-// What bounds it on the H100: a dependent table-lookup chain per fixed lane
-// (latency); most lanes merge within a few dozen bits, so the work is the
-// tail of the slowest lanes.
+// What bounds it on the H100: a dependent lookup chain a fixed lane
+// (latency); most lanes merge within a few dozen bits, so the time is the
+// longest cut's chain, about 40 cycles a 2-bit chunk.
 
 #include "widescan.cuh"
 
@@ -23,18 +30,25 @@ using namespace ws;
 
 namespace {
 
-__global__ void __launch_bounds__(128) k3_fix2_kernel(
+constexpr int K3_THREADS = 128;
+
+__global__ void __launch_bounds__(K3_THREADS) k3_fix2_kernel(
     const int32_t* __restrict__ wmat, const uint32_t* __restrict__ tab,
     const int32_t* __restrict__ ent, const int32_t* __restrict__ cut,
     const int32_t* __restrict__ cutsl, int32_t* __restrict__ sym,
     uint8_t* __restrict__ val, int G, int steps_w, int steps_p, int SEG,
     int md, int C0, int C1, int NS) {
-  __shared__ uint32_t tab_s[TAB_WORDS];
-  load_table(tab_s, tab, NS);
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ int32_t step[MAX_NS * 128 * 4];  // 16 KB at NS 8
+  stage_step_table(step, tab, NS, C0, C1);
+  __syncthreads();
+  const int g = blockIdx.x * K3_THREADS + threadIdx.x;
   if (g >= G) return;
-  k3_fix2_lane(WmatWords{wmat, G, steps_w}, tab_s, ent[g], cut[g], cutsl[g],
-               sym, val, G, g, steps_p, SEG, md, C0, C1, NS);
+  const WmatWords words{wmat, G, steps_w};
+  const int e0 = ent[g], ct = cut[g], cs = cutsl[g];
+  with_md(md, [&](auto m) {
+    k3_fix2_lane<decltype(m)::value>(words, step, e0, ct, cs, sym, val, G,
+                                     g, steps_p, SEG, C0, C1);
+  });
 }
 
 }  // namespace
@@ -44,11 +58,11 @@ extern "C" int ws_k3_fix2(const int32_t* wmat, const uint32_t* tab,
                           const int32_t* cutsl, int32_t* sym, uint8_t* val,
                           int G, int steps_w, int steps_p, int SEG, int md,
                           int C0, int C1, int NS, cudaStream_t stream) {
-  if (NS > MAX_NS || md < 2 || SEG % (md * CELL) || steps_p % SEG)
+  if (G < 1 || NS < 1 || NS > MAX_NS || md < 2 || md > 8 ||
+      SEG % (md * CELL) || SEG > 32 || steps_p % SEG)
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  k3_fix2_kernel<<<(G + threads - 1) / threads, threads, 0, stream>>>(
-      wmat, tab, ent, cut, cutsl, sym, val, G, steps_w, steps_p, SEG, md, C0,
-      C1, NS);
+  k3_fix2_kernel<<<(G + K3_THREADS - 1) / K3_THREADS, K3_THREADS, 0,
+                   stream>>>(wmat, tab, ent, cut, cutsl, sym, val, G, steps_w,
+                             steps_p, SEG, md, C0, C1, NS);
   return (int)cudaGetLastError();
 }

@@ -3,16 +3,17 @@
 // threads a lane), which k1_scan2.cu, k1_scan2_c01.cu and the fused
 // one-shot kernel (oneshot.cu) all run and whose main-chain walks
 // (main_fast, team_walk) k1_main.cu runs a thread a lane, K3's per-lane
-// body (k3_fix2_lane), and K4's block-wide body (k4_block), which the
-// separate kernels and the one-shot share.  K2 is one launch of its own
-// (k2_compose.cu: tiles composed in shared memory, chained by a look-back);
-// the one-shot keeps a three-step K2 between its grid barriers
-// (oneshot.cu).
+// body (k3_fix2_lane, which k3_fix2.cu and k3_fix2_c01.cu run), and K4's
+// block-wide body (k4_block), which the separate kernels and the one-shot
+// share.  K2 is one launch of its own (k2_compose.cu: tiles composed in
+// shared memory, chained by a look-back); the one-shot keeps a three-step
+// K2 between its grid barriers (oneshot.cu).
 //
 // The quad table (2*NS rows of 128 uint32 words, see
-// ops/widescan.py pack_quad_tables) is staged in shared memory: row
-// b0*NS + (node >> 7), column node & 127, 16-bit half b1 is the entry for
-// the 2-bit chunk (b0, b1) read in state `node`.  The 1-bit kernels' pair
+// ops/widescan.py pack_quad_tables), which every 2-bit kernel rewrites into
+// a step table in shared memory (stage_step_table): row b0*NS + (node >>
+// 7), column node & 127, 16-bit half b1 is the entry for the 2-bit chunk
+// (b0, b1) read in state `node`.  The 1-bit kernels' pair
 // table (NS rows, pack_pair_table) holds one word per state: word `node`,
 // 16-bit half b is the entry for bit b.
 #pragma once
@@ -27,7 +28,6 @@ namespace ws {
 
 constexpr int CELL = 4;           // md-slots per int32 cell / u8 nibble
 constexpr int MAX_NS = 8;         // 1023 states / 128
-constexpr int TAB_WORDS = 2 * MAX_NS * 128;
 constexpr int MAX_SEGH = 16;      // chunk rows per segment: SEG <= 32
 constexpr int MAX_NL = 8;         // leaders: one per residue mod md, md <= 8
 constexpr int MAX_CH = 127;       // candidate chains: HP <= 128
@@ -44,13 +44,6 @@ struct Step {
   int sym;   // the symbol (0 unless emit)
   int node;  // post-chunk state
 };
-
-// 16-bit entry of state `node` for chunk bits (b0, b1).
-__device__ __forceinline__ uint32_t quad_entry(const uint32_t* tab, int NS,
-                                               int node, int b0, int b1) {
-  uint32_t w = tab[(b0 * NS + (node >> 7)) * 128 + (node & 127)];
-  return (w >> (b1 << 4)) & 0xFFFFu;
-}
 
 // Decode an entry: compact layout (NS == 1) sym<<8 | emit<<7 | post_state,
 // wide layout (NS > 1) emit<<15 | sym<<1 | pos, or the bare state.  `rc` is
@@ -98,13 +91,6 @@ __device__ __forceinline__ Bit e1_fields(uint32_t e, int NS) {
     s.node = e & 127;
   }
   return s;
-}
-
-// Stage the quad table into shared memory (all threads of the block).
-__device__ __forceinline__ void load_table(uint32_t* tab_s,
-                                           const uint32_t* tab, int NS) {
-  for (int i = threadIdx.x; i < 2 * NS * 128; i += blockDim.x) tab_s[i] = tab[i];
-  __syncthreads();
 }
 
 // Word w of lane g's halo'd bits (bit j of the lane is bit j % 32 of word
@@ -723,50 +709,98 @@ inline cudaError_t allow_shared(const void* kernel,
   return err;
 }
 
-// K3 (k3_fix2.cu) for lane g, entered at e0 with cut row ct and cut slot
-// cs: re-decode from e0 and splice the slots below cs into sym/val in
-// place.  Stops at its first cell that keeps every slot.
-template <class Words>
-__device__ __forceinline__ void k3_fix2_lane(
-    const Words& words, const uint32_t* tab_s, int e0, int ct, int cs,
-    int32_t* sym, uint8_t* val, int G, int g, int steps_p, int SEG, int md,
-    int C0, int C1, int NS) {
+// ---- K3: the fix scan of a lane entered mid-codeword ----------------------
+// K3 (k3_fix2.cu, k3_fix2_c01.cu) for lane g, entered at e0 with cut row ct
+// and cut slot cs: re-decode from bit e0 and splice the slots below cs into
+// sym/val in place.  The lane stops at its first cell that keeps every
+// slot: cell min(nseg * cells a segment, ceil(cs / CELL)), nseg the
+// segments its cut reaches (the TPU kernel runs a segment while a cut
+// reaches it).
+//
+// The walk is the step table's (stage_step_table; C0/C1, the root's
+// children, as byte offsets): a 2-bit chunk is lookup, one LOP3, lookup.
+// The LOP3 takes the next lookup's offset from the entry, a mask and the
+// next chunk's bits: the mask keeps the post-chunk state from the entry's
+// chunk on, and zero (the root) before it, where the entry's emissions are
+// dropped; an odd entry e0 sets the chunk holding bit e0 - 1 to the root
+// child of bit e0 (a root step on the chunk's second bit).  Both depend on
+// the cell and e0 alone, so they stay off the dependent path.  Each chunk
+// issues the next chunk's lookup before it packs its own emission, and the
+// last chunk of a cell the next cell's first before the cell is stored, so
+// that the stores and the loop's own work wait on no lookup.  MD makes a
+// cell's 2 * MD chunks unroll and each slot a division by a constant.  The
+// lane's bits come through a 64-bit window of two words, the word after
+// them loaded when the window moves, a word ahead of the walk.  Every cell
+// below the one holding cs is stored whole, without reading it; that cell,
+// the only one read, is loaded when the lane starts and stored spliced
+// under its byte and bit masks.
+template <int MD, class Words>
+__device__ __forceinline__ void k3_fix2_lane(const Words& words,
+                                             const int32_t* step, int e0,
+                                             int ct, int cs, int32_t* sym,
+                                             uint8_t* val, int G, int g,
+                                             int steps_p, int SEG, int C0,
+                                             int C1) {
+  constexpr int BITS = CELL * MD;  // a cell's bits: at most 32
   if (ct <= 0) return;
-  // the TPU kernel runs segments while the cut reaches them
-  const int S = steps_p / SEG;
-  const int nseg = min((ct + SEG - 1) / SEG, S);
-  const int ncell = nseg * (SEG / (md * CELL));
-  int node = 0;
-  int wcur = -1;
-  uint32_t word = 0;
-  for (int c = 0; c < ncell && c * CELL < cs; ++c) {
-    uint32_t cacc = 0, nacc = 0;
-    for (int k = 0; k < 2 * md; ++k) {
-      const int jbit = c * CELL * md + 2 * k;
-      if ((jbit >> 5) != wcur) {
-        wcur = jbit >> 5;
-        word = words(wcur, g);
-      }
-      const int b0 = (word >> (jbit & 31)) & 1;
-      const int b1 = (word >> ((jbit & 31) + 1)) & 1;
-      const int rc = b1 ? C1 : C0;
-      const bool started = jbit >= e0;
-      const uint32_t e = started ? quad_entry(tab_s, NS, node, b0, b1) : 0u;
-      const Step st = decode_entry(e, NS, rc);
-      if (started) node = st.node;
-      if (e0 == jbit + 1) node = rc;
-      if (st.emit) {
-        const int sl = (2 * k + st.pos) / md;
-        cacc |= (uint32_t)st.sym << (8 * sl);
-        nacc |= 1u << sl;
-      }
+  const int nseg = min((ct + SEG - 1) / SEG, steps_p / SEG);
+  const int nc = min(nseg * (SEG / BITS), (cs + CELL - 1) / CELL);
+  if (nc <= 0) return;
+  // the cut cell, when it keeps some of its slots: cell cs / CELL = nc - 1
+  const bool spliced = cs % CELL != 0 && cs / CELL < nc;
+  const size_t ocut = (size_t)(nc - 1) * G + g;
+  const uint32_t old_s = spliced ? (uint32_t)sym[ocut] : 0u;
+  const uint32_t old_v = spliced ? (uint32_t)val[ocut] : 0u;
+  const int c0 = C0 << 4, c1 = C1 << 4;
+  // words [w, w + 1] of the lane, and word w + 2 on its way
+  uint64_t win = (uint64_t)words(0, g) | (uint64_t)words(1, g) << 32;
+  uint32_t ahead = words(2, g);
+  int w = 0;
+  uint32_t bits = (uint32_t)win;  // the cell's bits
+  int e = step_at(step, (int)(bits & 3u) << 2);  // the chunk's entry
+  for (int c = 0; c < nc; ++c) {
+    // the next cell's bits, for the LOP3 of this cell's last chunk
+    const int nb = (c + 1) * BITS;
+    if ((nb >> 5) != w) {
+      win = (win >> 32) | (uint64_t)ahead << 32;
+      ++w;
+      ahead = words(w + 2, g);
     }
-    const int kk = min(cs - c * CELL, CELL);  // > 0 by the loop bound
-    const uint32_t vmask = (1u << kk) - 1u;
-    const uint32_t smask = kk >= CELL ? 0xFFFFFFFFu : (1u << (8 * kk)) - 1u;
+    const uint32_t next = (uint32_t)(win >> (nb & 31));
+    const int rel = e0 - c * BITS;  // the entry bit, from the cell's start
+    uint32_t cacc = 0, nacc = 0;
+#pragma unroll
+    for (int k = 0; k < 2 * MD; ++k) {
+      const int ek = e;
+      const bool on = 2 * k >= rel;  // the chunk is at or past the entry
+      const int rc = (bits >> (2 * k + 1)) & 1u ? c1 : c0;
+      const int root = rel == 2 * k + 1 ? rc : 0;
+      const uint32_t nx = k + 1 < 2 * MD ? bits >> (2 * k + 2) : next;
+      // the next chunk's lookup (the next cell's first after the last
+      // chunk), in flight while this one's emission is packed and the
+      // cell is stored
+      e = step_at(step, (ek & (on ? STEP_NODE : 0)) |
+                            (root | (int)(nx & 3u) << 2));
+      const uint32_t em = on ? ((uint32_t)ek >> 14) & 1u : 0u;
+      // one division by the constant MD: a select of two quotients lets
+      // the compiler fold them into a division by a selected divisor,
+      // which it calls out of line
+      const int sl = (2 * k + ((ek >> STEP_POS) & 1)) / MD;
+      cacc |= (em * (((uint32_t)ek >> 16) & 0xFFu)) << (8 * sl);
+      nacc |= em << sl;
+    }
     const size_t o = (size_t)c * G + g;
-    sym[o] = (int32_t)((cacc & smask) | ((uint32_t)sym[o] & ~smask));
-    val[o] = (uint8_t)((nacc & vmask) | ((uint32_t)val[o] & ~vmask));
+    if (spliced && c == nc - 1) {  // its slots from cs % CELL on stay
+      const int kk = cs % CELL;
+      const uint32_t vmask = (1u << kk) - 1u;
+      const uint32_t smask = (1u << (8 * kk)) - 1u;
+      sym[o] = (int32_t)((cacc & smask) | (old_s & ~smask));
+      val[o] = (uint8_t)((nacc & vmask) | (old_v & ~vmask));
+    } else {
+      sym[o] = (int32_t)cacc;
+      val[o] = (uint8_t)nacc;
+    }
+    bits = next;
   }
 }
 

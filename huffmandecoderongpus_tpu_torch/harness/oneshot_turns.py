@@ -1,7 +1,7 @@
 """K4, the one-shot launch and K1 of one tree of the PyTorch port on a GPU,
 for timing two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1,encode]
+    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1,k3,encode]
 
 Run it as a file, not with ``-m``, as ``scan_turns.py`` beside it: it
 imports the port from TREE (a checkout of this repository; default the one
@@ -51,6 +51,16 @@ beside the card's name and power limit:
              maximum SM clock) and, where the tree has ``k1_scan_plan``,
              K1''s plan; and (c)'s ``wide_decode_program`` by events
              (median of 25 after 3)
+  k3         K3 for md >= 2 on the cuts the kernels K1, K2 and fix_rows
+             give (chip_smoke.py k3_launch): k3_fix2 on (a), (b) and (d),
+             k3_fix2_c01 on both batches, and on (a) and (b) the longest
+             lane alone and every lane on its cuts: by events (median of
+             20 single launches) and on the card (profiler, mean a launch),
+             beside the chain floor (the longest cut's 2-bit chunks x 40
+             cycles at the maximum SM clock), the lanes fixed and the SM
+             clock read right after the runs; and (a)'s
+             ``wide_decode_program`` by events (median of 25 after 3) with
+             its card time by kernel (K1, K2, K3, K4 and the torch ops)
   encode     E1 and E2 on the encoder's staging of (a), (b), (c) and
              (g)-(i) (E2 on E1's rows at the plan's ORP): by events and on
              the card, beside the bytes each must move at 3.35 TB/s and,
@@ -86,7 +96,7 @@ def main() -> int:
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--sections",
-                    default="k4,oneshot,k1,k1main,k2,md1,encode")
+                    default="k4,oneshot,k1,k1main,k2,md1,k3,encode")
     args = ap.parse_args()
     sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
@@ -199,6 +209,9 @@ def main() -> int:
         k2_section(torch, cs, out, streams, small, trio, dev, card, args.tag)
     if "md1" in sections:
         md1_section(torch, cs, out, streams, dev, card, clock, args.tag)
+    if "k3" in sections:
+        k3_section(torch, cs, out, streams, small, trio, dev, card, clock,
+                   args.tag)
     if "encode" in sections:
         encode_section(torch, cs, out, streams, dev, card, args.tag)
     print(json.dumps(out))
@@ -387,6 +400,56 @@ def md1_section(torch, cs, out, streams, dev, card, clock, tag):
     print(f"[md1] {tag} program_c: wide_decode_program events "
           f"{statistics.median(ts):.4f} ms (min {min(ts):.4f}); card {card}",
           flush=True)
+
+
+def k3_section(torch, cs, out, streams, small, trio, dev, card, clock,
+               tag):
+    """The k3 section: K3 (md >= 2) on (a), (b), (d) and both batches, and
+    (a)'s program split by kernel."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    for key, raws, cuts in ([(k, [streams[k][1]], "real") for k in "abd"]
+                            + [("five", small, "real"),
+                               ("trio", trio, "real")]
+                            + [(f"{k} {c}", [streams[k][1]], c)
+                               for k in "ab" for c in ("alone", "all")]):
+        name, fn, cut, steps_p = cs.k3_launch(torch, raws, dev, cuts)
+        ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+        card_ms = cs.device_breakdown(torch, fn, per_launch=True).get(name)
+        mhz = sm_clock_mhz(dev)[0]
+        longest = int(cut.clamp(0, steps_p).max())
+        chunks = -(-longest // 2)
+        floor = chunks * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+        fixed = int((cut > 0).sum())
+        out[f"{name}_{key}"] = dict(G=cut.numel(), fixed=fixed,
+                                    longest_cut=longest, events_ms=ev,
+                                    card_ms=card_ms, floor_ms=floor,
+                                    clocks_sm_after_mhz=mhz)
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.4f} ms, {card_ms / floor:.1f} times the floor")
+        print(f"[k3] {tag} {name} ({key}): events {ev:.4f} ms, card {own}; "
+              f"floor {floor:.4f} ms (longest cut {longest} bits, {chunks} "
+              f"chunks); lanes fixed {fixed} of {cut.numel()}; SM clock "
+              f"{mhz:.0f} MHz after the runs; card {card}", flush=True)
+    st = ws.stage_widescan_inputs(encode_bytes(streams["a"][1]), device=dev)
+    args1 = (st["words"], st["tab"], st["lim"])
+    a4 = ws.program_args(st)
+
+    def program():
+        return ws.wide_decode_program(*args1, **a4)
+
+    ts = event_ms(program, WARMUP + RUNS)[WARMUP:]
+    split = cs.device_breakdown(torch, program)
+    out["program_a_k3"] = dict(events_ms=statistics.median(ts),
+                               min_ms=min(ts), card_ms=split)
+    print(f"[k3] {tag} program_a: wide_decode_program events "
+          f"{statistics.median(ts):.4f} ms (min {min(ts):.4f}); card ms a "
+          "program " + "  ".join(f"{n} {v:.4f}" for n, v in split.items())
+          + f"; card {card}", flush=True)
 
 
 def encode_section(torch, cs, out, streams, dev, card, tag):

@@ -502,6 +502,124 @@ def k3p_inputs(inputs, kw, cuts):
     return (*cuts, sym, val)
 
 
+#: K3's edge cases (``k3_case``; md >= 2): text at G 512 with the cuts the
+#: plain K1, K2 and ``fix_rows`` give (md 2, NS 1; the cheap case); md 3
+#: (12-bit cells across word boundaries) at G 200, not a multiple of 128;
+#: md 4, 5 and 7 (SEG 32, 20 and 28); 256 symbols (two table chunks, NS 2)
+#: and their table spread over eight (NS 8); md 8 (NS 2, a word a cell); and
+#: the batch's K3 on two streams of different trees in adjacent 128-lane
+#: blocks (``k3_fix2_c01``), with its own cuts and with hand-set ones.  The
+#: hand-set cuts take entries from 0 to 2H, odd ones among them, a lane in
+#: seven on a word's last bit (31 or 63), cut slots on a cell's first slot
+#: ("cell"), inside a cell ("mid") or past the last segment ("full"), a lane
+#: in ten with cut 0, and random old cells
+K3_CASES = ("text-512", "md3-g200", "md4-cell", "md5-mid", "md6-ns2",
+            "ns8-mid", "md7-full", "md8-cell", "batch-pair", "batch-mid")
+#: the hand-set cuts of each case that has them
+K3_CUTS = {"md3-g200": "mid", "md4-cell": "cell", "md5-mid": "mid",
+           "md6-ns2": "mid", "ns8-mid": "mid", "md7-full": "full",
+           "md8-cell": "cell", "batch-mid": "mid"}
+
+
+def k3_cuts(rng, G, H, steps_p, md, how):
+    """(ent, cut, cut_slot) (G,) int64 set by hand (see K3_CASES); cut_slot
+    is the first md-slot at or past the cut, as ``fix_rows`` makes it."""
+    ent = rng.integers(0, 2 * max(H, 2), G)
+    ent[::7] = np.where(rng.random(ent[::7].size) < 0.5, 31, 63)
+    cells = steps_p // (4 * md)
+    if how == "full":  # past the last segment: every cell of the lane
+        cs = np.full(G, cells * 4 + 1 + rng.integers(0, 9))
+        cut = md * cs
+    else:
+        cs = 4 * rng.integers(1, cells, G)
+        if how == "mid":
+            cs = cs - rng.integers(1, 4, G)
+        cut = md * cs - rng.integers(0, md, G)  # ceil(cut / md) == cs
+    off = rng.random(G) < 0.1
+    cut = np.where(off, 0, cut)
+    return ent, cut, np.where(off, 0, cs)
+
+
+def k3_case(case, device):
+    """(kernel, inputs, kw, hfs) of one of K3_CASES, drawn from seed 61: the
+    K3 wrapper that takes it ("k3_fix2", or "k3_fix2_c01" for the batch),
+    its tensors on ``device`` in the wrapper's order (wmat, tab, ent, cut,
+    cut_slot, sym, val, and c01, bstream for the batch), its keyword
+    arguments and the streams (a list of HuffFiles).  sym/val are the plain
+    K1's cells where the cuts are K1's, else random (nibbles in val); the
+    kernel splices them in place, so callers clone them."""
+    import torch
+
+    from huffmandecoderongpus_tpu_torch.ops import batch, k1_scan2
+    from huffmandecoderongpus_tpu_torch.ops import k1_scan2_c01, k2_compose
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    rng = np.random.default_rng(61)
+    how = K3_CUTS.get(case)
+    if case.startswith("batch"):
+        hfs = [encode_bytes(text_like(rng, n, k))
+               for n, k in ((20_000, 84), (12_000, 40))]
+        st = batch.stage_batch_inputs(hfs, device="cpu")
+        p = st["plan"]
+        tab, extra = st["tabs"], (st["c01"], st["bstream"])
+        kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"])
+        kernel = "k3_fix2_c01"
+    else:
+        G = 512
+        if case == "text-512":
+            raw = text_like(rng, 20_000)
+        elif case == "md3-g200":
+            raw, G = rng.integers(65, 77, 30_000).astype(np.uint8), 256
+        elif case[:3] in ("md4", "md5", "md7", "md8"):
+            n_sym = 1 << int(case[2])
+            raw = rng.integers(0, n_sym, 40_000).astype(np.uint8)
+        else:  # md6-ns2, ns8-mid: all 256 symbols, skewed
+            w = rng.random(256) ** 3 + 1e-4
+            raw = rng.choice(np.arange(256, dtype=np.uint8), size=40_000,
+                             p=w / w.sum()).astype(np.uint8)
+        hfs = [encode_bytes(raw)]
+        st = staging_at(hfs[0], G, "cpu")
+        p = st["plan"]
+        tab, extra = st["tab"], ()
+        kw = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"],
+                  C0=st["C0"], C1=st["C1"], NS=st["NS"])
+        if case == "ns8-mid":
+            t, C0, C1 = spread_states(tab.numpy(), st["C0"], st["C1"],
+                                      st["NS"], 8)
+            tab = torch.from_numpy(t)
+            kw.update(C0=C0, C1=C1, NS=8)
+        kernel = "k3_fix2"
+    wmat = ws.words_matrix(st["words"], -(-p["steps_p"] // 32))
+    G = wmat.shape[1]
+    if how is None:  # the cuts K1, K2 and fix_rows give
+        k1 = dict(B=p["B"], H=st["H"], steps=p["steps"],
+                  steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"])
+        if extra:
+            sym, val, _cnt, exmap, mrowmap = k1_scan2_c01.k1_scan2_c01_ref(
+                wmat, tab, st["lim"], *extra, **k1)
+            exmap[:, list(st["last_live"])] = 0
+        else:
+            sym, val, _cnt, exmap, mrowmap = k1_scan2.k1_scan2_ref(
+                wmat, tab, st["lim"], C0=kw["C0"], C1=kw["C1"], NS=kw["NS"],
+                **k1)
+        entry, _tot = k2_compose.k2_compose_ref(exmap, 0)
+        cuts = ws.fix_rows(entry, mrowmap, st["lim"], st["H"], st["md"])
+        cuts = (entry, *cuts)
+    else:
+        cuts = tuple(torch.from_numpy(a.astype(np.int32)) for a in k3_cuts(
+            rng, G, st["H"], p["steps_p"], st["md"], how))
+        cells = p["steps_p"] // (4 * st["md"])
+        sym = torch.from_numpy(rng.integers(-2**31, 2**31, (cells, G))
+                               .astype(np.int32))
+        val = torch.from_numpy(rng.integers(0, 16, (cells, G))
+                               .astype(np.uint8))
+    if case == "md3-g200":  # a lane's K3 reads its own column only
+        wmat, sym, val = (t[:, :200].contiguous() for t in (wmat, sym, val))
+        cuts = tuple(t[:200].contiguous() for t in cuts)
+    inputs = (wmat, tab, *cuts, sym, val, *extra)
+    return kernel, tuple(t.to(device) for t in inputs), kw, hfs
+
+
 #: the encoder's edge cases (``e_case``): every one of the 256 symbols; the
 #: longest codes E1 takes (26 bits, both halves 13, from Fibonacci weights
 #: over 27 symbols); a one-symbol tree (a 1-bit code); 40 symbols over 128

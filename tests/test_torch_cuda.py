@@ -49,7 +49,11 @@ edges (``K1P_CASES``: a two-leaf tree, 128 and 255 states, a 31-bit comb
 tree, 1 and 37 lanes, lanes past the stream end, a phase-locked run, (c)'s
 plan at an eighth, K3' cuts on a cell boundary, mid-cell and past the last
 segment), K1''s launcher refuses other plans, and trees of exactly 128
-internal states decode through the four kernels and the one-shot.
+internal states decode through the four kernels and the one-shot.  K3 for
+md >= 2 (``k3_fix2``, ``k3_fix2_c01``) runs at its edges (``K3_CASES``: md
+2-8, NS 1, 2 and 8, odd entries and entries on a word's last bit, cuts on
+a cell boundary, mid-cell and past the last segment, lanes with cut 0, G =
+200, two trees in adjacent blocks).
 Tolerance: bit-exact (integer outputs).
 """
 
@@ -374,6 +378,24 @@ def test_k1p_edges_match_plain(cuda, case):
     assert ran == {"k3_fix": 1}
     rs, rv = k3_fix.k3_fix_ref(inputs[0], inputs[1], ent, cut, cut_slot,
                                sym.clone(), val.clone(), **k3)
+    assert torch.equal(s, rs) and torch.equal(v, rv)
+
+
+@pytest.mark.parametrize("case", ps.K3_CASES)
+def test_k3_edges_match_plain(cuda, case):
+    # K3 for md >= 2 on the step table (no read but the cut cell) at its
+    # edges: md 2-8, NS 1, 2 and 8, odd entries and entries on a word's
+    # last bit, cuts on a cell boundary, mid-cell and past the last
+    # segment, lanes with cut 0, G = 200, and the batch's K3 on two trees
+    # in adjacent blocks
+    kernel, inputs, kw, _hfs = ps.k3_case(case, cuda)
+    mod = k3_fix2 if kernel == "k3_fix2" else k3_fix2_c01
+    head, (sym, val), tail = inputs[:5], inputs[5:7], inputs[7:]
+    (s, v), ran = _launched(lambda: getattr(mod, kernel)(
+        *head, sym.clone(), val.clone(), *tail, **kw))
+    assert ran == {kernel: 1}
+    rs, rv = getattr(mod, kernel + "_ref")(*head, sym.clone(), val.clone(),
+                                           *tail, **kw)
     assert torch.equal(s, rs) and torch.equal(v, rv)
 
 
