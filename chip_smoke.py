@@ -81,15 +81,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               (probes.streams.ONESHOT_CASES: one candidate chain, md 8, a
               tree 128 tall, the envelope-edge stream, G = 128 and 4,096),
               the encoder's E1/E2/E3 on the
-              staging of (a)-(c) and (e)-(i), with an [e1] and an [e2]
-              line each (the plan, the card time (profiler, taken in a
-              fresh process of this script run with --card-ms, which
+              staging of (a)-(c) and (e)-(i) (E3 with the lane offsets and
+              the phase shift folded in), with an [e1], an [e2] and an
+              [e3] line each (the plan, the card time (profiler, taken in
+              a fresh process of this script run with --card-ms, which
               prints it as JSON and exits) and the bytes bound),
-              E1 and E2 also at their edges (probes.streams.
+              E1-E3 also at their edges (probes.streams.
               E_CASES: all 256 symbols, 26-bit codes, a one-symbol tree,
               lanes with no symbol, row blocks starting in pad rows and
-              inside a granule, the overflow stream; E2 also at an ORP
-              that drops ranks, E_SMALL_ORP); K1's main scan
+              inside a granule, the overflow stream; E2 and E3 also at an
+              ORP that drops ranks, E_SMALL_ORP, so E3 clamps lanes), E3
+              also at its own (E3_CASES: three and more lanes in a
+              granule, runs of empty lanes, a lane clamped at ORP, no
+              bits, many tiles, an odd lane count); K1's main scan
               (k1_main) and K4 on the indexed (a), (b) and (i) (a [k1]
               line each: card ms, plan, chain floor), k1_main also at its
               edges (probes.streams.K1_MAIN_CASES: every block ending on
@@ -121,12 +125,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               the lane scan cut at that round's W rows (its fix scan) from
               the true entry offsets; the dense lane decode on (a) and (d)
               in the tiled geometry from the entry offsets of
-              candidate_scan + compose, and the compaction on (d) from
-              cumsum(valid) and sym of the lane scan, each trimmed by its
-              counts to the input; bit-exact (tolerance 0), with both
-              times from CUDA events (and for the compaction the time of
-              torch.searchsorted + gather, the same function in library
-              calls)
+              candidate_scan + compose, with a [scan] line each (card
+              time from the --card-ms process, cycles a row over B + H
+              rows, plan, chain floor B + H rows) and a [dense] line (the
+              bytes lanes a window ahead of their block wrote out
+              themselves, the kernel's own count), and at its edges
+              (probes.streams.DENSE_CASES: G 1, 3, 20, 33 and 100,
+              out_rows under the counts, lanes ending early, a lane
+              forced a window ahead, a view at +1), and the compaction on
+              (d) from cumsum(valid) and sym of the lane scan, each
+              trimmed by its counts to the input; bit-exact (tolerance
+              0), with both times from CUDA events (and for the
+              compaction the time of torch.searchsorted + gather, the
+              same function in library calls)
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
@@ -1258,14 +1269,9 @@ def check_encoder(torch, name, raw, hf, dev, card_ms):
     e_line(name, "e2_compact", card_ms.get("e2_compact"),
            e2_compact.e2_plan(p["G"], 2 * p["K"], ORP, _build.sm_count(dev),
                               gran.data_ptr(), gval.data_ptr()), rows)
-    shift, word_off, occ = encode.lane_offsets(bits)
-    e3a = (encode.shift_lanes(denseT, cnt, shift), word_off, occ)
-    # E3 reads only each lane's occupied granules, and writes the payload
-    moved = (4 * int(torch.clamp(occ, max=ORP).sum()) + 8 * occ.numel()
-             + 4 * 128 * NROWS)
-    (out,) = compare("e3_place", lambda: e3_place.e3_place(*e3a, NROWS=NROWS),
-                     lambda: e3_place.e3_place_ref(*e3a, NROWS=NROWS), (),
-                     moved)
+    (out,) = compare_e3(torch, compare, e3_place, denseT, cnt, bits, NROWS)
+    e_line(name, "e3_place", card_ms.get("e3_place"),
+           e3_place.e3_plan(p["G"]), rows)
     payload = encode.payload_bytes(out, p["total_bits"]).cpu().numpy()
     if p["total_bits"] != hf.bits or not np.array_equal(payload, hf.payload):
         raise AssertionError(f"{name}: the encode kernels' payload differs "
@@ -1275,16 +1281,33 @@ def check_encoder(torch, name, raw, hf, dev, card_ms):
     return rows
 
 
+def e3_moved(torch, cnt, ORP, NROWS) -> int:
+    """Bytes the fused E3 must move: each lane's counted granules of E2's
+    rows (at most ORP) read once, cnt and bits, and the payload written
+    once."""
+    return (4 * int(torch.clamp(cnt, max=ORP).sum()) + 8 * cnt.numel()
+            + 4 * 128 * NROWS)
+
+
+def compare_e3(torch, compare, e3_place, denseT, cnt, bits, NROWS):
+    """The fused E3 (offsets, shift and placement) against its plain
+    version through ``compare``, with its bytes bound (e3_moved)."""
+    return compare(
+        "e3_place", lambda: e3_place.e3_place(denseT, cnt, bits, NROWS=NROWS),
+        lambda: e3_place.e3_place_ref(denseT, cnt, bits, NROWS=NROWS), (),
+        e3_moved(torch, cnt, denseT.shape[1], NROWS))
+
+
 def e_line(name, kname, card_ms, plan, rows):
-    """An [e1] or [e2] line for one E1 or E2 stream: the kernel's plan, its
-    card time ``card_ms`` (or None) against its bytes bound, and its events
-    time.  The card time goes into rows[kname] as device_ms."""
+    """An [e1], [e2] or [e3] line for one encoder stream: the kernel's
+    plan, its card time ``card_ms`` (or None) against its bytes bound, and
+    its events time.  The card time goes into rows[kname] as device_ms."""
     r = rows[kname]
     r["device_ms"] = card_ms
     card = ("not measured" if card_ms is None else
             f"{card_ms:.4f} ms (profiler, a fresh process), "
             f"{card_ms / r['bound_ms']:.1f} times the bound")
-    tag = "e1" if kname == "e1_pack" else "e2"
+    tag = {"e1_pack": "e1", "e2_compact": "e2", "e3_place": "e3"}[kname]
     print(f"[{tag}] {name}: {kname} card {card}; events {r['ms']:.4f} ms; "
           f"bytes bound {r['bound_ms']:.6f} ms; plan {plan}", flush=True)
 
@@ -1294,33 +1317,47 @@ CARD_ARG = "--card-ms"
 
 
 def encode_card_ms(torch, streams, dev):
-    """{stream: {"e1_pack": ms, "e2_compact": ms}}: E1's and E2's card time
-    a launch (profiler, device_breakdown's per_launch mean; None where it
-    recorded none) on the encoder's staging of ENCODE_CHECKED."""
-    from huffmandecoderongpus_tpu_torch.ops import e1_pack, e2_compact, encode
+    """{stream: {"e1_pack": ms, "e2_compact": ms, "e3_place": ms}}: E1's,
+    E2's and E3's card time a launch (profiler, device_breakdown's
+    per_launch mean; None where it recorded none) on the encoder's staging
+    of ENCODE_CHECKED."""
+    from huffmandecoderongpus_tpu_torch.ops import (
+        e1_pack,
+        e2_compact,
+        e3_place,
+        encode,
+    )
 
     out = {}
     for k in ENCODE_CHECKED:
         st = encode.stage_encode_inputs(streams[k][1], device=dev)
         args = (st["data3"], st["lo"], st["hi"], st["nval"])
-        gran, gval, _cnt, _bits = e1_pack.e1_pack(*args)
-        ORP = st["plan"]["ORP"]
+        gran, gval, cnt, bits = e1_pack.e1_pack(*args)
+        ORP, NROWS = st["plan"]["ORP"], st["plan"]["NROWS"]
+        denseT = e2_compact.e2_compact(gran, gval, ORP=ORP)
         out[k] = {
             "e1_pack": device_breakdown(
                 torch, lambda: e1_pack.e1_pack(*args),
                 per_launch=True).get("e1_pack"),
             "e2_compact": device_breakdown(
                 torch, lambda: e2_compact.e2_compact(gran, gval, ORP=ORP),
-                per_launch=True).get("e2_compact")}
+                per_launch=True).get("e2_compact"),
+            "e3_place": device_breakdown(
+                torch, lambda: e3_place.e3_place(denseT, cnt, bits,
+                                                 NROWS=NROWS),
+                per_launch=True).get("e3_place")}
     return out
 
 
 def scan_card_ms(torch, streams, dev):
     """{key: ms}: the card time a launch (as encode_card_ms) of
     lane_scan_indexed on the indexed (a) and (c) in lane_dfa's geometry
-    (keys IDX["a"], IDX["c"]) and of short_candidate_scan's first round on
-    (a) and (d) in lane_dfa_sync's (keys SYNC["a"], SYNC["d"])."""
+    (keys IDX["a"], IDX["c"]), of short_candidate_scan's first round on
+    (a) and (d) in lane_dfa_sync's (keys SYNC["a"], SYNC["d"]) and of the
+    dense decode on (a) and (d) in the dense pipeline's (keys "dense a",
+    "dense d")."""
     from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import lane_decode_dense as ldd
     from huffmandecoderongpus_tpu_torch.ops import lane_scan, lanedfa_sync
     from huffmandecoderongpus_tpu_torch.ops import lane_scan_indexed as lsi
     from huffmandecoderongpus_tpu_torch.ops import lanedfa_decode as ld
@@ -1347,6 +1384,13 @@ def scan_card_ms(torch, streams, dev):
             torch, lambda: scs.short_candidate_scan(bits, tab, valid0, W=W,
                                                     **kw),
             per_launch=True).get("short_candidate_scan")
+        sd, entry, out_rows = dense_staging(torch, encode_bytes(
+            streams[k][1]), dev)
+        out[f"dense {k}"] = device_breakdown(
+            torch, lambda: ldd.lane_decode_dense(
+                sd["bits"], sd["tab"], entry, out_rows=out_rows, B=sd["B"],
+                H=sd["H"], N=sd["N"]),
+            per_launch=True).get("lane_decode_dense")
     return out
 
 
@@ -1368,11 +1412,19 @@ def card_ms_fresh():
 
 
 def check_encoder_cases(torch, dev):
-    """Phase 3, E1 and E2 at their edge cases (``probes.streams.E_CASES``)
+    """Phase 3, E1-E3 at their edge cases (``probes.streams.E_CASES``)
     against their plain versions: E1 on the case's staging, E2 on E1's rows
-    at the plan's ORP and at E_SMALL_ORP, which drops ranks.  Returns
+    and E3 on E2's at the plan's ORP and at E_SMALL_ORP, which drops ranks
+    (E3's lanes clamped at ORP); then E3 at its own (``E3_CASES``: three
+    and more lanes in a granule, runs of empty lanes, a lane clamped at
+    ORP, no bits), whole payloads where no lane is clamped.  Returns
     {case: rows}, as check_kernels."""
-    from huffmandecoderongpus_tpu_torch.ops import _build, e1_pack, e2_compact
+    from huffmandecoderongpus_tpu_torch.ops import (
+        _build,
+        e1_pack,
+        e2_compact,
+        e3_place,
+    )
     from huffmandecoderongpus_tpu_torch.probes import streams as ps
 
     out = {}
@@ -1385,16 +1437,28 @@ def check_encoder_cases(torch, dev):
                                st["data3"].data_ptr())
         print(f"[kernels] {what}: E1 plan {plan}", flush=True)
         rows = out[what] = {}
-        gran, gval, _cnt, _bits = comparer(torch, what, rows)(
+        gran, gval, cnt, bits = comparer(torch, what, rows)(
             "e1_pack", lambda: e1_pack.e1_pack(*args),
             lambda: e1_pack.e1_pack_ref(*args), args)
         for ORP in (p["ORP"], ps.E_SMALL_ORP):
             at = f"{what} ORP={ORP}"
-            comparer(torch, at, out.setdefault(at, {}))(
+            compare = comparer(torch, at, out.setdefault(at, {}))
+            (denseT,) = compare(
                 "e2_compact",
                 lambda: e2_compact.e2_compact(gran, gval, ORP=ORP),
                 lambda: e2_compact.e2_compact_ref(gran, gval, ORP=ORP),
                 (gran, gval))
+            compare_e3(torch, compare, e3_place, denseT, cnt, bits, p["NROWS"])
+    for case in ps.E3_CASES:
+        denseT, cnt, bits, NROWS, gran = ps.e3_case(case, dev)
+        what = f"E3 {case} G={denseT.shape[0]}"
+        (got,) = compare_e3(torch, comparer(torch, what,
+                                            out.setdefault(what, {})),
+                            e3_place, denseT, cnt, bits, NROWS)
+        flat = got.reshape(-1).cpu().numpy()
+        if case != "clamped" and (not np.array_equal(flat[:gran.size], gran)
+                                  or flat[gran.size:].any()):
+            raise AssertionError(f"{what}: E3 did not assemble the stream")
     return out
 
 
@@ -1614,12 +1678,44 @@ def trimmed(torch, dense, counts):
     return dense.t()[keep.t()].cpu().numpy()
 
 
-def check_dense(torch, name, raw, hf, dev, with_compact):
+def dense_counted(torch, ldd, bits, tab, entry, kw):
+    """(kernel, ahead): a call of the dense decode for ``comparer`` whose
+    first launch counts, in ``ahead`` (1,) int32, the symbols its lanes
+    wrote out themselves (a lane that a tile could carry past the window,
+    more than WINDOW - rows ranks ahead of its block's flushed rows); the
+    timed launches after it count nothing."""
+    ahead = torch.zeros(1, dtype=torch.int32, device=bits.device)
+    first = [ahead]
+
+    def kernel():
+        return ldd.lane_decode_dense(bits, tab, entry, ahead=(
+            first.pop() if first else None), **kw)
+
+    return kernel, ahead
+
+
+def dense_ahead(name, ahead, plan):
+    """Print the bytes the dense decode's lanes wrote out themselves, the
+    kernel's count; returns it."""
+    from huffmandecoderongpus_tpu_torch.ops import lane_decode_dense as ldd
+
+    total = int(ahead)
+    print(f"[dense] {name}: {total} symbols written out by lanes "
+          f"themselves (more than {ldd.WINDOW - plan['rows']} ranks ahead "
+          "of their block's flushed rows; the kernel's count)", flush=True)
+    return total
+
+
+def check_dense(torch, name, raw, hf, dev, with_compact, card_ms=None):
     """Phase 3 of the dense lane decode on one stream (and, with
     ``with_compact``, of the compaction on the lane scan's emissions)
-    against the plain versions, each trimmed by its counts to the input.
-    The compaction's row also carries the time of torch.searchsorted +
-    gather on the same inputs.  Returns and raises as check_kernels."""
+    against the plain versions, each trimmed by its counts to the input,
+    with the bytes its lanes wrote out themselves (the kernel's count,
+    dense_ahead) and a
+    [scan] line (its card time ``card_ms`` from scan_card_ms; the chain
+    floor: B + H rows).  The compaction's row also carries the time of
+    torch.searchsorted + gather on the same inputs.  Returns and raises as
+    check_kernels."""
     from huffmandecoderongpus_tpu_torch.ops import (
         compact,
         lane_decode_dense,
@@ -1633,16 +1729,22 @@ def check_dense(torch, name, raw, hf, dev, with_compact):
           f"H={st['H']} out_rows={out_rows}", flush=True)
     rows = {}
     compare = comparer(torch, name, rows)
+    kernel, ahead = dense_counted(torch, lane_decode_dense, bits, tab, entry,
+                                  dict(kw, out_rows=out_rows))
     dense, counts = compare(
-        "lane_decode_dense",
-        lambda: lane_decode_dense.lane_decode_dense(
-            bits, tab, entry, out_rows=out_rows, **kw),
+        "lane_decode_dense", kernel,
         lambda: lane_decode_dense.lane_decode_dense_ref(
             bits, tab, entry, out_rows=out_rows, **kw), (bits, tab, entry))
     if not np.array_equal(trimmed(torch, dense, counts), raw):
         raise AssertionError(f"{name}: the dense decode decoded wrong")
     print(f"[kernels] {name}: lane_decode_dense bit-exact; stream decoded",
           flush=True)
+    plan = lane_decode_dense.dense_plan(bits.shape[1], bits.data_ptr(),
+                                        dense.data_ptr())
+    rows["lane_decode_dense"]["ahead_stores"] = dense_ahead(name, ahead, plan)
+    steps = st["B"] + st["H"]
+    scan_line(name, "lane_decode_dense", card_ms, steps, {"B+H rows": steps},
+              plan, rows)
     if not with_compact:
         return rows
     sym, valid = lane_scan.lane_scan(bits, tab, entry, **kw)
@@ -1666,6 +1768,31 @@ def check_dense(torch, name, raw, hf, dev, with_compact):
     print(f"[kernels] {name}: compact bit-exact, equal to the dense decode; "
           f"torch.searchsorted + gather {lib_ms:.4f} ms", flush=True)
     return rows
+
+
+def check_dense_cases(torch, dev):
+    """Phase 3, the dense decode at its edge cases
+    (``probes.streams.DENSE_CASES``) against its plain version, with its
+    lanes' own write-outs (dense_ahead: in "ahead" only).
+    Returns {case: rows}, as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import lane_decode_dense as ldd
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.DENSE_CASES:
+        bits, tab, start, kw = ps.dense_case(case, dev)
+        what = f"dense {case} G={bits.shape[1]}"
+        kernel, ahead = dense_counted(torch, ldd, bits, tab, start, kw)
+        dense, _counts = comparer(torch, what, out.setdefault(what, {}))(
+            "lane_decode_dense", kernel,
+            lambda: ldd.lane_decode_dense_ref(bits, tab, start, **kw),
+            (bits, tab, start))
+        total = dense_ahead(what, ahead, ldd.dense_plan(
+            bits.shape[1], bits.data_ptr(), dense.data_ptr()))
+        if (total > 0) != (case == "ahead"):
+            raise AssertionError(f"{what}: {total} bytes written out by "
+                                 "lanes")
+    return out
 
 
 def check_batch(torch, name, raws, hfs, dev, k3_card=None):
@@ -2049,7 +2176,10 @@ def main() -> int:
         checked[SYNC[k]] = check_sync(torch, *hfs[k], dev,
                                       card_ms["scan"].get(SYNC[k]))
         checked[k].update(check_dense(torch, *hfs[k], dev,
-                                      with_compact=k == "d"))
+                                      with_compact=k == "d",
+                                      card_ms=card_ms["scan"].get(
+                                          f"dense {k}")))
+    checked.update(check_dense_cases(torch, dev))
 
     # ---- 4. the slice through the registry ----------------------------------
     def drive(decoder, k):

@@ -64,11 +64,16 @@ beside the card's name and power limit:
   encode     E1 and E2 on the encoder's staging of (a), (b), (c) and
              (g)-(i) (E2 on E1's rows at the plan's ORP): by events and on
              the card, beside the bytes each must move at 3.35 TB/s and,
-             where the tree has ``e1_plan``/``e2_plan``, their plans; and
-             ``encode_program`` by events (median of 25 after 3) with its
-             card time by kernel (E1, E2, E3 and the torch ops between),
-             and the ``encode_lanes`` wall (host clock, staging included,
-             median of chip_smoke's WALL_RUNS)
+             where the tree has ``e1_plan``/``e2_plan``, their plans; E3's
+             stage on E2's rows, E1's counts and bits: where the tree has
+             the fused E3 (``e3_plan``) its one launch, else the offsets,
+             ``shift_lanes`` and the placement kernel (the parent's), each by events (median of 20 single calls) and on
+             the card (profiler, the stage's kernels summed a call), beside
+             the fused work's bytes bound; and ``encode_program`` by events
+             (median of 25 after 3) with its card time by kernel (E1, E2,
+             E3 and the torch ops between), and the ``encode_lanes`` wall
+             (host clock, staging included, median of chip_smoke's
+             WALL_RUNS)
 
 The last line is one JSON object of every number.
 """
@@ -460,10 +465,12 @@ def encode_section(torch, cs, out, streams, dev, card, tag):
         _build,
         e1_pack,
         e2_compact,
+        e3_place,
         encode,
     )
 
     sms = _build.sm_count(dev)
+    fused = hasattr(e3_place, "e3_plan")
     for k in "abcghi":
         st = encode.stage_encode_inputs(streams[k][1], device=dev)
         p = st["plan"]
@@ -496,6 +503,36 @@ def encode_section(torch, cs, out, streams, dev, card, tag):
                   f"{own}; bound {bound:.6f} ms ({moved} bytes); plan "
                   f"{plans[name]}; G={p['G']} K={p['K']} ORP={ORP}; card "
                   f"{card}", flush=True)
+
+        denseT = e2_compact.e2_compact(gran, gval, ORP=ORP)
+        NROWS = p["NROWS"]
+        if fused:
+            stages = {"e3 fused": lambda: e3_place.e3_place(
+                denseT, cnt, bits, NROWS=NROWS)}
+        else:
+            def parent_e3():
+                shift, word_off, occ = encode.lane_offsets(bits)
+                return e3_place.e3_place(encode.shift_lanes(denseT, cnt,
+                                                            shift),
+                                         word_off, occ, NROWS=NROWS)
+
+            stages = {"e3 offsets+shift+place": parent_e3}
+        bound = cs.e3_moved(torch, cnt, ORP, NROWS) / cs.HBM_BYTES_PER_S * 1e3
+        for what, fn in stages.items():
+            ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+            split = cs.device_breakdown(torch, fn, ops_by_name=True)
+            card_ms = sum(split.values()) if split else None
+            row[what] = dict(events_ms=ev, card_ms=card_ms, split=split,
+                             bound_ms=bound, plan=fused and e3_place.e3_plan(
+                                 p["G"]))
+            own = ("not measured" if card_ms is None else
+                   f"{card_ms:.4f} ms ("
+                   + " ".join(f"{n} {v:.4f}" for n, v in split.items())
+                   + f"), {card_ms / bound:.1f} times the bound")
+            print(f"[encode] {tag} ({k}): {what} events {ev:.4f} ms, card "
+                  f"{own}; fused bytes bound {bound:.6f} ms; plan "
+                  f"{row[what]['plan']}; G={p['G']} ORP={ORP} NROWS={NROWS};"
+                  f" card {card}", flush=True)
 
         def program(args=args, p=p):
             return encode.encode_program(*args, ORP=p["ORP"],

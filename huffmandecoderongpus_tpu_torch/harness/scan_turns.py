@@ -1,7 +1,7 @@
 """The lane-DFA scans of one tree of the PyTorch port on a GPU, for timing
 two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/scan_turns.py [TREE] [--tag NAME] [--sections scans,prof,sync,indexed,short,cards]
+    python3 huffmandecoderongpus_tpu_torch/harness/scan_turns.py [TREE] [--tag NAME] [--sections scans,prof,sync,indexed,short,dense,cards]
 
 Run it as a file, not with ``-m``: it imports the port from TREE (a
 checkout of this repository; default the one that holds this file), so
@@ -37,6 +37,17 @@ prints, beside the card's name, power limit and maximum SM clock:
              as ``discover_and_splice``): by events and on the card, beside
              the chain floor (W rows x 40 cycles) and, where the tree has
              ``short_plan``, its plan
+  dense      on (d) and (a) in the dense pipeline's geometry
+             (``chip_smoke.py``'s rows 9 and 11: the entry offsets of
+             candidate_scan + compose, out_rows B // min code length + 2;
+             (d)'s blank run puts lanes a window ahead): lane_decode_dense and
+             lane_scan on the same inputs, in the same process, each by
+             events (median of 20 single launches) and on the card
+             (profiler, mean a launch), in cycles a row over the B + H rows
+             at the maximum SM clock, beside the chain floor (B + H rows x
+             40 cycles), the dense decode's bytes bound and, where the tree
+             has ``dense_plan``, its plan and its lanes' own write-outs (a
+             lane a window of ranks ahead; the kernel's count)
   cards      the card time a launch (profiler, mean a launch) of every
              kernel in the wide program on (a), the batch program on the
              trio (f), (g) and the book2-sized stream, the encode program
@@ -69,7 +80,7 @@ def main() -> int:
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--sections",
-                    default="scans,prof,sync,indexed,short,cards")
+                    default="scans,prof,sync,indexed,short,dense,cards")
     args = ap.parse_args()
     sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
@@ -115,6 +126,9 @@ def main() -> int:
         indexed_section(torch, cs, out, streams, dev, card, clock, args.tag)
     if "short" in sections:
         short_section(torch, cs, out, streams, dev, card, clock, args.tag)
+    if "dense" in sections:
+        for k, hf in (("d", hf_d), ("a", encode_bytes(streams["a"][1]))):
+            dense_section(torch, cs, out, k, hf, dev, card, clock, args.tag)
     if "cards" in sections:
         cards_section(torch, cs, out, streams, dev, card, args.tag)
     print(json.dumps(out))
@@ -286,6 +300,48 @@ def short_section(torch, cs, out, streams, dev, card, clock, tag):
                 break
             W = min(W * 2, steps)
         out[f"short_{k}"] = dict(G=G, B=B, H=H, rounds=rounds)
+
+
+def dense_section(torch, cs, out, k, hf, dev, card, clock, tag):
+    """The dense section on stream ``k``: lane_decode_dense beside
+    lane_scan."""
+    from huffmandecoderongpus_tpu_torch.ops import lane_decode_dense as ldd
+    from huffmandecoderongpus_tpu_torch.ops import lane_scan
+
+    sd, entry, out_rows = cs.dense_staging(torch, hf, dev)
+    bits, tab = sd["bits"], sd["tab"]
+    kw = dict(B=sd["B"], H=sd["H"], N=sd["N"])
+    rows, G = bits.shape
+    planned = hasattr(ldd, "dense_plan")
+    fns = {"lane_decode_dense": lambda: ldd.lane_decode_dense(
+               bits, tab, entry, out_rows=out_rows, **kw),
+           "lane_scan": lambda: lane_scan.lane_scan(bits, tab, entry, **kw)}
+    dense = fns["lane_decode_dense"]()[0]
+    moved = cs.nbytes(bits, tab, entry, dense) + 4 * G
+    floor = rows * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+    row = dict(G=G, B=sd["B"], H=sd["H"], rows=rows, out_rows=out_rows,
+               floor_ms=floor, bound_ms=moved / cs.HBM_BYTES_PER_S * 1e3)
+    if planned:
+        ahead = torch.zeros(1, dtype=torch.int32, device=dev)
+        ldd.lane_decode_dense(bits, tab, entry, out_rows=out_rows,
+                              ahead=ahead, **kw)
+        row.update(plan=ldd.dense_plan(G, bits.data_ptr(), dense.data_ptr()),
+                   lane_writes=int(ahead))
+    for kname, fn in fns.items():
+        ev, card_ms = _timed(torch, cs, fn, kname)
+        cyc = None if card_ms is None else card_ms * 1e-3 * clock / rows
+        row[kname] = dict(events_ms=ev, card_ms=card_ms, cycles_a_row=cyc)
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.4f} ms, {cyc:.1f} cycles a row, "
+               f"{card_ms / floor:.1f} times the chain floor")
+        print(f"[dense] {tag} ({k}) {kname}: events {ev:.4f} ms, card {own} "
+              f"over {rows} rows (G={G} B={sd['B']} H={sd['H']} "
+              f"out_rows={out_rows}); chain floor {floor:.4f} ms; card "
+              f"{card}", flush=True)
+    print(f"[dense] {tag} ({k}): bytes bound {row['bound_ms']:.6f} ms; plan "
+          f"{row.get('plan')}; lane write-outs {row.get('lane_writes')}",
+          flush=True)
+    out[f"dense_{k}"] = row
 
 
 def cards_section(torch, cs, out, streams, dev, card, tag):

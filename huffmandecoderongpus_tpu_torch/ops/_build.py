@@ -101,8 +101,8 @@ _SIGNATURES = {
     # gran, gval, out, state, cap, rows, G, ORP, lanes, vec, chunks, block
     # rows, row blocks, window, threads, shared, blocks, stream
     "ws_e2_compact": [_P] * 4 + [_I] * 13 + [_P],
-    # shifted, word_off, occ, out, G, ORP, n_out, stream
-    "ws_e3_place": [_P] * 4 + [_I] * 2 + [_LL, _P],
+    # dense, cnt, bits, out, G, ORP, n_out, lanes, threads, blocks, stream
+    "ws_e3_place": [_P] * 4 + [_I] * 2 + [_LL] + [_I] * 3 + [_P],
     # wmat, tab, lim, sym, val, G, steps_w, steps_p, md, C0, C1, NS,
     # threads, shared, stream
     "ws_k1_main": [_P] * 5 + [_I] * 9 + [_P],
@@ -118,8 +118,9 @@ _SIGNATURES = {
     # bits, tab, valid0, merged, exited, mrow, cnt, ex,
     # G, B, H, N, W, tab_words, L, R, vec, shared, stream
     "ws_short_candidate_scan": [_P] * 8 + [_I] * 10 + [_P],
-    # bits, tab, start, dense, counts, G, B, H, N, out_rows, tab_words, stream
-    "ws_lane_decode_dense": [_P] * 5 + [_I] * 6 + [_P],
+    # bits, tab, start, dense, counts, ahead (or null), G, B, rows, N,
+    # out_rows, tab_words, L, R, vec, window, flush width, shared, stream
+    "ws_lane_decode_dense": [_P] * 6 + [_I] * 12 + [_P],
     # cum, sym, out, steps, G, out_rows, stream
     "ws_compact": [_P] * 3 + [_I] * 3 + [_P],
     # x, out, n, stream

@@ -8,10 +8,11 @@ as a (K, G) symbol matrix, and the device program runs
   E1 e1_pack     each lane packs its codes into 16-bit granules, one row
                  per half-code sub-step, with a valid flag
   E2 e2_compact  each lane's valid granules, dense: (G, ORP)
-  offsets        exclusive cumsum of the lanes' bit counts (int64): phase
-                 a = P & 15 and granule offset W = P >> 4
-  shift_lanes    each lane's granules shifted to its phase (torch ops)
-  E3 e3_place    every lane's occupied granules into the payload
+  E3 e3_place    the lanes' exclusive bit offsets P (phase a = P & 15,
+                 granule offset W = P >> 4), each lane's granules shifted
+                 to its phase, and every occupied granule into the payload,
+                 in one launch (its plain version runs ``lane_offsets``,
+                 ``shift_lanes`` and ``e3_place.place_ref`` in turn)
 
 then the payload's granules become little-endian bytes, cut to
 ceil(bits/8), on the device, and only those bytes come back.  Every shape
@@ -175,16 +176,14 @@ def lane_offsets(bits):
 
 
 def place(gran, gval, cnt, bits, *, ORP, NROWS):
-    """E1's outputs -> payload granules (NROWS, 128) int32: E2 -> offsets
-    -> shift -> E3.  Exact when every count is below ORP."""
-    denseT = e2_compact(gran, gval, ORP=ORP)
-    shift, word_off, occ = lane_offsets(bits)
-    return e3_place(shift_lanes(denseT, cnt, shift), word_off, occ,
-                    NROWS=NROWS)
+    """E1's outputs -> payload granules (NROWS, 128) int32: E2, then E3
+    (offsets, shift and placement).  Exact when every count is below
+    ORP."""
+    return e3_place(e2_compact(gran, gval, ORP=ORP), cnt, bits, NROWS=NROWS)
 
 
 def encode_program(data3, lo, hi, nval, *, ORP, NROWS):
-    """The device encode: E1 -> E2 -> offsets -> shift -> E3.  Returns
+    """The device encode: E1 -> E2 -> E3.  Returns
     the payload granules (NROWS, 128) int32 and the per-lane granule counts
     (G,) int32, whose maximum the caller checks against ORP."""
     gran, gval, cnt, bits = e1_pack(data3, lo, hi, nval)

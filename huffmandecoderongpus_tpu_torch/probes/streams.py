@@ -15,7 +15,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from huffmandecoderongpus_tpu_torch.huffio import HuffFile, encode_bytes
+from huffmandecoderongpus_tpu_torch.huffio import (
+    HuffFile,
+    encode_bytes,
+    tree_codes,
+)
 
 SEED = 0
 TEXT_SYMBOLS = 84
@@ -687,6 +691,74 @@ def e_case(case, device):
     return raw, tree, lanes, st
 
 
+#: E3's own edge cases (``e3_case``): lanes of 1-5 bits, three and more in
+#: one granule; one granule shared by 16 lanes; runs of empty lanes, one of
+#: 70 between two lanes that meet in a granule (past the 32 lanes a block
+#: stages after its tile); a lane clamped at ORP (its count past ORP); no
+#: bits at all; 1,000 lanes of 0-300 bits over many tiles, the last short;
+#: and an odd lane count.  Each lists its lanes' bit counts and its ORP.
+E3_CASES = ("tiny-lanes", "share16", "empty-runs", "clamped", "no-bits",
+            "many-lanes", "odd-g")
+
+
+def e3_lanes(rng, lane_bits, ORP):
+    """E3's inputs for lanes of ``lane_bits`` code bits cut from one random
+    bit stream, as E1 and E2 give them: (denseT (G, ORP) int32, each lane's
+    bits from granule 0, zero past its count; cnt (G,) int32, its granules
+    ceil(L / 16), past ORP where it is clamped; bits (G,) int32; NROWS, with
+    the encoder's slack of ORPW + 8 rows; granules (n,) int64, the whole
+    stream's u16 granules, the payload when no lane is clamped)."""
+    L = np.asarray(lane_bits, dtype=np.int64)
+    P = np.cumsum(L) - L
+    total = int(L.sum())
+    n = -(-total // 16)
+    bit = rng.integers(0, 2, size=n * 16 + 16).astype(np.int64)
+    bit[total:] = 0
+    gran = (bit[:n * 16].reshape(n, 16) << np.arange(16)).sum(axis=1)
+    G = L.size
+    cnt = -(-L // 16)
+    denseT = np.zeros((G, ORP), dtype=np.int64)
+    for g in range(G):
+        k = min(int(cnt[g]), ORP)
+        lane = np.zeros(16 * int(cnt[g]), np.int64)
+        lane[:L[g]] = bit[P[g]:P[g] + L[g]]
+        denseT[g, :k] = (lane[:16 * k].reshape(k, 16)
+                         << np.arange(16)).sum(axis=1)
+    NROWS = (-(-n // 128) + -(-ORP // 128) + 8) // 8 * 8
+    return (denseT.astype(np.int32), cnt.astype(np.int32),
+            L.astype(np.int32), NROWS, gran)
+
+
+def e3_case(case, device):
+    """(denseT, cnt, bits, NROWS, granules) of one of E3_CASES on
+    ``device`` (granules stays numpy), drawn from seed 17 (``e3_lanes``)."""
+    import torch
+
+    rng = np.random.default_rng(17)
+    ORP = 128
+    if case == "tiny-lanes":
+        L = [5, 1, 2, 3, 1, 40, 0, 0, 3, 3, 3, 3, 16, 16, 15, 1, 33]
+    elif case == "share16":
+        L = [1] * 40 + [300, 17, 2] + [0] * 85
+    elif case == "empty-runs":
+        L = ([7] + [0] * 70 + [5] + [0] * 3 + [20] + [0] * 40 + [2, 30]
+             + [0] * 33 + [9] + [0] * 10)
+    elif case == "clamped":
+        L = [3000, 5, 17, 0, 40, 2100, 2048, 2049, 7]
+    elif case == "no-bits":
+        L = [0] * 300
+    elif case == "many-lanes":
+        L = rng.integers(0, 301, 1000)
+        L[-1] = 3
+    elif case == "odd-g":
+        L = rng.integers(0, 40, 77)
+    else:
+        raise ValueError(f"unknown E3 case {case!r}")
+    denseT, cnt, bits, NROWS, gran = e3_lanes(rng, L, ORP)
+    return (*(torch.from_numpy(a).to(device) for a in (denseT, cnt, bits)),
+            NROWS, gran)
+
+
 #: ``lane_scan_indexed``'s edge cases (``indexed_scan_case``): G = 1, 3, 31
 #: and 33 (past one block of 32, not a multiple of 4: byte copies); an
 #: index's lanes untiled (G odd: byte copies) and tiled (padded to 1,024
@@ -810,3 +882,54 @@ def short_scan_case(case, device):
     if case == "bool+view":
         bits, valid0 = _view(bits, 1), _view(valid0 != 0, 1)
     return bits, tab, valid0, dict(B=B, H=H, N=N, W=W)
+
+
+#: the dense lane decode's edge cases (``dense_case``): G = 1, 3, 20 (one
+#: block under 32 lanes: byte flushes), 33 (a block of one lane) and 100
+#: (4-lane flushes, a last block of 4); out_rows under the lanes' counts;
+#: lanes that finish early (the stream end cut, entries past it); a lane
+#: forced WINDOW ranks ahead (its bits the 1-bit code of an md = 1 tree,
+#: every row an emission, beside lanes of 9-bit codes); the bit matrix one
+#: byte past an aligned address
+DENSE_CASES = ("g1", "g3", "g20", "g33", "g100", "short-rows", "early",
+               "ahead", "view+1")
+
+
+def dense_case(case, device):
+    """(bits, tab, start, kw) of one of DENSE_CASES on ``device``, drawn
+    from seed 18: ``lane_decode_dense``'s inputs and keywords (B, H, N,
+    out_rows)."""
+    import torch
+
+    rng = np.random.default_rng(18)
+    G, B = {"g1": (1, 300), "g3": (3, 301), "g20": (20, 250),
+            "g33": (33, 200), "g100": (100, 160), "ahead": (40, 2048),
+            "view+1": (64, 130)}.get(case, (64, 300))
+    if case == "ahead":
+        hf = encode_bytes(dominant_byte(rng, 20_000))
+    else:
+        hf = encode_bytes(text_like(rng, 20_000))
+    tab = _padded_table(hf.tree)
+    from huffmandecoderongpus_tpu_torch.ops import lanedfa
+
+    dfa = lanedfa.build_lane_dfa(hf.tree)
+    H = max(dfa.height, 1)
+    bits = rng.integers(0, 2, (B + H, G), dtype=np.uint8)
+    start = rng.integers(0, H, G).astype(np.int32)
+    N = G * B
+    out_rows = B + H
+    if case == "ahead":  # lane 5 emits byte 0's 1-bit code every row
+        code, length, _present = tree_codes(hf.tree)
+        assert length[0] == 1
+        bits[:, 5] = code[0] & 1
+        start[5] = 0
+    elif case == "short-rows":
+        out_rows = B // 20
+    elif case == "early":
+        N = G * B - 3 * B - 50  # the last lanes end early or have no rows
+        start[G - 3] = B + H - 1
+    out = (torch.from_numpy(bits).to(device), torch.from_numpy(tab).to(device),
+           torch.from_numpy(start).to(device))
+    if case == "view+1":
+        out = (_view(out[0], 1), *out[1:])
+    return (*out, dict(B=B, H=H, N=N, out_rows=out_rows))

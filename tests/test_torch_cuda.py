@@ -15,8 +15,10 @@ slices cut under one tile, trees 40 and 140 tall).  The
 encoder's E1-E3 are checked on the staging of the test shapes and on
 hand-made lanes (granules shared by up to 16 lanes, trailing empty lanes,
 counts reaching ORP), E1 and E2 at their edges (``probes.streams.E_CASES``,
-E2 also at rows offset from their alignment), their look-back over calls,
-streams and a CUDA graph, and their launchers refuse other plans, and
+E2 also at rows offset from their alignment), the fused E3 (offsets,
+shift and placement in one launch) at its own (``E3_CASES``: three and more
+lanes in a granule, runs of empty lanes, a lane clamped at ORP), E1's and
+E2's look-back over calls, streams and a CUDA graph, and all three launchers refuse other plans, and
 ``encode_lanes`` and the ``encode`` command byte-equal to the host
 encoder.  The sidecar-indexed route (K1's main scan
 ``k1_main``, the indexed lane scan) and the batched route (``k1_scan2_c01``,
@@ -24,8 +26,13 @@ encoder.  The sidecar-indexed route (K1's main scan
 launch counts, and so is the self-synchronizing discovery (the short
 candidate scan, the lane scan cut at W rows) of ``lane_dfa_sync``; the
 dense lane decode and the compaction are checked against their plain
-versions and through the dense pipeline.  The probe kernels (``probe_inc``,
-``probe_arith``, ``probe_gather``, ``k4_stripped``) are checked against
+versions and through the dense pipeline, the dense decode also at its
+edges (``DENSE_CASES``: G 1-100, out_rows under the counts, lanes ending
+early, a lane a window of ranks ahead, whose own write-outs it counts as
+the numpy emulation of ``test_torch_dense_plan.py`` does) and its launcher
+refuses other plans.  The probe
+kernels (``probe_inc``, ``probe_arith``, ``probe_gather``,
+``k4_stripped``) are checked against
 their plain versions at the scripts' shapes and at odd ones (P3's roll mode
 and 16-bit indices also unaligned, past the staged row width and past
 65,535 rows, each one launch and one kernel), the probe programs and the
@@ -89,7 +96,7 @@ from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, STATES128
 from torch_streams import comb_stream
 from torch_streams import fib_tree_data
 from torch_streams import fuzz, fuzz_any, make, make_batch, make_indexed
-from torch_streams import placed_lanes, text_like
+from torch_streams import text_like
 
 pytestmark = pytest.mark.cuda
 
@@ -749,7 +756,7 @@ def test_cli_decode_on_cuda(cuda, tmp_path, capsys):
 
 
 def _encode_kernels_match_plain(st):
-    """E1, E2, shift and E3 on staged inputs, each kernel against its plain
+    """E1, E2 and E3 on staged inputs, each kernel against its plain
     version on the same CUDA tensors; returns the kernels' payload and
     counts."""
     p = st["plan"]
@@ -761,12 +768,9 @@ def _encode_kernels_match_plain(st):
     gran, gval, cnt, bits = want
     d = e2_compact.e2_compact(gran, gval, ORP=p["ORP"])
     assert torch.equal(d, e2_compact.e2_compact_ref(gran, gval, ORP=p["ORP"]))
-    shift, word_off, occ = encode.lane_offsets(bits)
-    shifted = encode.shift_lanes(d, cnt, shift)
     kw = dict(NROWS=p["NROWS"])
-    e3a = (shifted, word_off, occ)
-    out = e3_place.e3_place(*e3a, **kw)
-    assert torch.equal(out, e3_place.e3_place_ref(*e3a, **kw))
+    out = e3_place.e3_place(d, cnt, bits, **kw)
+    assert torch.equal(out, e3_place.e3_place_ref(d, cnt, bits, **kw))
     return out, cnt
 
 
@@ -787,11 +791,10 @@ def test_encode_kernels_match_plain(cuda, name, lanes):
     list(range(1, 129)) * 2,
 ])
 def test_e3_shared_granules_on_cuda(cuda, lane_bits):
-    shifted, W, occ, _a, gran = placed_lanes(np.random.default_rng(1),
-                                             lane_bits, 128)
+    denseT, cnt, bits, NROWS, gran = ps.e3_lanes(np.random.default_rng(1),
+                                                 lane_bits, 128)
     n = gran.size
-    NROWS = (-(-n // 128) + 9) // 8 * 8
-    args = [torch.from_numpy(x).to(cuda) for x in (shifted, W, occ)]
+    args = [torch.from_numpy(x).to(cuda) for x in (denseT, cnt, bits)]
     got = e3_place.e3_place(*args, NROWS=NROWS)
     assert torch.equal(got, e3_place.e3_place_ref(*args, NROWS=NROWS))
     flat = got.reshape(-1).cpu().numpy()
@@ -811,6 +814,24 @@ def test_encode_kernels_overflow_and_empty_lanes(cuda):
                                     device=cuda)
     assert int((st["nval"] == 0).sum()) == 88
     _encode_kernels_match_plain(st)
+
+
+@pytest.mark.parametrize("case", ps.E3_CASES)
+def test_e3_cases_match_plain(cuda, case):
+    # the fused E3 at its edges: three and more lanes in a granule, runs of
+    # empty lanes (one past the lanes a block stages), a lane clamped at
+    # ORP, no bits, many tiles, an odd lane count; one launch, every
+    # granule written (the output is not zeroed first)
+    denseT, cnt, bits, NROWS, gran = ps.e3_case(case, cuda)
+    got, ran = _launched(lambda: e3_place.e3_place(denseT, cnt, bits,
+                                                   NROWS=NROWS))
+    assert ran == {"e3_place": 1}
+    assert torch.equal(got, e3_place.e3_place_ref(denseT, cnt, bits,
+                                                  NROWS=NROWS))
+    if case != "clamped":
+        flat = got.reshape(-1).cpu().numpy()
+        np.testing.assert_array_equal(flat[:gran.size], gran)
+        assert not flat[gran.size:].any()
 
 
 @pytest.mark.parametrize("case", ps.E_CASES)
@@ -906,6 +927,53 @@ def test_e1_e2_launchers_refuse_other_plans(cuda):
                 dict(row_blocks=q["row_blocks"] + 1),
                 dict(blocks=q["blocks"] + 1), dict(shift=4)):
         assert e2(**bad) != 0, bad
+    torch.cuda.synchronize()
+
+
+def test_e3_and_dense_launchers_refuse_other_plans(cuda):
+    # a plan outside the launchers' rules is refused, nothing launched
+    lib = _build.get_lib()
+    stream = _build.stream_ptr(torch.empty(1, device=cuda))
+    i32 = dict(dtype=torch.int32, device=cuda)
+    G, ORP, NROWS = 100, 128, 16
+    denseT = torch.zeros((G, ORP), **i32)
+    cnt, bits = torch.zeros(G, **i32), torch.zeros(G, **i32)
+    out = torch.empty((NROWS, 128), **i32)
+    p = e3_place.e3_plan(G)
+
+    def e3(**change):
+        q = {**p, **change}
+        return lib.ws_e3_place(
+            denseT.data_ptr(), cnt.data_ptr(), bits.data_ptr(),
+            out.data_ptr(), G, ORP, NROWS * 128, q["lanes"], q["threads"],
+            q["blocks"], stream)
+
+    assert e3() == 0
+    for bad in (dict(lanes=257), dict(lanes=0), dict(threads=128),
+                dict(blocks=p["blocks"] + 1)):
+        assert e3(**bad) != 0, bad
+    bits_t, tab, start, kw = ps.dense_case("g100", cuda)
+    dense = torch.empty((kw["out_rows"], 100), dtype=torch.uint8, device=cuda)
+    counts = torch.empty(100, **i32)
+    d = lane_decode_dense.dense_plan(100, bits_t.data_ptr(),
+                                     dense.data_ptr())
+    assert d["flush_vec"] == 4
+
+    def dd(shift=0, **change):
+        q = {**d, **change}
+        return lib.ws_lane_decode_dense(
+            bits_t.data_ptr(), tab.data_ptr(), start.data_ptr(),
+            dense.data_ptr() + shift, counts.data_ptr(), None, 100,
+            kw["B"], kw["B"] + kw["H"], kw["N"], kw["out_rows"], tab.numel(),
+            q["lanes"], q["rows"], q["vec"], q["window"], q["flush_vec"],
+            q["shared"], stream)
+
+    assert dd() == 0
+    for bad in (dict(window=500), dict(window=8), dict(flush_vec=2),
+                dict(flush_vec=16), dict(rows=d["window"]),
+                dict(lanes=33), dict(rows=120), dict(shared=d["shared"] - 16),
+                dict(shift=2)):
+        assert dd(**bad) != 0, bad
     torch.cuda.synchronize()
 
 
@@ -1287,6 +1355,34 @@ def test_dense_kernels_match_plain(cuda, name):
     got = compact.compact(cum, sym, out_rows=out_rows)
     assert torch.equal(got, compact.compact_ref(cum, sym, out_rows=out_rows))
     assert torch.equal(got, dense)
+
+
+@pytest.mark.parametrize("case", ps.DENSE_CASES)
+def test_dense_cases_match_plain(cuda, case):
+    # the dense decode at its edges: G 1, 3, 20, 33, 100, out_rows under
+    # the counts, lanes that end early, a lane WINDOW ranks ahead (its
+    # own write-outs counted as the numpy emulation counts them), a view
+    # at +1
+    from test_torch_dense_plan import emulate_dense
+
+    bits, tab, start, kw = ps.dense_case(case, cuda)
+    ahead = torch.zeros(1, dtype=torch.int32, device=cuda)
+    (dense, counts), ran = _launched(
+        lambda: lane_decode_dense.lane_decode_dense(bits, tab, start,
+                                                    ahead=ahead, **kw))
+    assert ran == {"lane_decode_dense": 1}
+    rdense, rcounts = lane_decode_dense.lane_decode_dense_ref(bits, tab,
+                                                              start, **kw)
+    assert torch.equal(dense, rdense) and torch.equal(counts, rcounts)
+    sym, valid = lane_scan.lane_scan_ref(bits, tab, start, B=kw["B"],
+                                         H=kw["H"], N=kw["N"])
+    p = lane_decode_dense.dense_plan(bits.shape[1], bits.data_ptr(),
+                                     dense.data_ptr())
+    written = emulate_dense(sym.cpu().numpy(), valid.cpu().numpy() != 0,
+                            start.cpu().numpy(), kw["B"], kw["N"],
+                            kw["out_rows"], p)[2]
+    assert int(ahead) == int(written.sum())
+    assert (int(ahead) > 0) == (case == "ahead")
 
 
 @pytest.mark.parametrize("steps,G,out_rows", [(77, 1024, 40), (50, 100, 30),

@@ -4,9 +4,11 @@ Parity: the same seeded inputs go through the JAX ``encode_pallas`` (its
 E1-E3 Pallas kernels in interpret mode) and the port's ``encode_lanes``,
 stage by stage: the staging (symbol matrix, lane counts, pack tables and
 plan), E1 on every row, E2 up to each lane's count (the TPU kernel leaves
-the words past the counts undefined), ``shift_lanes``, E3 on the whole
-payload array and against the JAX package's host placement
-``place_lanes``, the whole ``encode_program`` and the wrapper's HuffFile;
+the words past the counts undefined), ``shift_lanes``, E3's placement on
+the whole payload array and against the JAX package's host placement
+``place_lanes``, the fused E3 (offsets, shift and placement from E2's rows)
+against the JAX package's three steps, also on ``probes.streams.E3_CASES``,
+the whole ``encode_program`` and the wrapper's HuffFile;
 and the port's ``encode_device`` against the JAX one.  Tolerance: bit-exact
 everywhere (every output is an integer).
 
@@ -33,15 +35,17 @@ from huffmandecoderongpus_tpu_torch.ops import encode, encode_ops
 from huffmandecoderongpus_tpu_torch.ops.e1_pack import e1_pack_ref
 from huffmandecoderongpus_tpu_torch.ops.e2_compact import e2_compact_ref
 from huffmandecoderongpus_tpu_torch.ops.e3_place import (
+    e3_place,
     e3_place_ref,
     occupancy,
+    place_ref,
 )
+from huffmandecoderongpus_tpu_torch.probes import streams as ps
 from torch_streams import (
     fib_tree_data,
     full_alphabet,
     md1,
     odd_md,
-    placed_lanes,
     random_bytes,
     text_like,
 )
@@ -200,8 +204,8 @@ def test_e3_matches_jax(name):
     want = _jax_kernels(name)
     p = _stage(name)["plan"]
     occ = occupancy(_t(want["shift"]), _t(want["bits"]))
-    got = e3_place_ref(_t(want["shifted"]), _t(want["word_off"]), occ,
-                       NROWS=p["NROWS"]).numpy()
+    got = place_ref(_t(want["shifted"]), _t(want["word_off"]), occ,
+                    NROWS=p["NROWS"]).numpy()
     np.testing.assert_array_equal(got, want["out2"])  # the whole array
     if name in OVERFLOWS:
         return  # an overflowing lane's row was cut: the bytes are thrown away
@@ -210,6 +214,53 @@ def test_e3_matches_jax(name):
                             want["bits"], want["word_off"].astype(np.int64), n)
     np.testing.assert_array_equal(got.reshape(-1)[:n], placed)
     assert not got.reshape(-1)[n:].any()
+
+
+def _jax_shift_and_e3(denseT, cnt, bits, NROWS):
+    """The JAX package's offsets, ``shift_lanes`` and ``e3_place``
+    (interpret mode) as ``encode_program`` runs them, on G padded to whole
+    128-lane grid steps with empty lanes (which add nothing)."""
+    G, ORP = denseT.shape
+    Gp = -(-G // 128) * 128
+    d = np.zeros((Gp, ORP), np.int32)
+    d[:G] = denseT
+    c = np.zeros(Gp, np.int32)
+    c[:G] = cnt
+    L = np.zeros(Gp, np.int64)
+    L[:G] = bits
+    P = np.cumsum(L) - L
+    shifted = np.asarray(pe.shift_lanes(d, c, (P & 15).astype(np.int32),
+                                        G=Gp, ORP=ORP))
+    return np.asarray(pe.e3_place(
+        shifted.reshape(Gp, ORP // 128, 128),
+        (P >> 4).astype(np.int32).reshape(1, Gp), G=Gp, ORPW=ORP // 128,
+        NROWS=NROWS, interpret=True))
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + [f"e3:{c}"
+                                                  for c in ps.E3_CASES])
+def test_fused_e3_matches_jax(name):
+    # the fused E3's plain version (offsets, shift and placement from E2's
+    # rows and E1's counts) against the JAX package's three steps: on the
+    # encode streams (fed the JAX E2's rows, undefined past the counts),
+    # and on E3's own cases: three and more lanes in a granule, runs of
+    # empty lanes, a lane clamped at ORP, no bits at all
+    if name.startswith("e3:"):
+        denseT, cnt, bits, NROWS, gran = ps.e3_case(name[3:], "cpu")
+        denseT, cnt, bits = denseT.numpy(), cnt.numpy(), bits.numpy()
+    else:
+        k = _jax_kernels(name)
+        denseT, cnt, bits = k["denseT"], k["cnt"], k["bits"].astype(np.int32)
+        NROWS, gran = _stage(name)["plan"]["NROWS"], None
+    got = e3_place(_t(denseT), _t(cnt), _t(bits), NROWS=NROWS).numpy()
+    np.testing.assert_array_equal(got, _jax_shift_and_e3(denseT, cnt, bits,
+                                                         NROWS))
+    if name in ("e3:clamped", *OVERFLOWS):
+        assert int(cnt.max()) >= denseT.shape[1]
+    elif gran is not None:  # the whole stream, zero past it
+        flat = got.reshape(-1)
+        np.testing.assert_array_equal(flat[:gran.size], gran)
+        assert not flat[gran.size:].any()
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -337,16 +388,17 @@ def test_cuda_requested_without_cuda_raises():
 def test_e3_shared_granules(lane_bits):
     # every lane's bits from one random stream: E3 must assemble the stream
     # exactly, and agree with the JAX package's host placement
-    ORP = 128
-    shifted, W, occ, a, gran = placed_lanes(np.random.default_rng(1),
-                                            lane_bits, ORP)
+    denseT, cnt, bits, NROWS, gran = ps.e3_lanes(np.random.default_rng(1),
+                                                 lane_bits, 128)
+    shift, W, occ = encode.lane_offsets(_t(bits))
+    shifted = encode.shift_lanes(_t(denseT), _t(cnt), shift)
     n = gran.size
-    NROWS = (-(-n // 128) + 1 + 8) // 8 * 8
-    got = e3_place_ref(_t(shifted), _t(W), _t(occ), NROWS=NROWS).numpy()
+    got = place_ref(shifted, W, occ, NROWS=NROWS).numpy()
     np.testing.assert_array_equal(got.reshape(-1)[:n], gran)
     assert not got.reshape(-1)[n:].any()
-    placed = pe.place_lanes(shifted.astype(np.int64), a,
-                            np.asarray(lane_bits), W.astype(np.int64), n)
+    placed = pe.place_lanes(shifted.numpy().astype(np.int64), shift.numpy(),
+                            np.asarray(lane_bits), W.numpy().astype(np.int64),
+                            n)
     np.testing.assert_array_equal(placed, gran)
 
 
@@ -372,7 +424,8 @@ def test_encode_lanes_past_jax_vmem_route():
         shifted.numpy(),
         np.asarray(pe.shift_lanes(denseT.numpy(), cnt.numpy(), shift.numpy(),
                                   G=p["G"], ORP=p["ORP"])))
-    out = e3_place_ref(shifted, word_off, occ, NROWS=p["NROWS"])
+    out = place_ref(shifted, word_off, occ, NROWS=p["NROWS"])
+    assert torch.equal(out, e3_place_ref(denseT, cnt, bits, NROWS=p["NROWS"]))
     n = p["n_granules"]
     placed = pe.place_lanes(shifted.numpy().astype(np.int64),
                             shift.numpy(), L, P >> 4, n)

@@ -34,6 +34,7 @@ from huffmandecoderongpus_tpu.ops import pallas_encode as pe
 from huffmandecoderongpus_tpu_torch.ops import encode
 from huffmandecoderongpus_tpu_torch.ops import e1_pack as e1_mod
 from huffmandecoderongpus_tpu_torch.ops import e2_compact as e2_mod
+from huffmandecoderongpus_tpu_torch.ops import e3_place as e3_mod
 from huffmandecoderongpus_tpu_torch.ops.e1_pack import (
     CHUNKS,
     LANES,
@@ -633,3 +634,163 @@ def test_e2_matches_jax_interpret():
     emu = emulate_e2(gran, gval, ORP, e2_plan(G, rows, ORP, 1000),
                      np.random.default_rng(2))
     np.testing.assert_array_equal(emu, got)
+
+
+# ---- E3 --------------------------------------------------------------------
+
+def e3_plan_ok(G, ORP, n_out, lanes, threads, blocks):
+    """``csrc/e3_place.cu`` ``e3_plan_ok``, mirrored."""
+    return (G >= 1 and ORP >= 1 and n_out >= 1
+            and 1 <= lanes <= e3_mod.MAX_LANES and threads == 256
+            and blocks == -(-G // lanes))
+
+
+def emulate_e3(denseT, cnt, bits, NROWS, p):
+    """``csrc/e3_place.cu`` on plan ``p``, tile by tile: the tile's first
+    offset as the sum of the bits before it, the offsets, counts and first
+    shifted granules of the tile's lanes and EXTRA after it, then lane by
+    lane (a warp each) the granules it owns, [ceil(P / 16), ceil(Pn / 16)):
+    its shifted granule (d[i-1] the previous granule's word; zero from ORP
+    on), and at its last granule, where the lane ends inside it, the first
+    granules of the lanes that start inside it, staged or (past the staged
+    lanes) from the inputs, all added mod 2^32; the last tile also the
+    zeros after the last code bit.  Returns (out (NROWS * 128,) int64,
+    every granule written exactly once; the granules whose followers ran
+    past the staged lanes)."""
+    G, ORP = denseT.shape
+    LT = p["lanes"]
+    n_out = NROWS * 128
+    d = denseT.astype(np.int64)
+    L_all = bits.astype(np.int64)
+
+    def first(g, P):
+        return ((int(d[g, 0]) << int(P & 15)) & 0xFFFF) if cnt[g] > 0 else 0
+
+    out = np.zeros(n_out, dtype=np.int64)
+    written = np.zeros(n_out, dtype=np.int64)
+    far = 0
+    for b in range(p["blocks"]):
+        g0 = b * LT
+        g1 = min(g0 + LT, G)
+        ns = min(LT + e3_mod.EXTRA, G - g0)
+        before = int(L_all[:g0].sum())
+        Ls = L_all[g0:g0 + ns]
+        P_s = before + np.concatenate([[0], np.cumsum(Ls)])  # ns + 1
+        F_s = [first(g0 + f, int(P_s[f])) if Ls[f] > 0 else 0
+               for f in range(ns)]
+        for l in range(g1 - g0):
+            P, Pn = int(P_s[l]), int(P_s[l + 1])
+            if Pn == P:
+                continue
+            a, W = P & 15, P >> 4
+            c = min(int(cnt[g0 + l]), ORP)
+            row = [int(x) if i < c else 0 for i, x in enumerate(d[g0 + l])]
+            for k in range((P + 15) >> 4, min((Pn + 15) >> 4, n_out)):
+                i = k - W
+                v = 0
+                if i < ORP:
+                    prev = row[i - 1] if i >= 1 else 0
+                    v = ((row[i] << a) & 0xFFFF) | ((prev >> (16 - a))
+                                                    if a else 0)
+                if k == (Pn - 1) >> 4 and Pn < 16 * k + 16:
+                    f = l + 1
+                    while f < ns and P_s[f] < 16 * k + 16:
+                        v += F_s[f]
+                        f += 1
+                    if f == ns:
+                        Pf, g = int(P_s[ns]), g0 + ns
+                        far += g < G and Pf < 16 * k + 16
+                        while g < G and Pf < 16 * k + 16:
+                            if L_all[g] > 0:
+                                v += first(g, Pf)
+                            Pf += int(L_all[g])
+                            g += 1
+                out[k] = v & 0xFFFFFFFF
+                written[k] += 1
+        if g1 == G:
+            tail = min((int(P_s[g1 - g0]) + 15) >> 4, n_out)
+            written[tail:] += 1
+        else:
+            assert g1 - g0 == LT
+    assert (written == 1).all()
+    return out.astype(np.uint32).view(np.int32).astype(np.int64), far
+
+
+@pytest.mark.parametrize("G", [1, 15, 16, 17, 37, 128, 512, 4095, 8192,
+                               8193, 65535, 131072])
+def test_e3_plan_rules(G):
+    p = e3_mod.e3_plan(G)
+    assert e3_plan_ok(G, 128, 1024, p["lanes"], p["threads"], p["blocks"])
+    assert p["blocks"] <= e3_mod.MAX_TILES  # the bits summed stay O(G) a block
+    assert p["lanes"] * (p["blocks"] - 1) < G <= p["lanes"] * p["blocks"]
+    assert p["threads"] == 256 and p["threads"] % 32 == 0
+    assert p["shared"] <= 48 * 1024  # static shared memory
+    assert p["staged"] >= p["lanes"] + e3_mod.EXTRA
+    if G == 8192:  # (a)'s lanes: 512 blocks of 16 lanes, ~4 an SM
+        assert (p["lanes"], p["blocks"]) == (16, 512)
+    with pytest.raises(ValueError):
+        e3_mod.e3_plan(0)
+    with pytest.raises(ValueError):
+        e3_mod.e3_plan(e3_mod.MAX_TILES * e3_mod.MAX_LANES + 1)
+
+
+@pytest.mark.parametrize("G", [1, 16, 37, 1000, 8192])
+def test_e3_tiles_write_every_granule_once(G):
+    # the tiles' ranges [ceil(P[g0] / 16), ceil(P[g1] / 16)), the last to
+    # the end of out, cover out once on lanes of any bits, empty runs too
+    rng = np.random.default_rng(G)
+    L = rng.integers(0, 60, G) * (rng.random(G) < 0.7)
+    P = np.concatenate([[0], np.cumsum(L)])
+    n_out = -(-int(P[-1]) // 16) + 300
+    LT = e3_mod.e3_plan(G)["lanes"]
+    written = np.zeros(n_out, np.int64)
+    for g0 in range(0, G, LT):
+        g1 = min(g0 + LT, G)
+        k1 = n_out if g1 == G else (int(P[g1]) + 15) >> 4
+        written[(int(P[g0]) + 15) >> 4:k1] += 1
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("case", ps.E3_CASES)
+def test_e3_emulation_matches_plain(case):
+    denseT, cnt, bits, NROWS, _gran = ps.e3_case(case, "cpu")
+    G = denseT.shape[0]
+    got, far = emulate_e3(denseT.numpy(), cnt.numpy(), bits.numpy(), NROWS,
+                          e3_mod.e3_plan(G))
+    want = e3_mod.e3_place_ref(denseT, cnt, bits, NROWS=NROWS)
+    np.testing.assert_array_equal(got, want.reshape(-1).numpy())
+    if case == "empty-runs":  # a follower 70 lanes on: past the staged ones
+        assert far > 0
+
+
+@pytest.mark.parametrize("case", ["pad-start", "nval0", "one-symbol",
+                                  "fib600"])
+def test_e3_emulation_on_encoder_rows(case):
+    # E3 on E1's counts and E2's rows, at the plan's ORP and at
+    # E_SMALL_ORP (lanes clamped at ORP)
+    _raw, _tree, _lanes, st = ps.e_case(case, "cpu")
+    gran, gval, cnt, bits = e1_pack_ref(st["data3"], st["lo"], st["hi"],
+                                        st["nval"])
+    p = st["plan"]
+    for ORP in (p["ORP"], ps.E_SMALL_ORP):
+        denseT = e2_compact_ref(gran, gval, ORP=ORP)
+        got, _far = emulate_e3(denseT.numpy(), cnt.numpy(), bits.numpy(),
+                               p["NROWS"], e3_mod.e3_plan(p["G"]))
+        want = e3_mod.e3_place_ref(denseT, cnt, bits, NROWS=p["NROWS"])
+        np.testing.assert_array_equal(got, want.reshape(-1).numpy())
+
+
+def test_e3_emulation_any_int32():
+    # words past the counts and bits above 16 in the rows (the JAX E2 leaves
+    # the former undefined): the kernel's arithmetic is the plain version's
+    rng = np.random.default_rng(3)
+    G, ORP = 40, 8
+    bits = rng.integers(0, 200, G).astype(np.int32)
+    cnt = rng.integers(0, 12, G).astype(np.int32)
+    denseT = rng.integers(-2**31, 2**31, (G, ORP)).astype(np.int32)
+    NROWS = 8
+    got, _far = emulate_e3(denseT, cnt, bits, NROWS, e3_mod.e3_plan(G))
+    want = e3_mod.e3_place_ref(torch.from_numpy(denseT),
+                               torch.from_numpy(cnt), torch.from_numpy(bits),
+                               NROWS=NROWS)
+    np.testing.assert_array_equal(got, want.reshape(-1).numpy())

@@ -235,28 +235,3 @@ def fib_tree_data(rng, n_deep, n_sym=26, body=16000):
     freqs = np.zeros(256, dtype=np.int64)
     freqs[:n_sym] = counts
     return raw, build_tree(freqs)
-
-
-def placed_lanes(rng, lane_bits, ORP):
-    """E3's inputs for lanes of ``lane_bits`` code bits cut from one random
-    bit stream, as shift_lanes would give them: (shifted (G, ORP) int32,
-    word_off (G,) int32, occ (G,) int32, shift (G,) int64, granules) where
-    ``granules`` (n,) int64 is the whole stream's u16 granules, what E3
-    must assemble."""
-    L = np.asarray(lane_bits, dtype=np.int64)
-    P = np.cumsum(L) - L
-    total = int(L.sum())
-    n = -(-total // 16)
-    bits = rng.integers(0, 2, size=n * 16).astype(np.int64)
-    bits[total:] = 0
-    gran = (bits.reshape(n, 16) << np.arange(16)).sum(axis=1)
-    a, W = P & 15, P >> 4
-    occ = np.where(L > 0, ((a + L - 1) >> 4) + 1, 0)
-    idx = W[:, None] + np.arange(ORP)[None, :]
-    lo = np.clip(P[:, None] - 16 * idx, 0, 16)
-    hi = np.clip((P + L)[:, None] - 16 * idx, 0, 16)
-    mask = np.where(hi > lo, ((1 << hi) - 1) & ~((1 << lo) - 1), 0)
-    keep = np.arange(ORP)[None, :] < np.minimum(occ, ORP)[:, None]
-    shifted = np.where(keep, gran[np.minimum(idx, n - 1)] & mask, 0)
-    return (shifted.astype(np.int32), W.astype(np.int32),
-            occ.astype(np.int32), a, gran)
