@@ -137,7 +137,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               trimmed by its counts to the input; bit-exact (tolerance
               0), with both times from CUDA events (and for the
               compaction the time of torch.searchsorted + gather, the
-              same function in library calls)
+              same function in library calls), and a [compact] line: its
+              card time from the --card-ms process against its bytes
+              bound, its plan, the blocks whose rank union is wider than
+              two chunks and their share of the blocks' cycles (the
+              kernel's own count), beside the library calls' time; the
+              compaction also at its edges (probes.streams.COMPACT_CASES:
+              G 1, 33 and 4,095, steps under and off a chunk, out_rows 0,
+              under the counts and over steps, a silent and a full
+              column, ranks more than two chunks apart, an offset view)
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
@@ -202,7 +210,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   5. probes   the four probe kernels (probe_inc, probe_arith, probe_gather,
               k4_stripped) against their plain versions at every shape of
               the scripts/ sites they replace (the chained gathers also on
-              seeded inputs whose rows differ), bit-exact, with kernel,
+              seeded inputs whose rows differ; P4 also at
+              probes.streams.P4_CASES: cells_p 100, 256 and 412, G 64, ORP
+              128 and 132, nib all 0xFF, negative sym, offset views),
+              bit-exact, a [p4] line a stage on (a)'s K3 output (card
+              time from the --card-ms process against the bytes bound,
+              beside k4_compact's card time on the same cells in that
+              process, and the plan), with kernel,
               plain and library times and their bounds (bytes, or integer
               ops and shared-memory loads at the card's peak rates and its
               maximum SM clock); then the six probe programs
@@ -1394,12 +1408,88 @@ def scan_card_ms(torch, streams, dev):
     return out
 
 
+def probe_card_ms(torch, streams, dev):
+    """{key: ms}: the card time a launch (as encode_card_ms) of the
+    compaction on (d) in the dense pipeline's geometry ("compact d"), of
+    P4's two stages and k4_compact on (a)'s K3 output ("k4_stripped
+    transpose", "k4_stripped prefix", "k4_compact p4"), and the card time
+    a call (``probes._timing.device_ms``, every kernel of 20 calls) of P2
+    at its reported shape (xor3, P 8, S 4,000, "probe_arith"), of P1's
+    library call x + 1 ("x + 1") and P3's torch.gather at its reported
+    shape ("torch.gather")."""
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import (
+        compact,
+        k4_compact,
+        k4_stripped,
+        lane_scan,
+        probe_arith,
+    )
+    from huffmandecoderongpus_tpu_torch.probes import (
+        hw_k4probe,
+        probe_vpu2,
+    )
+    from huffmandecoderongpus_tpu_torch.probes import probe_gather as pgp
+    from huffmandecoderongpus_tpu_torch.probes._timing import device_ms
+
+    out = {}
+    sd, entry, out_rows = dense_staging(torch, encode_bytes(
+        streams["d"][1]), dev)
+    sym, valid = lane_scan.lane_scan(sd["bits"], sd["tab"], entry, B=sd["B"],
+                                     H=sd["H"], N=sd["N"])
+    cum = torch.cumsum(valid, 0, dtype=torch.int32)
+    out["compact d"] = device_breakdown(
+        torch, lambda: compact.compact(cum, sym, out_rows=out_rows),
+        per_launch=True).get("compact")
+    ksym, kval, ORP = hw_k4probe.k3_output(encode_bytes(streams["a"][1]),
+                                           dev)
+    for stage in k4_stripped.STAGES:
+        out[f"k4_stripped {stage}"] = device_breakdown(
+            torch, lambda stage=stage: k4_stripped.k4_stripped(
+                ksym, kval, ORP=ORP, stage=stage), per_launch=True,
+            symbols={"k4_stripped": ("k4_stripped_kernel",)}).get(
+                "k4_stripped")
+    out["k4_compact p4"] = device_breakdown(
+        torch, lambda: k4_compact.k4_compact(ksym, kval, ORP=ORP),
+        per_launch=True).get("k4_compact")
+    x = probe_vpu2.script_input(dev)
+    out["probe_arith"] = device_ms(lambda: probe_arith.probe_arith(
+        x, body="xor3", S=probe_vpu2.STEPS, P=8), dev)
+    xp = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    out["x + 1"] = device_ms(lambda: xp + 1, dev)
+    label, axis, tab_np, idx_np = next(
+        c for c in pgp.cases()
+        if c[0].startswith(PROBE_KERNELS["probe_gather"][2]))
+    tab = torch.from_numpy(tab_np).to(dev)
+    k64 = torch.from_numpy(idx_np).to(dev).long()
+    out["torch.gather"] = device_ms(lambda: tab.gather(axis, k64), dev)
+    out["torch.gather shape"] = label
+    return out
+
+
+def compact_stats(torch, compact, cum, sym, out_rows):
+    """The compaction's plan and bytes bound on these inputs, with the
+    kernel's own count (``compact.STATS``, one launch) of the blocks whose
+    rank union is wider than two chunks, the rows those unions span and
+    their share of the blocks' summed cycles."""
+    stats = torch.zeros(len(compact.STATS), dtype=torch.int64,
+                        device=cum.device)
+    out = compact.compact(cum, sym, out_rows=out_rows, stats=stats)
+    st = dict(zip(compact.STATS, stats.tolist()))
+    plan = compact.compact_plan(*cum.shape, out_rows, cum.data_ptr(),
+                                sym.data_ptr(), out.data_ptr())
+    return dict(plan=plan, bound_ms=nbytes(cum, sym, out) / HBM_BYTES_PER_S
+                * 1e3, wide_blocks=st["wide_blocks"], blocks=plan["blocks"],
+                wide_rows=st["wide_rows"],
+                wide_cycle_share=st["wide_cycles"] / max(st["cycles"], 1))
+
+
 def card_ms_fresh():
-    """{"encode": encode_card_ms, "scan": scan_card_ms, "k3": k3_card_ms}
-    from a fresh process of this script (its last line): this long
-    process's profiler records nothing in most sessions after its first
-    phases (PERF.md section 7), a new one's in each.  Empty dicts if the
-    child fails."""
+    """{"encode": encode_card_ms, "scan": scan_card_ms, "k3": k3_card_ms,
+    "probe": probe_card_ms} from a fresh process of this script (its last
+    line): this long process's profiler records nothing in most sessions
+    after its first phases (PERF.md section 7), a new one's in each.
+    Empty dicts if the child fails."""
     r = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
                         CARD_ARG], capture_output=True, text=True,
                        timeout=600)
@@ -1407,7 +1497,7 @@ def card_ms_fresh():
     if r.returncode or not lines:
         print(f"[card] the card-time process failed (rc {r.returncode}): "
               f"{r.stderr.strip()[-500:]}", flush=True)
-        return {"encode": {}, "scan": {}, "k3": {}}
+        return {"encode": {}, "scan": {}, "k3": {}, "probe": {}}
     return json.loads(lines[-1])
 
 
@@ -1706,7 +1796,8 @@ def dense_ahead(name, ahead, plan):
     return total
 
 
-def check_dense(torch, name, raw, hf, dev, with_compact, card_ms=None):
+def check_dense(torch, name, raw, hf, dev, with_compact, card_ms=None,
+                compact_card=None):
     """Phase 3 of the dense lane decode on one stream (and, with
     ``with_compact``, of the compaction on the lane scan's emissions)
     against the plain versions, each trimmed by its counts to the input,
@@ -1714,7 +1805,9 @@ def check_dense(torch, name, raw, hf, dev, with_compact, card_ms=None):
     dense_ahead) and a
     [scan] line (its card time ``card_ms`` from scan_card_ms; the chain
     floor: B + H rows).  The compaction's row also carries the time of
-    torch.searchsorted + gather on the same inputs.  Returns and raises as
+    torch.searchsorted + gather on the same inputs, and its [compact]
+    line its card time ``compact_card`` (from probe_card_ms) against its
+    bytes bound, with compact_stats.  Returns and raises as
     check_kernels."""
     from huffmandecoderongpus_tpu_torch.ops import (
         compact,
@@ -1767,7 +1860,45 @@ def check_dense(torch, name, raw, hf, dev, with_compact, card_ms=None):
     rows["compact"]["library_ms"] = lib_ms
     print(f"[kernels] {name}: compact bit-exact, equal to the dense decode; "
           f"torch.searchsorted + gather {lib_ms:.4f} ms", flush=True)
+    st = compact_stats(torch, compact, cum, sym, out_rows)
+    if compact_card is not None:
+        rows["compact"]["device_ms"] = compact_card
+    own = ("not measured" if compact_card is None else
+           f"{compact_card:.5f} ms, {compact_card / st['bound_ms']:.2f} "
+           "times the bound")
+    print(f"[compact] {name}: card {own} (a fresh process); bytes bound "
+          f"{st['bound_ms']:.6f} ms; plan {st['plan']}; {st['wide_blocks']} "
+          f"of {st['blocks']} blocks with a rank union wider than "
+          f"{2 * compact.R} rows ({st['wide_rows']} rows in all), "
+          f"{st['wide_cycle_share']:.3f} of the blocks' cycles (the "
+          f"kernel's count); torch.searchsorted + gather {lib_ms:.4f} ms "
+          "(events)", flush=True)
     return rows
+
+
+def check_compact_cases(torch, dev):
+    """Phase 3, the compaction at its edge cases
+    (``probes.streams.COMPACT_CASES``) against its plain version, with
+    the kernel's count of wide-union blocks (some in "wide" only).
+    Returns {case: rows}, as check_kernels."""
+    from huffmandecoderongpus_tpu_torch.ops import compact
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    out = {}
+    for case in ps.COMPACT_CASES:
+        cum, sym, out_rows = ps.compact_case(case, dev)
+        what = f"compact {case} {tuple(cum.shape)} out_rows={out_rows}"
+        comparer(torch, what, out.setdefault(what, {}))(
+            "compact", lambda: compact.compact(cum, sym, out_rows=out_rows),
+            lambda: compact.compact_ref(cum, sym, out_rows=out_rows),
+            (cum, sym))
+        st = compact_stats(torch, compact, cum, sym, out_rows)
+        print(f"[compact] {what}: plan {st['plan']}; {st['wide_blocks']} "
+              "wide-union blocks", flush=True)
+        if (st["wide_blocks"] > 0) != (case == "wide"):
+            raise AssertionError(f"{what}: {st['wide_blocks']} wide-union "
+                                 "blocks")
+    return out
 
 
 def check_dense_cases(torch, dev):
@@ -2128,7 +2259,8 @@ def main() -> int:
                    TRIO: [streams["f"][1], streams["g"][1], book2]}
         print(json.dumps({"encode": encode_card_ms(torch, streams, dev),
                           "scan": scan_card_ms(torch, streams, dev),
-                          "k3": k3_card_ms(torch, streams, batches, dev)}))
+                          "k3": k3_card_ms(torch, streams, batches, dev),
+                          "probe": probe_card_ms(torch, streams, dev)}))
         return 0
     card_ms = card_ms_fresh()
     hfs = {k: (f"{k} {name}", r, encode_bytes(r))
@@ -2178,8 +2310,11 @@ def main() -> int:
         checked[k].update(check_dense(torch, *hfs[k], dev,
                                       with_compact=k == "d",
                                       card_ms=card_ms["scan"].get(
-                                          f"dense {k}")))
+                                          f"dense {k}"),
+                                      compact_card=card_ms["probe"].get(
+                                          "compact d")))
     checked.update(check_dense_cases(torch, dev))
+    checked.update(check_compact_cases(torch, dev))
 
     # ---- 4. the slice through the registry ----------------------------------
     def drive(decoder, k):
@@ -2260,7 +2395,7 @@ def main() -> int:
     launches.update(drive_encoder(torch, hfs, dev, card))
 
     # ---- 5. the probes: their kernels, the probe programs, prof ------------
-    probe_rows = check_probe_kernels(torch, hfs, dev)
+    probe_rows = check_probe_kernels(torch, hfs, dev, card_ms["probe"])
     launches.update(drive_probes(torch, hfs, dev, card))
     from huffmandecoderongpus_tpu_torch.probes import hw_dispatch
     print("[launch] " + hw_dispatch.split_line(hw_dispatch.host_split(dev),
@@ -2546,7 +2681,7 @@ def drive_encoder(torch, hfs, dev, card):
     return launches
 
 
-def check_probe_kernels(torch, hfs, dev):
+def check_probe_kernels(torch, hfs, dev, cards):
     """Phase 5, the probe kernels: P1-P4 against their plain versions at
     every shape of the scripts' sites, bit-exact, each with its time a
     launch (``harness.timing.launch_ms``: 20 launches between two events,
@@ -2561,7 +2696,10 @@ def check_probe_kernels(torch, hfs, dev):
     Where a library call stands beside the kernel, the two are timed in
     turns (kernel, library, kernel, library, ...; one trial of 20 launches
     each, median of 5), and the library call's own time on the card is
-    taken too."""
+    taken too.  P4 also runs at ``probes.streams.P4_CASES``, and a [p4]
+    line a stage on (a) gives its card time from ``cards``
+    (probe_card_ms) beside k4_compact's there, as the [p2] line P2's and
+    the library calls' card times there."""
     from huffmandecoderongpus_tpu_torch.harness.timing import launch_ms
     from huffmandecoderongpus_tpu_torch.ops import (
         k4_stripped,
@@ -2575,6 +2713,7 @@ def check_probe_kernels(torch, hfs, dev):
         probe_vpu2,
     )
     from huffmandecoderongpus_tpu_torch.probes import probe_gather as pgp
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
     from huffmandecoderongpus_tpu_torch.probes._timing import (
         device_ms,
         sm_clock_mhz,
@@ -2722,6 +2861,34 @@ def check_probe_kernels(torch, hfs, dev):
                                                           stage=stage),
               lambda stage=stage: k4_stripped.k4_stripped_ref(
                   sym, val, ORP=ORP, stage=stage), (sym, val))
+    bound = (nbytes(sym, val) + sym.shape[1] * ORP) / HBM_BYTES_PER_S * 1e3
+    plan = k4_stripped.p4_plan(sym.shape[1], sym.data_ptr(), val.data_ptr(),
+                               0, ORP)
+    k4 = cards.get("k4_compact p4")
+    for stage in k4_stripped.STAGES:
+        ms = cards.get(f"k4_stripped {stage}")
+        own = ("not measured" if ms is None else
+               f"{ms:.5f} ms, {ms / bound:.2f} times the bound")
+        print(f"[p4] (a) {stage}: card {own} (a fresh process); bytes bound "
+              f"{bound:.6f} ms; k4_compact on the same cells "
+              f"{us(k4)} on the card (the same process); plan {plan}",
+              flush=True)
+    for case in ps.P4_CASES:
+        csym, cnib, cORP = ps.p4_case(case, dev)
+        for stage in k4_stripped.STAGES:
+            check("k4_stripped", f"case {case} {stage} {tuple(csym.shape)} "
+                  f"ORP={cORP}",
+                  lambda stage=stage, csym=csym, cnib=cnib, cORP=cORP:
+                  k4_stripped.k4_stripped(csym, cnib, ORP=cORP, stage=stage),
+                  lambda stage=stage, csym=csym, cnib=cnib, cORP=cORP:
+                  k4_stripped.k4_stripped_ref(csym, cnib, ORP=cORP,
+                                              stage=stage), (csym, cnib))
+    p2 = cards.get("probe_arith")
+    print(f"[p2] xor3 P=8 S={probe_vpu2.STEPS}: card {us(p2)} a call (a "
+          f"fresh process); x + 1 {us(cards.get('x + 1'))}, torch.gather "
+          f"{cards.get('torch.gather shape')} "
+          f"{us(cards.get('torch.gather'))} on the card (the same process)",
+          flush=True)
     return rows
 
 

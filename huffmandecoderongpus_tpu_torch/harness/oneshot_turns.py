@@ -1,7 +1,7 @@
 """K4, the one-shot launch and K1 of one tree of the PyTorch port on a GPU,
 for timing two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1,k3,encode]
+    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1,k3,encode,p4]
 
 Run it as a file, not with ``-m``, as ``scan_turns.py`` beside it: it
 imports the port from TREE (a checkout of this repository; default the one
@@ -74,6 +74,14 @@ beside the card's name and power limit:
              E3 and the torch ops between), and the ``encode_lanes`` wall
              (host clock, staging included, median of chip_smoke's
              WALL_RUNS)
+  p4         on (a)'s K3 output (the cells K1-K3 hand K4, as the port's
+             ``probes/hw_k4probe.py`` takes them): P4 (``k4_stripped``) in
+             its ``transpose`` and ``prefix`` stages and the full
+             ``k4_compact`` on the same cells, each by events (median of 20
+             single launches) and on the card (profiler, mean a launch),
+             beside the bytes bound (sym and nib read once, the (G, ORP)
+             rows written once, at 3.35 TB/s) and, where the tree has
+             ``p4_plan``, P4's plan
 
 The last line is one JSON object of every number.
 """
@@ -101,7 +109,7 @@ def main() -> int:
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--sections",
-                    default="k4,oneshot,k1,k1main,k2,md1,k3,encode")
+                    default="k4,oneshot,k1,k1main,k2,md1,k3,encode,p4")
     args = ap.parse_args()
     sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
@@ -219,6 +227,8 @@ def main() -> int:
                    args.tag)
     if "encode" in sections:
         encode_section(torch, cs, out, streams, dev, card, args.tag)
+    if "p4" in sections:
+        p4_section(torch, cs, out, streams, dev, card, args.tag)
     print(json.dumps(out))
     return 0
 
@@ -553,6 +563,39 @@ def encode_section(torch, cs, out, streams, dev, card, tag):
                                        for n, v in split.items())
               + f"; encode_lanes wall {wall:.4f} ms (min {wall_min:.4f}, "
               f"{cs.WALL_RUNS} runs); card {card}", flush=True)
+
+
+def p4_section(torch, cs, out, streams, dev, card, tag):
+    """The p4 section: both P4 stages and K4 on (a)'s K3 output."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import k4_compact, k4_stripped
+    from huffmandecoderongpus_tpu_torch.probes import hw_k4probe
+
+    sym, val, ORP = hw_k4probe.k3_output(encode_bytes(streams["a"][1]), dev)
+    cells_p, G = sym.shape
+    moved = cs.nbytes(sym, val) + G * ORP
+    bound = moved / cs.HBM_BYTES_PER_S * 1e3
+    plan = (k4_stripped.p4_plan(G, sym.data_ptr(), val.data_ptr(), 0, ORP)
+            if hasattr(k4_stripped, "p4_plan") else None)
+    runs = {f"k4_stripped {stage}": (
+        "k4_stripped", lambda stage=stage: k4_stripped.k4_stripped(
+            sym, val, ORP=ORP, stage=stage)) for stage in k4_stripped.STAGES}
+    runs["k4_compact"] = ("k4_compact", lambda: k4_compact.k4_compact(
+        sym, val, ORP=ORP))
+    row = dict(G=G, cells_p=cells_p, ORP=ORP, bound_ms=bound, plan=plan)
+    for what, (kname, fn) in runs.items():
+        ev = statistics.median(event_ms(fn, K4_RUNS, warmup=2))
+        card_ms = cs.device_breakdown(
+            torch, fn, per_launch=True,
+            symbols={kname: (f"{kname}_kernel",)}).get(kname)
+        row[what] = dict(events_ms=ev, card_ms=card_ms)
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.5f} ms, {card_ms / bound:.2f} times the bound")
+        print(f"[p4] {tag} (a): {what} events {ev:.4f} ms, card {own}; "
+              f"bound {bound:.6f} ms ({moved} bytes); G={G} cells_p="
+              f"{cells_p} ORP={ORP}; plan {plan}; card {card}", flush=True)
+    out["p4_a"] = row
 
 
 #: K2's kernel names: this design's one, and the three-launch design's

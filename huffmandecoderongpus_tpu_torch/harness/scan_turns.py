@@ -53,7 +53,12 @@ prints, beside the card's name, power limit and maximum SM clock:
              trio (f), (g) and the book2-sized stream, the encode program
              on (a), and the dense and the compaction pipelines on (d)
              (candidate_scan, compose, then lane_decode_dense; lane_scan,
-             cumsum, compact)
+             cumsum, compact); where the tree has ``compact_plan``
+             (row-chunk tiles of 128 columns by 64 rows, the ranks staged
+             in shared memory and written a row a store, the zero fill
+             spread over the chunks), compact's plan, its bytes bound
+             and the kernel's own count of blocks whose rank union is
+             wider than two chunks (``compact.STATS``)
 
 The last line is one JSON object of every number.
 """
@@ -391,6 +396,10 @@ def cards_section(torch, cs, out, streams, dev, card, tag):
         print(f"[cards] {tag} {what}: card ms a launch "
               + "  ".join(f"{n} {v:.4f}" for n, v in split.items())
               + f"; card {card}", flush=True)
+    if hasattr(compact, "compact_plan"):
+        row = cs.compact_stats(torch, compact, cum, _sym, out_rows)
+        out["cards compact (d) plan"] = row
+        print(f"[cards] {tag} compact (d): {row}; card {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -121,8 +121,9 @@ _SIGNATURES = {
     # bits, tab, start, dense, counts, ahead (or null), G, B, rows, N,
     # out_rows, tab_words, L, R, vec, window, flush width, shared, stream
     "ws_lane_decode_dense": [_P] * 6 + [_I] * 12 + [_P],
-    # cum, sym, out, steps, G, out_rows, stream
-    "ws_compact": [_P] * 3 + [_I] * 3 + [_P],
+    # cum, sym, out, stats (or null), steps, G, out_rows, W, R, vec,
+    # threads, shared, tiles, chunks, zrows, stream
+    "ws_compact": [_P] * 4 + [_I] * 11 + [_P],
     # x, out, n, stream
     "ws_probe_inc": [_P] * 2 + [_LL, _P],
     # x, out, work, steps, block_words, work_words, stream
@@ -135,8 +136,9 @@ _SIGNATURES = {
     "ws_probe_roll": [_P] * 2 + [_I] * 5 + [_P],
     # tab, init, out, R, C, P, S, broadcast, stream
     "ws_probe_gather_chain": [_P] * 3 + [_I] * 5 + [_P],
-    # sym, nib, out, G, cells_p, ORP, prefix, stream
-    "ws_k4_stripped": [_P] * 3 + [_I] * 4 + [_P],
+    # sym, nib, out, G, cells_p, ORP, prefix, lanes, vec, jr, threads,
+    # shared, 16-byte stores, stream
+    "ws_k4_stripped": [_P] * 3 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

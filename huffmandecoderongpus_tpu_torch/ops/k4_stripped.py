@@ -11,6 +11,14 @@ zeros to a whole number of 128-cell windows w:
              wpre += cum[127]; out[g, j] = (acc[j] + wpre) & 0xFF
 
 for j < 128; columns 128 and up of the (G, ORP) uint8 output are zero.
+
+On the card (plan ``p4_plan``) a block owns 32 lanes and a thread a range
+of ``jr`` window columns of ``vec`` lanes (four lanes' low bytes in one
+word: XOR does not carry, and the prefix sums are added a byte at a time),
+over every window; the prefix stage scans the ranges' popcounts in shared
+memory a window at a time for each range's carry.  The block writes its
+lanes' rows as one stretch, 16 bytes a store where ORP and the output's
+address allow.
 """
 
 from __future__ import annotations
@@ -23,8 +31,47 @@ from huffmandecoderongpus_tpu_torch.ops import _build
 launches = 0
 STAGES = ("transpose", "prefix")
 WIN = 128
-#: lanes a block of the kernel
-LANES = 64
+#: G must be a multiple of this; a block of the kernel owns LANES lanes
+G_MULTIPLE = 64
+LANES = 32
+#: bytes of a lane's row staged in shared memory (128 and 16 of padding)
+STRIDE = WIN + 16
+
+
+def p4_plan(G: int, sym_ptr: int = 0, nib_ptr: int = 0,
+            out_ptr: int = 0, ORP: int = WIN) -> dict:
+    """Launch plan of P4: ``lanes`` (32) a block, ``vec`` lanes a thread (4,
+    read as one 16-byte sym vector and one 4-byte nib word a cell, where G
+    and both addresses allow; else 1), ``jr`` window columns a thread (8,
+    or 16 with one lane), ``threads`` a block (a thread for each lane group
+    and column range), ``shared`` its bytes (the staged rows and two
+    buffers of the ranges' sums), ``store`` the output's store width (16
+    where ORP and ``out_ptr`` allow, else 4) and ``blocks``."""
+    vec = 4 if G % 4 == 0 and sym_ptr % 16 == 0 and nib_ptr % 4 == 0 else 1
+    jr = 8 if vec == 4 else 16
+    groups, ranges = LANES // vec, WIN // jr
+    return dict(lanes=LANES, vec=vec, jr=jr, threads=groups * ranges,
+                shared=LANES * STRIDE + 2 * ranges * groups * 4,
+                store=16 if ORP % 16 == 0 and out_ptr % 16 == 0 else 4,
+                blocks=G // LANES)
+
+
+def p4_plan_ok(p: dict, G: int, ORP: int, sym_ptr: int, nib_ptr: int,
+               out_ptr: int) -> bool:
+    """The launcher's check (``csrc/k4_stripped.cu`` ``ws_k4_stripped``)
+    mirrored: the only plan it takes is ``p4_plan``'s for these pointers,
+    or the same with narrower loads or stores."""
+    if G < 0 or G % G_MULTIPLE or ORP < WIN or ORP % 4:
+        return False
+    if p["vec"] == 4 and (G % 4 or sym_ptr % 16 or nib_ptr % 4):
+        return False
+    if p["store"] == 16 and (ORP % 16 or out_ptr % 16):
+        return False
+    if p["store"] not in (4, 16) or out_ptr % 4:
+        return False
+    q = p4_plan(G, sym_ptr=0 if p["vec"] == 4 else 1)
+    return all(p[k] == q[k] for k in ("lanes", "vec", "jr", "threads",
+                                      "shared"))
 
 
 def _check(sym, nib, ORP, stage):
@@ -40,19 +87,21 @@ def _check(sym, nib, ORP, stage):
 
 def k4_stripped(sym, nib, *, ORP, stage):
     """(G, ORP) uint8.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (G a multiple of 64)."""
+    launch the kernel with ``p4_plan``'s plan (G a multiple of 64)."""
     _check(sym, nib, ORP, stage)
     if sym.device.type == "cpu":
         return k4_stripped_ref(sym, nib, ORP=ORP, stage=stage)
     global launches
     _build.require_cuda("k4_stripped", sym, nib)
     cells_p, G = sym.shape
-    if G % LANES:
-        raise ValueError(f"k4_stripped: G must be a multiple of {LANES}")
+    if G % G_MULTIPLE:
+        raise ValueError(f"k4_stripped: G must be a multiple of {G_MULTIPLE}")
     out = torch.empty((G, ORP), dtype=torch.uint8, device=sym.device)
+    p = p4_plan(G, sym.data_ptr(), nib.data_ptr(), out.data_ptr(), ORP)
     rc = _build.get_lib().ws_k4_stripped(
         sym.data_ptr(), nib.data_ptr(), out.data_ptr(), G, cells_p, ORP,
-        int(stage == "prefix"), _build.stream_ptr(sym))
+        int(stage == "prefix"), p["lanes"], p["vec"], p["jr"], p["threads"],
+        p["shared"], int(p["store"] == 16), _build.stream_ptr(sym))
     launches += 1
     _build.check(rc, "k4_stripped")
     return out

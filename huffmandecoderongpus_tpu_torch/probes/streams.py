@@ -933,3 +933,79 @@ def dense_case(case, device):
     if case == "view+1":
         out = (_view(out[0], 1), *out[1:])
     return (*out, dict(B=B, H=H, N=N, out_rows=out_rows))
+
+
+#: ``compact``'s edge cases (``compact_case``; the kernel's tiles are 32
+#: columns by chunks of 1,024 rows): G not a multiple of the tile (1, 33,
+#: 4,095); steps under one chunk and not a multiple of it; out_rows 0,
+#: under some columns' counts and over steps; a column that never emits
+#: beside one that emits every row; a tile whose columns' ranks lie more
+#: than two chunks apart (a run of columns emitting every row beside
+#: columns emitting a tenth of them, as at (d)'s blank-run edges); cum one
+#: element past an aligned address (no 16-byte loads)
+COMPACT_CASES = ("g1", "g33", "g4095", "short", "odd-steps", "rows0",
+                 "rows-under", "rows-over", "never+always", "wide",
+                 "offset")
+
+
+def compact_case(case, device):
+    """(cum, sym, out_rows) of one of COMPACT_CASES on ``device``, drawn
+    from seed 19: ``cum`` (steps, G) int32 the running count of a 0/1
+    ``valid`` (rising by 0 or 1 a row, ``compact``'s contract), ``sym``
+    (steps, G) uint8."""
+    import torch
+
+    rng = np.random.default_rng(19)
+    steps, G = {"g1": (200, 1), "g33": (150, 33), "g4095": (70, 4095),
+                "short": (5, 256), "odd-steps": (2100, 96),
+                "wide": (3500, 96), "offset": (90, 1024)}.get(case,
+                                                              (100, 160))
+    p = 0.1 if case == "wide" else 0.5
+    valid = rng.random((steps, G)) < p
+    if case == "never+always":
+        valid[:, 3], valid[:, 4] = False, True
+    elif case == "wide":  # columns 34-50 emit every row, their tile's
+        valid[:, 34:51] = True  # other columns a tenth of them
+    cum = np.cumsum(valid, axis=0, dtype=np.int32)
+    sym = rng.integers(0, 256, (steps, G), np.uint8)
+    out_rows = {"rows0": 0, "rows-under": 50, "rows-over": steps + 37,
+                "short": steps, "wide": steps}.get(case, steps // 2 + 2)
+    cum_t = torch.from_numpy(cum).to(device)
+    if case == "offset":
+        cum_t = _view(cum_t, 1)
+    return cum_t, torch.from_numpy(sym).to(device), out_rows
+
+
+#: P4's (``k4_stripped``) edge cases (``p4_case``): cells_p under one
+#: window, exactly two, and (a)'s 412; G = 64 (the smallest G, two blocks of
+#: 32 lanes); ORP = 128 (no zero columns) and 132 (4-byte stores); nib all
+#: 0xFF (every popcount 4: the sums wrap a byte, the high bits masked);
+#: negative sym; both inputs one element past an aligned address (a lane a
+#: thread)
+P4_CASES = ("cells100", "cells256", "cells412", "g64", "orp128", "orp132",
+            "nib-ff", "neg-sym", "offset")
+
+
+def p4_case(case, device, G=None):
+    """(sym (cells_p, G) int32, nib (cells_p, G) uint8, ORP) of one of
+    P4_CASES on ``device``, drawn from seed 20; ``G`` replaces the case's
+    lanes (a multiple of 64; the scripts' kernel takes multiples of
+    128)."""
+    import torch
+
+    rng = np.random.default_rng(20)
+    cells_p = {"cells100": 100, "cells256": 256, "cells412": 412,
+               "orp128": 300, "orp132": 140}.get(case, 150)
+    G = G or (64 if case == "g64" else 256)
+    ORP = {"orp128": 128, "orp132": 132, "cells412": 1024}.get(case, 256)
+    sym = rng.integers(0, 2**31, (cells_p, G), dtype=np.int64).astype(
+        np.int32)
+    nib = rng.integers(0, 256, (cells_p, G)).astype(np.uint8)
+    if case == "nib-ff":
+        nib[:] = 0xFF
+    sym[rng.random(sym.shape) < (1.0 if case == "neg-sym" else 0.3)] *= -1
+    sym_t, nib_t = (torch.from_numpy(sym).to(device),
+                    torch.from_numpy(nib).to(device))
+    if case == "offset":
+        sym_t, nib_t = _view(sym_t, 1), _view(nib_t, 1)
+    return sym_t, nib_t, ORP

@@ -30,9 +30,14 @@ versions and through the dense pipeline, the dense decode also at its
 edges (``DENSE_CASES``: G 1-100, out_rows under the counts, lanes ending
 early, a lane a window of ranks ahead, whose own write-outs it counts as
 the numpy emulation of ``test_torch_dense_plan.py`` does) and its launcher
-refuses other plans.  The probe
+refuses other plans; the compaction also at its edges
+(``COMPACT_CASES``: G 1-4,095, steps under and off a chunk, out_rows 0,
+under the counts and over steps, ranks more than two chunks apart, an
+offset view) with its count of wide-union blocks held against the numpy
+emulation of ``test_torch_compact_plan.py``, and its launcher and P4's
+refuse other plans.  The probe
 kernels (``probe_inc``, ``probe_arith``, ``probe_gather``,
-``k4_stripped``) are checked against
+``k4_stripped``, P4 also at ``P4_CASES``) are checked against
 their plain versions at the scripts' shapes and at odd ones (P3's roll mode
 and 16-bit indices also unaligned, past the staged row width and past
 65,535 rows, each one launch and one kernel), the probe programs and the
@@ -1399,6 +1404,89 @@ def test_compact_matches_plain(cuda, steps, G, out_rows):
     assert torch.equal(got, compact.compact_ref(cum, sym, out_rows=out_rows))
 
 
+@pytest.mark.parametrize("case", ps.COMPACT_CASES)
+def test_compact_cases_match_plain(cuda, case):
+    # the row-chunk tiles at their edges (probes.streams.COMPACT_CASES):
+    # one launch, bit-exact, and the kernel's count of wide-union blocks
+    # (a union wider than two chunks) equal to the numpy emulation's
+    from test_torch_compact_plan import emulate_compact
+
+    cum, sym, out_rows = ps.compact_case(case, cuda)
+    stats = torch.zeros(len(compact.STATS), dtype=torch.int64, device=cuda)
+    got, ran = _launched(lambda: compact.compact(cum, sym, out_rows=out_rows,
+                                                 stats=stats))
+    assert ran == {"compact": 1}
+    assert torch.equal(got, compact.compact_ref(cum, sym, out_rows=out_rows))
+    p = compact.compact_plan(*cum.shape, out_rows, cum.data_ptr(),
+                             sym.data_ptr(), got.data_ptr())
+    assert p["vec"] == (1 if case in ("g1", "g33", "g4095", "offset")
+                        else 4)
+    wide = emulate_compact(cum.cpu().numpy(), sym.cpu().numpy(), out_rows,
+                           p)[2]
+    st = dict(zip(compact.STATS, stats.tolist()))
+    assert [st["wide_blocks"], st["wide_rows"]] == wide
+    assert (st["wide_blocks"] > 0) == (case == "wide")
+    assert st["cycles"] > 0 or out_rows == 0
+
+
+@pytest.mark.parametrize("case", ps.P4_CASES)
+@pytest.mark.parametrize("stage", k4_stripped.STAGES)
+def test_k4_stripped_cases_match_plain(cuda, case, stage):
+    # P4 at its edges (probes.streams.P4_CASES), one launch each
+    sym, nib, ORP = ps.p4_case(case, cuda)
+    got, ran = _launched(lambda: k4_stripped.k4_stripped(sym, nib, ORP=ORP,
+                                                         stage=stage))
+    assert ran == {"k4_stripped": 1}
+    assert torch.equal(got, k4_stripped.k4_stripped_ref(sym, nib, ORP=ORP,
+                                                        stage=stage))
+
+
+def test_compact_and_p4_launchers_refuse_other_plans(cuda):
+    # a plan outside the launchers' rules is refused, nothing launched
+    lib = _build.get_lib()
+    stream = _build.stream_ptr(torch.empty(1, device=cuda))
+    cum, sym, out_rows = ps.compact_case("odd-steps", cuda)
+    steps, G = cum.shape
+    out = torch.empty((out_rows, G), dtype=torch.uint8, device=cuda)
+    c = compact.compact_plan(steps, G, out_rows, cum.data_ptr(),
+                             sym.data_ptr(), out.data_ptr())
+
+    def cp(shift=0, **change):
+        q = {**c, **change}
+        return lib.ws_compact(
+            cum.data_ptr() + shift, sym.data_ptr(), out.data_ptr(), None,
+            steps, G, out_rows, q["W"], q["R"], q["vec"], q["threads"],
+            q["shared"], q["tiles"], q["chunks"], q["zrows"], stream)
+
+    assert c["vec"] == 4 and cp() == 0 and cp(vec=1) == 0
+    for bad in (dict(W=64), dict(R=32), dict(threads=128), dict(vec=2),
+                dict(shared=c["shared"] + 16), dict(tiles=c["tiles"] + 1),
+                dict(chunks=c["chunks"] + 1), dict(zrows=c["zrows"] + 1),
+                dict(shift=4)):
+        assert cp(**bad) != 0, bad
+    ksym, knib, ORP = ps.p4_case("cells100", cuda)
+    kout = torch.empty((ksym.shape[1], ORP), dtype=torch.uint8, device=cuda)
+    k = k4_stripped.p4_plan(ksym.shape[1], ksym.data_ptr(), knib.data_ptr(),
+                            kout.data_ptr(), ORP)
+
+    def p4(shift=0, G=None, ORP_=ORP, **change):
+        q = {**k, **change}
+        return lib.ws_k4_stripped(
+            ksym.data_ptr() + shift, knib.data_ptr(), kout.data_ptr(),
+            G or ksym.shape[1], ksym.shape[0], ORP_, 1, q["lanes"], q["vec"],
+            q["jr"], q["threads"], q["shared"], int(q["store"] == 16),
+            stream)
+
+    assert k["vec"] == 4 and k["store"] == 16 and p4() == 0
+    assert p4(vec=1, jr=16, threads=256, shared=32 * 144 + 2 * 8 * 32 * 4) == 0
+    assert p4(store=4) == 0
+    for bad in (dict(lanes=64), dict(jr=16), dict(threads=256), dict(vec=2),
+                dict(shared=k["shared"] + 16), dict(shift=4), dict(G=96),
+                dict(ORP_=132), dict(ORP_=124)):
+        assert p4(**bad) != 0, bad
+    torch.cuda.synchronize()
+
+
 def _probe_cases():
     """The probe kernels' cases, each a ``make_(dev)`` that returns (the
     kernel's output, the plain version's) on seeded tensors on ``dev``."""
@@ -1455,7 +1543,8 @@ def _probe_cases():
                                                         broadcast=bc))
         add(f"chain-P{P}-S{S}-bc{int(bc)}", chain)
     for cells_p, G, ORP in ((128, 256, 256), (130, 256, 256), (1, 64, 128),
-                            (412, 8192, 384)):
+                            (412, 8192, 384), (412, 8192, 1024),
+                            (0, 64, 128)):
         for stage in k4_stripped.STAGES:
             def k4(dev, cells_p=cells_p, G=G, ORP=ORP, stage=stage):
                 sym = i32((cells_p, G), dev, cells_p)

@@ -24,6 +24,7 @@ from huffmandecoderongpus_tpu_torch.ops import lane_decode_dense as ldd
 from huffmandecoderongpus_tpu_torch.ops import lanedfa, lanedfa_decode
 from huffmandecoderongpus_tpu_torch.ops.candidate_scan import candidate_scan
 from huffmandecoderongpus_tpu_torch.ops.lane_scan import lane_scan
+from huffmandecoderongpus_tpu_torch.probes import streams as ps
 from torch_streams import MD1_SHAPES, SHAPES, make
 
 
@@ -60,18 +61,61 @@ def test_compact_matches_pallas():
     np.testing.assert_array_equal(got, _compact_numpy(cum, sym, out_rows))
 
 
-@pytest.mark.parametrize("steps,G,out_rows", [(50, 100, 30), (1, 3, 2),
-                                              (200, 1, 200), (64, 130, 0)])
-def test_compact_any_width(steps, G, out_rows):
-    rng = np.random.default_rng(steps + G)
-    cum, sym = _random_emissions(rng, steps, G, p=0.6)
-    got = cp.compact(torch.from_numpy(cum), torch.from_numpy(sym),
-                     out_rows=out_rows)
-    assert got.shape == (out_rows, G)
-    if (steps, G) == (50, 100):  # columns both over and under out_rows
+@pytest.mark.parametrize("case", [
+    *(pytest.param(shape, id="-".join(map(str, shape)))
+      for shape in ((50, 100, 30), (1, 3, 2), (200, 1, 200), (64, 130, 0))),
+    *ps.COMPACT_CASES])
+def test_compact_any_width(case):
+    # random shapes, and the kernel's edge cases (probes.streams
+    # COMPACT_CASES: widths off its 128-column tiles, steps off its 64-row
+    # chunks, out_rows 0, under and over the counts, silent and full
+    # columns, ranks more than two chunks apart, an offset view)
+    if isinstance(case, str):
+        cum_t, sym_t, out_rows = ps.compact_case(case, "cpu")
+        cum, sym = cum_t.numpy(), sym_t.numpy()
+    else:
+        steps, G, out_rows = case
+        rng = np.random.default_rng(steps + G)
+        cum, sym = _random_emissions(rng, steps, G, p=0.6)
+        cum_t, sym_t = torch.from_numpy(cum), torch.from_numpy(sym)
+    got = cp.compact(cum_t, sym_t, out_rows=out_rows)
+    assert got.shape == (out_rows, cum.shape[1])
+    if case == (50, 100, 30) or case == "rows-under":
+        # columns both over and under out_rows
         assert (cum[-1] > out_rows).any() and (cum[-1] < out_rows).any()
     np.testing.assert_array_equal(got.numpy(),
                                   _compact_numpy(cum, sym, out_rows))
+
+
+def _pallas_compact(cum, sym, out_rows):
+    """The JAX ``compact_pallas`` in interpret mode, the columns padded with
+    silent ones to its lane tile."""
+    steps, G = cum.shape
+    Gp = -(-G // jpl.LANE_TILE) * jpl.LANE_TILE
+    cum_p = np.zeros((steps, Gp), np.int32)
+    sym_p = np.zeros((steps, Gp), np.uint8)
+    cum_p[:, :G], sym_p[:, :G] = cum, sym
+    return np.asarray(jpl.compact_pallas(
+        jnp.asarray(cum_p), jnp.asarray(sym_p), steps=steps, G=Gp,
+        out_rows=out_rows, interpret=True))[:, :G]
+
+
+@pytest.mark.parametrize("case", [
+    "short",
+    *(pytest.param(c, marks=pytest.mark.interpret)
+      for c in ("g1", "g33", "odd-steps", "rows-under", "never+always",
+                "offset"))])
+def test_compact_cases_match_pallas(case):
+    # the port's compaction against the JAX kernel below each column's
+    # count (the JAX function leaves the rows past it unspecified, and
+    # takes no more rows than steps)
+    cum_t, sym_t, out_rows = ps.compact_case(case, "cpu")
+    cum, sym = cum_t.numpy(), sym_t.numpy()
+    got = cp.compact(cum_t, sym_t, out_rows=out_rows).numpy()
+    want = _pallas_compact(cum, sym, out_rows)
+    below = np.arange(out_rows)[:, None] < np.minimum(cum[-1], out_rows)
+    np.testing.assert_array_equal(got[below], want[below])
+    assert not got[~below].any()
 
 
 def test_kernels_refuse_non_cuda_tensors():

@@ -41,6 +41,7 @@ from huffmandecoderongpus_tpu_torch.ops import probe_inc as pi
 from huffmandecoderongpus_tpu_torch.probes import probe_gather as port_gather
 from huffmandecoderongpus_tpu_torch.probes import probe_vpu as port_vpu
 from huffmandecoderongpus_tpu_torch.probes import probe_vpu2 as port_vpu2
+from huffmandecoderongpus_tpu_torch.probes import streams as ps
 
 SCRIPTS = pathlib.Path(__file__).resolve().parent.parent / "scripts"
 
@@ -227,35 +228,195 @@ def test_gather_16bit_index_clamps(itype, axis):
 # ---- hw_k4probe.py: _k4_stripped (P4) --------------------------------------
 
 
-@pytest.mark.parametrize("cells_p", [128, 130])
-@pytest.mark.parametrize("stage", k4s.STAGES)
-def test_k4_stripped_matches_script(cells_p, stage):
-    G, ORP = 256, 256
+def _script_k4_stripped(sym, nib, ORP, stage):
+    """The script's kernel (``hw_k4probe.py:42-78``) in interpret mode at
+    its own specs (``hw_k4probe.py:112-127``) on (cells_p, G) inputs, G a
+    multiple of 128 (lane g = r * 128 + lane)."""
+    cells_p, G = sym.shape
     R = G // 128
     cells_pp = -(-cells_p // 128) * 128
-    rng = np.random.default_rng(cells_p)
-    sym = rng.integers(0, 2**31, (cells_p, R, 128), dtype=np.int64).astype(
-        np.int32)
-    sym[rng.random(sym.shape) < 0.3] *= -1
-    nib = rng.integers(0, 256, (cells_p, R, 128)).astype(np.uint8)
-    # the script's specs (hw_k4probe.py:112-127)
     RT = 8 if R % 8 == 0 else R
     spec = pl.BlockSpec((cells_p, RT, 128), lambda t: (0, t, 0))
     kern = functools.partial(script("hw_k4probe")._k4_stripped,
                              cells_p=cells_p, cells_pp=cells_pp, ORP=ORP,
                              RT=RT, stage=stage)
-    want = np.asarray(pl.pallas_call(
+    return np.asarray(pl.pallas_call(
         kern, grid=(R // RT,), in_specs=[spec, spec],
         out_specs=pl.BlockSpec((RT * 128, ORP), lambda t: (t, 0)),
         out_shape=jax.ShapeDtypeStruct((G, ORP), jnp.uint8),
-        interpret=True)(jnp.asarray(sym), jnp.asarray(nib)))
-    # the port's K4 layout: (cells_p, G), lane g = r * 128 + lane
-    got = k4s.k4_stripped(torch.from_numpy(sym.reshape(cells_p, G)),
-                          torch.from_numpy(nib.reshape(cells_p, G)), ORP=ORP,
-                          stage=stage)
+        interpret=True)(jnp.asarray(sym.reshape(cells_p, R, 128)),
+                        jnp.asarray(nib.reshape(cells_p, R, 128))))
+
+
+@pytest.mark.parametrize("cells_p", [128, 130])
+@pytest.mark.parametrize("stage", k4s.STAGES)
+def test_k4_stripped_matches_script(cells_p, stage):
+    G, ORP = 256, 256
+    rng = np.random.default_rng(cells_p)
+    sym = rng.integers(0, 2**31, (cells_p, G), dtype=np.int64).astype(
+        np.int32)
+    sym[rng.random(sym.shape) < 0.3] *= -1
+    nib = rng.integers(0, 256, (cells_p, G)).astype(np.uint8)
+    want = _script_k4_stripped(sym, nib, ORP, stage)
+    got = k4s.k4_stripped(torch.from_numpy(sym), torch.from_numpy(nib),
+                          ORP=ORP, stage=stage)
     assert got.dtype == torch.uint8 and got.shape == (G, ORP)
     np.testing.assert_array_equal(got.numpy(), want)
     assert not got[:, 128:].any()
+
+
+@pytest.mark.parametrize("case", ps.P4_CASES)
+@pytest.mark.parametrize("stage", k4s.STAGES)
+def test_k4_stripped_cases_match_script(case, stage):
+    # P4's edge cases at one script block of 128 lanes (the script takes
+    # multiples of 128; G = 64 is a case of the kernel's plan alone)
+    sym, nib, ORP = ps.p4_case(case, "cpu", G=128)
+    got = k4s.k4_stripped(sym.contiguous(), nib.contiguous(), ORP=ORP,
+                          stage=stage)
+    want = _script_k4_stripped(sym.numpy(), nib.numpy(), ORP, stage)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---- the kernel's split, emulated ------------------------------------------
+
+
+def byte_perm(x, y, s):
+    """CUDA's ``__byte_perm(x, y, s)`` on uint32 arrays: byte n of the
+    result is byte ((s >> 4n) & 7) of y:x."""
+    both = [(np.asarray(v, np.uint32) >> np.uint32(8 * b)) & np.uint32(0xFF)
+            for v in (x, y) for b in range(4)]
+    return sum(both[(s >> (4 * n)) & 7] << np.uint32(8 * n)
+               for n in range(4)).astype(np.uint32)
+
+
+def add8(a, b):
+    """``csrc/k4_stripped.cu`` add8: a + b a byte at a time, mod 256."""
+    m, h = np.uint32(0x7F7F7F7F), np.uint32(0x80808080)
+    return (((a & m) + (b & m)) ^ ((a ^ b) & h)).astype(np.uint32)
+
+
+def pop4(v):
+    """Each byte's low-nibble popcount, a byte each."""
+    x = v & np.uint32(0x0F0F0F0F)
+    x = (x & np.uint32(0x05050505)) + ((x >> np.uint32(1))
+                                       & np.uint32(0x05050505))
+    return (x & np.uint32(0x03030303)) + ((x >> np.uint32(2))
+                                          & np.uint32(0x03030303))
+
+
+def emulate_p4(sym, nib, ORP, stage, p):
+    """P4's blocks in numpy as the kernel runs them: ``vec`` lanes' low
+    bytes packed in a word (its sym packing by byte permutes), a thread's
+    ``jr`` columns over every window (padded cells zero), in the prefix
+    stage each window's range totals scanned a byte a lane for the carries
+    and summed for wpre, the words transposed to lanes' rows by the
+    kernel's byte permutes, the rows written out with zeros past 127."""
+    cells_p, G = sym.shape
+    vec, jr, LB = p["vec"], p["jr"], p["lanes"]
+    LG, NJ, nb = LB // vec, 128 // jr, G // LB
+    windows = -(-cells_p // 128)
+    u = sym.view(np.uint32).reshape(cells_p, nb, LG, vec)
+    v = nib.astype(np.uint32).reshape(cells_p, nb, LG, vec)
+    if vec == 4:
+        lo = byte_perm(u[..., 0], u[..., 1], 0x0040)
+        hi = byte_perm(u[..., 2], u[..., 3], 0x0040)
+        sp = byte_perm(lo, hi, 0x5410)
+        vp = sum(v[..., b] << np.uint32(8 * b) for b in range(4))
+    else:
+        sp, vp = u[..., 0] & np.uint32(0xFF), v[..., 0]
+    pad = windows * 128 - cells_p
+    sp = np.concatenate([sp, np.zeros((pad, nb, LG), np.uint32)])
+    vp = np.concatenate([vp, np.zeros((pad, nb, LG), np.uint32)])
+    sp = sp.reshape(windows, NJ, jr, nb, LG)
+    vp = vp.reshape(windows, NJ, jr, nb, LG).astype(np.uint32)
+    acc = np.zeros((NJ, jr, nb, LG), np.uint32)
+    wpre = np.zeros((nb, LG), np.uint32)
+    for w in range(windows):
+        if stage == "transpose":
+            acc ^= sp[w] ^ vp[w]
+            continue
+        loc = np.cumsum(pop4(vp[w]), axis=1, dtype=np.uint32)
+        run = loc[:, -1]                      # (NJ, nb, LG), each <= 4 jr
+        assert (run & np.uint32(0xFF)).max() <= 4 * jr
+        carry = np.zeros_like(run)
+        for i in range(1, NJ):
+            carry[i] = add8(carry[i - 1], run[i - 1])
+        total = add8(carry[-1], run[-1])
+        wpre = add8(wpre, total)
+        acc ^= add8(carry[:, None], loc) ^ sp[w]
+    acc = add8(acc, wpre)
+    rows = np.zeros((nb, LB, 128), np.uint8)
+    for q in range(jr // 4):
+        a = [acc[:, 4 * q + k] for k in range(4)]     # (NJ, nb, LG)
+        if vec == 4:
+            t0, t1 = byte_perm(a[0], a[1], 0x5140), byte_perm(a[2], a[3],
+                                                              0x5140)
+            t2, t3 = byte_perm(a[0], a[1], 0x7362), byte_perm(a[2], a[3],
+                                                              0x7362)
+            words = [byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632),
+                     byte_perm(t2, t3, 0x5410), byte_perm(t2, t3, 0x7632)]
+        else:
+            words = [byte_perm(byte_perm(a[0], a[1], 0x0040),
+                               byte_perm(a[2], a[3], 0x0040), 0x5410)]
+        for b, word in enumerate(words):              # lane lg * vec + b
+            by = np.stack([(word >> np.uint32(8 * k)) & np.uint32(0xFF)
+                           for k in range(4)], -1).astype(np.uint8)
+            for n in range(NJ):                      # columns n jr + 4q ..
+                rows[:, b::vec, n * jr + 4 * q:n * jr + 4 * q + 4] = by[n]
+    out = np.zeros((G, ORP), np.uint8)
+    out[:, :128] = rows.reshape(G, 128)
+    return out
+
+
+@pytest.mark.parametrize("case", ps.P4_CASES)
+@pytest.mark.parametrize("stage", k4s.STAGES)
+def test_k4_stripped_emulation_matches_plain(case, stage):
+    sym, nib, ORP = ps.p4_case(case, "cpu")
+    G = sym.shape[1]
+    p = k4s.p4_plan(G, sym.data_ptr(), nib.data_ptr(), 0, ORP)
+    assert p["vec"] == (1 if case == "offset" else 4)
+    got = emulate_p4(sym.numpy(), nib.numpy(), ORP, stage, p)
+    want = k4s.k4_stripped_ref(sym, nib, ORP=ORP, stage=stage).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the same split with a lane a thread (what an offset view takes)
+    q = k4s.p4_plan(G, 1, 0, 0, ORP)
+    np.testing.assert_array_equal(
+        emulate_p4(sym.numpy(), nib.numpy(), ORP, stage, q), want)
+
+
+@pytest.mark.parametrize("G", [64, 128, 8192, 16_384])
+def test_p4_plan_rules(G):
+    # (a): 8,192 lanes in 256 blocks of 128 threads; every lane and column
+    # once; shared memory under 48 KB
+    for ptrs in ((0, 0), (4, 0), (0, 1)):
+        p = k4s.p4_plan(G, *ptrs, 0, 1024)
+        assert p["lanes"] * p["blocks"] == G
+        assert (p["lanes"] // p["vec"]) * (128 // p["jr"]) == p["threads"]
+        assert p["jr"] % 4 == 0 and 128 % p["jr"] == 0
+        assert p["threads"] <= 1024 and p["threads"] % 32 == 0
+        assert p["shared"] < 48 * 1024
+        assert p["vec"] == (4 if ptrs == (0, 0) else 1)
+        assert k4s.p4_plan_ok(p, G, 1024, *ptrs, 0)
+    assert k4s.p4_plan(8192)["blocks"] == 256
+    assert k4s.p4_plan(G, ORP=132)["store"] == 4
+    assert k4s.p4_plan(G, out_ptr=8, ORP=1024)["store"] == 4
+
+
+@pytest.mark.parametrize("change", [
+    dict(lanes=64), dict(jr=16), dict(threads=256), dict(shared=5632 + 16),
+    dict(vec=2), dict(store=8)])
+def test_p4_plan_ok_refuses_other_plans(change):
+    p = k4s.p4_plan(8192)
+    assert not k4s.p4_plan_ok({**p, **change}, 8192, 1024, 0, 0, 0)
+
+
+def test_p4_plan_ok_refuses_misaligned():
+    p = k4s.p4_plan(8192)
+    assert not k4s.p4_plan_ok(p, 8192, 1024, 4, 0, 0)      # 16-byte sym
+    assert not k4s.p4_plan_ok(p, 8192, 1024, 0, 2, 0)      # 4-byte nib
+    assert not k4s.p4_plan_ok(p, 8192, 132, 0, 0, 0)       # 16-byte rows
+    assert not k4s.p4_plan_ok(p, 8192, 1024, 0, 0, 8)      # 16-byte out
+    assert not k4s.p4_plan_ok(p, 8160, 1024, 0, 0, 0)      # G % 64
 
 
 # ---- bodies defined inside the scripts' main() -----------------------------
