@@ -145,7 +145,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               compaction also at its edges (probes.streams.COMPACT_CASES:
               G 1, 33 and 4,095, steps under and off a chunk, out_rows 0,
               under the counts and over steps, a silent and a full
-              column, ranks more than two chunks apart, an offset view)
+              column, ranks more than two chunks apart, an offset view);
+              the speculative pipeline on (a), (b) and (i): S1 (step0,
+              sym), S2 at every level (int16 and int32 levels, the int16
+              -> int32 one among them) and S3 (result, found_size), each
+              against its plain version on the same CUDA inputs, with
+              CUDA-event times and bytes bounds (S2 summed over a decode's
+              levels), and at its edges (the tiny inputs: sizes 1, 2, 3, 7;
+              a top level the first int32 one and the last int16 one; a
+              stream cut 3 bits short, found_size -1 from both); the
+              one-thread S4 on (e) and (f) against its plain walk (out and
+              n) beside its chain floor
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
@@ -206,7 +216,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               once; then for (a) and (d) the device time of sync discovery
               (0-chain to splice) beside candidate discovery and
               candidate_scan alone (CUDA events), sync split by kernel,
-              and the walls of lane_dfa_sync and lane_dfa
+              and the walls of lane_dfa_sync and lane_dfa.
+              The speculative route, each decode counted on its own:
+              get_decoder("spec_xla") on (a)-(i) launches S1 once, S2
+              levels - 1 times and S3 once and nothing else, and
+              get_decoder("onethread_device") on (a), (e), (f), (g), (i)
+              launches S4 once, each equal to its input; a [spec] line for
+              (a)-(c) (each stage's card time from the --card-ms process
+              beside its bytes bound, S2 summed over its levels and its
+              median level, the pipeline's program by CUDA events and the
+              spec_xla wall beside lane_wide's program and wall) and an
+              [onethread] line for (a), (f) and (g) (card time against the
+              chain floor, a dependent lookup a symbol)
   5. probes   the four probe kernels (probe_inc, probe_arith, probe_gather,
               k4_stripped) against their plain versions at every shape of
               the scripts/ sites they replace (the chained gathers also on
@@ -224,7 +245,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               gather, vpu, vpu2), the probe kernels' launch counts set to
               0 just before and read just after, each kernel launched and
               no line WRONG; then the prof command's breakdown of (a)
-              widescan and (d) lanedfa, every stage present and >= 0; then
+              widescan, (d) lanedfa and (a) speculative, every stage
+              present and >= 0; then
               the host's split of a probe_inc launch (probes.hw_dispatch:
               checks, output, library, stream, pointers, ctypes call,
               launch, check, each timed over 1,000 calls), on the wrappers'
@@ -233,7 +255,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               probe_roll beside x + 1, torch.gather and torch.roll.
               P1 and P3 are timed in turns with their PyTorch call (x + 1,
               torch.gather, torch.roll), both also on the card (profiler)
-  6. result   one JSON line for the twenty-three kernels (times, launches,
+  6. result   one JSON line for the twenty-seven kernels (times, launches,
               error, and the bound: the bytes each must move at 3.35 TB/s,
               or the operations it does), the card,
               then the last line {"ok": true, "device": {...}}
@@ -328,6 +350,7 @@ _CSRC = "huffmandecoderongpus_tpu_torch/csrc/"
 _PWS = "huffmandecoderongpus_tpu/ops/pallas_widescan.py:"
 _PLD = "huffmandecoderongpus_tpu/ops/pallas_lanedfa.py:"
 _PEN = "huffmandecoderongpus_tpu/ops/pallas_encode.py:"
+_SPEC = "huffmandecoderongpus_tpu/ops/speculative.py:"
 #: phase-3 results of the indexed and batch checks are keyed by these
 IDX = {k: f"{k}@{K}" for k, K in (*INDEXED.items(), INDEXED_MD1)}
 #: and those of the sync discovery's checks (lane_dfa_sync's geometry)
@@ -359,6 +382,12 @@ KERNELS = {
         "huffmandecoderongpus_tpu/ops/lanedfa_sync.py:50", SYNC["d"]),
     "lane_decode_dense": (_CSRC + "lane_decode_dense.cu", _PLD + "230", "d"),
     "compact": (_CSRC + "compact.cu", _PLD + "520", "d"),
+    # the speculative pipeline's XLA stages, and the one-thread while_loop
+    "spec_all_bits": (_CSRC + "spec_all_bits.cu", _SPEC + "105", "a"),
+    "spec_double": (_CSRC + "spec_double.cu", _SPEC + "122", "a"),
+    "spec_query": (_CSRC + "spec_query.cu", _SPEC + "142", "a"),
+    "onethread": (_CSRC + "onethread.cu",
+                  "huffmandecoderongpus_tpu/models/onethread.py:23", "f"),
 }
 #: the probe kernels: name -> (CUDA source, the script site it replaces, the
 #: start of the shape whose numbers the result line reports)
@@ -402,6 +431,18 @@ DENSE_PATH = ("candidate_scan", "lane_decode_dense")
 COMPACT_PATH = ("candidate_scan", "lane_scan", "compact")
 #: the kernels get_decoder("lane_oneshot") must launch, once each
 ONESHOT_PATHS = {"c": MD1_PATH, **{k: ("oneshot",) for k in ONESHOT}}
+#: the speculative pipeline's kernels (S2 launches levels - 1 times a
+#: decode); the streams spec_xla decodes in phase 4, those whose stages
+#: phase 3 checks and those with a [spec] line; and the streams
+#: onethread_device decodes, those whose S4 phase 3 checks against its
+#: plain walk and those with an [onethread] line
+SPEC_PATH = ("spec_all_bits", "spec_double", "spec_query")
+SPEC_DECODED = "abcdefghi"
+SPEC_CHECKED = "abi"
+SPEC_TIMED = "abc"
+ONETHREAD_DECODED = "aefgi"
+ONETHREAD_CHECKED = "ef"
+ONETHREAD_TIMED = "afg"
 
 #: device function names of each kernel
 DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
@@ -423,7 +464,11 @@ DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "candidate_scan": ("candidate_scan_kernel",),
                   "lane_scan": ("lane_scan_kernel",),
                   "lane_decode_dense": ("lane_decode_dense_kernel",),
-                  "compact": ("lanedfa_compact_kernel",)}
+                  "compact": ("lanedfa_compact_kernel",),
+                  "spec_all_bits": ("spec_all_bits_kernel",),
+                  "spec_double": ("spec_double_kernel",),
+                  "spec_query": ("spec_query_kernel",),
+                  "onethread": ("onethread_kernel",)}
 
 
 def full_alphabet(rng, n):
@@ -1486,9 +1531,10 @@ def compact_stats(torch, compact, cum, sym, out_rows):
 
 def card_ms_fresh():
     """{"encode": encode_card_ms, "scan": scan_card_ms, "k3": k3_card_ms,
-    "probe": probe_card_ms} from a fresh process of this script (its last
-    line): this long process's profiler records nothing in most sessions
-    after its first phases (PERF.md section 7), a new one's in each.
+    "probe": probe_card_ms, "spec": spec_card_ms} from a fresh process of
+    this script (its last line): this long process's profiler records
+    nothing in most profiles after its first phases (PERF.md section 7), a
+    new one's in each.
     Empty dicts if the child fails."""
     r = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
                         CARD_ARG], capture_output=True, text=True,
@@ -1497,7 +1543,7 @@ def card_ms_fresh():
     if r.returncode or not lines:
         print(f"[card] the card-time process failed (rc {r.returncode}): "
               f"{r.stderr.strip()[-500:]}", flush=True)
-        return {"encode": {}, "scan": {}, "k3": {}, "probe": {}}
+        return {"encode": {}, "scan": {}, "k3": {}, "probe": {}, "spec": {}}
     return json.loads(lines[-1])
 
 
@@ -1926,6 +1972,360 @@ def check_dense_cases(torch, dev):
     return out
 
 
+def spec_query_moved(size, levels, height) -> int:
+    """Bytes S3 must move: the result and the symbol at each output's
+    position (a byte each), and each kept entry the walks read, once a
+    distinct (level, position): at level k the outputs (2m + 1) 2^k start
+    new positions, odd levels reading two entries of the level below."""
+    from huffmandecoderongpus_tpu_torch.ops.spec_double import level_dtype
+
+    moved = 2 * size
+    for k in range(levels):
+        starts = ((size - (1 << k) - 1) >> (k + 1)) + 1 if size > 1 << k else 0
+        elem = level_dtype(k - k % 2, height).itemsize
+        moved += starts * elem * (1 + k % 2)
+    return moved
+
+
+def spec_double_moved(bits, levels, height) -> int:
+    """Bytes S2 must move over one decode's levels: each level read once
+    and written once, each in its own type."""
+    from huffmandecoderongpus_tpu_torch.ops.spec_double import level_dtype
+
+    return sum(bits * (level_dtype(k - 1, height).itemsize
+                       + level_dtype(k, height).itemsize)
+               for k in range(1, max(levels, 1)))
+
+
+def spec_stages(torch, hf, dev, compare=None):
+    """S1, every S2 level and S3 on one stream's staged CUDA inputs, each
+    against its plain version on the same inputs (tolerance 0; raises on
+    any difference).  With ``compare`` (``comparer``'s) S1 and S3 are
+    timed and recorded by it, and each S2 level is timed (CUDA events,
+    median of 20; plain, median of 2).  Returns (plan, result, found, S2's
+    levels: [(k, dtype, err, kernel ms, plain ms, bound ms)])."""
+    from huffmandecoderongpus_tpu_torch.ops import spec_all_bits as s1
+    from huffmandecoderongpus_tpu_torch.ops import spec_double as s2
+    from huffmandecoderongpus_tpu_torch.ops import spec_query as s3
+    from huffmandecoderongpus_tpu_torch.ops import speculative as spec
+
+    def check(what, kernel, plain, inputs, moved=None):
+        if compare is not None:
+            return compare(what, kernel, plain, inputs, moved)
+        got, want = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if max_abs_err(torch, got, want):
+            raise AssertionError(f"{what} differs from its plain version")
+        return got
+
+    plan, (w, s, ln) = spec.decode_device_arrays(hf, device=dev)
+    kw = dict(bits=plan.bits, height=plan.height)
+    step0, sym = check("spec_all_bits",
+                       lambda: s1.spec_all_bits(w, s, ln, **kw),
+                       lambda: s1.spec_all_bits_ref(w, s, ln, **kw),
+                       (w, s, ln))
+    kept, lv, levels = [step0], step0, []
+    for k in range(1, max(plan.levels, 1)):
+        dt = s2.level_dtype(k, plan.height)
+        kernel = (lambda lv=lv, dt=dt: s2.spec_double(lv, bits=plan.bits,
+                                                      dtype=dt))
+        plain = (lambda lv=lv, dt=dt: s2.spec_double_ref(lv, bits=plan.bits,
+                                                         dtype=dt))
+        got = kernel()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, (got,), (plain(),))
+        if err:
+            raise AssertionError(f"spec_double level {k} differs from its "
+                                 "plain version")
+        times = ((statistics.median(event_ms(kernel, 20)),
+                  statistics.median(event_ms(plain, 2)))
+                 if compare is not None else (None, None))
+        levels.append((k, str(dt).split(".")[1], err, *times,
+                       nbytes(lv, got) / HBM_BYTES_PER_S * 1e3))
+        lv = got
+        if k % 2 == 0:
+            kept.append(got)
+    q = dict(bits=plan.bits, size=plan.size, levels=plan.levels)
+    result, found = check(
+        "spec_query", lambda: s3.spec_query(kept, sym, **q),
+        lambda: s3.spec_query_ref(kept, sym, **q), (),
+        spec_query_moved(plan.size, plan.levels, plan.height))
+    return plan, result, int(found), levels
+
+
+def check_spec(torch, name, raw, hf, dev, card=None):
+    """Phase 3 on one stream of the speculative pipeline: S1, S2 at every
+    level (its int16 and int32 levels alike) and S3 against their plain
+    versions on the same CUDA inputs, bit-exact, with their times and
+    bytes bounds; the result must be the input and found_size its size.
+    Returns rows for the result line, S2's the sum over its levels (one
+    decode's launches), each with its card time from ``card``
+    (``spec_card_ms``'s row for the stream) where it has one."""
+    rows = {}
+    plan, result, found, levels = spec_stages(torch, hf, dev,
+                                              comparer(torch, name, rows))
+    if levels:
+        ms = [lv[3] for lv in levels]
+        rows["spec_double"] = dict(
+            err=max(lv[2] for lv in levels), ms=sum(ms),
+            plain_ms=sum(lv[4] for lv in levels),
+            bound_ms=sum(lv[5] for lv in levels), bound_by="bytes")
+        kinds = [lv[1] for lv in levels]
+        print(f"[kernels] {name}: spec_double max_abs_err 0 (tolerance 0) "
+              f"over {len(levels)} levels ({kinds.count('int16')} written "
+              f"int16, {kinds.count('int32')} int32; first int32 level "
+              f"{next((lv[0] for lv in levels if lv[1] == 'int32'), '-')}), "
+              f"kernel {sum(ms):.4f} ms summed (median a level "
+              f"{statistics.median(ms):.4f}), plain "
+              f"{rows['spec_double']['plain_ms']:.4f} ms, bound "
+              f"{rows['spec_double']['bound_ms']:.6f} ms", flush=True)
+    for n, ms in (card or {}).items():
+        ms = sum(ms) if isinstance(ms, list) and None not in ms else ms
+        if n in rows and isinstance(ms, float):
+            rows[n]["device_ms"] = ms
+    ok = found == raw.size and np.array_equal(result.cpu().numpy(), raw)
+    print(f"[kernels] {name}: speculative stages bit-exact, {plan.levels} "
+          f"levels, height {plan.height}; found_size {found}, result equal "
+          f"to the input: {ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: the speculative stages decoded wrong")
+    return rows
+
+
+#: the speculative pipeline's edge cases: the tiny inputs (sizes 1, 2, 3
+#: and 7: 0-3 levels), text whose top level (12) is the first int32 level
+#: (2^11 x height <= 32767 < 2^12 x height at heights 9-15), a 12-symbol
+#: stream whose top level (12) is the last int16 level at height 4, and
+#: text cut 3 bits short (found_size -1)
+SPEC_TINY = (b"a", b"ab", b"aab", b"x" * 7)
+SPEC_EDGE_BYTES = 6000
+
+
+def spec_edge_streams(rng):
+    from huffmandecoderongpus_tpu_torch.huffio import HuffFile, encode_bytes
+
+    out = {f"tiny {t!r}": (np.frombuffer(t, dtype=np.uint8),
+                           encode_bytes(t)) for t in SPEC_TINY}
+    raw = text_like(rng, SPEC_EDGE_BYTES)
+    out["text, top level the first int32"] = (raw, encode_bytes(raw))
+    raw = uniform12(rng, SPEC_EDGE_BYTES)
+    out["12 symbols, top level the last int16"] = (raw, encode_bytes(raw))
+    hf = encode_bytes(text_like(rng, SPEC_EDGE_BYTES))
+    out["text cut 3 bits short"] = (None, HuffFile(
+        tree=hf.tree, bits=hf.bits - 3,
+        uncompressed_size=hf.uncompressed_size,
+        payload=hf.payload[:(hf.bits + 4) // 8]))
+    return out
+
+
+def check_spec_cases(torch, dev):
+    """Phase 3, the speculative stages at their edges (spec_edge_streams,
+    drawn from seed SEED + 19) against their plain versions: every stage
+    bit-exact, each decode equal to its input, the cut stream's found_size
+    -1 from the kernel and the plain version alike.  Returns {kernel:
+    {"err": 0}}."""
+    from huffmandecoderongpus_tpu_torch.ops import spec_double
+
+    for what, (raw, hf) in spec_edge_streams(
+            np.random.default_rng(SEED + 19)).items():
+        plan, result, found, levels = spec_stages(torch, hf, dev)
+        kinds = [spec_double.level_dtype(2 * j, plan.height)
+                 for j in range(plan.levels // 2 + 1)]
+        ok = (found == -1 if raw is None else
+              found == raw.size and np.array_equal(result.cpu().numpy(),
+                                                   raw))
+        print(f"[kernels] speculative edge, {what}: size "
+              f"{plan.size}, {plan.levels} levels ({len(levels)} "
+              f"doublings), height {plan.height}, top kept level "
+              f"{str(kinds[-1]).split('.')[1]}; found_size {found}; "
+              f"bit-exact, as expected: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"speculative edge {what}: found {found}")
+    return {n: {"err": 0} for n in SPEC_PATH}
+
+
+def check_onethread(torch, name, raw, hf, dev, card=None):
+    """Phase 3, S4 against its plain walk on one stream's staged CUDA
+    inputs: out and n bit-exact, n the size and out the input; its time
+    beside the chain floor (a dependent lookup a symbol at
+    CHAIN_CYCLES_A_ROW cycles, the maximum SM clock), and its card time
+    ``card`` (``spec_card_ms``) where there is one."""
+    from huffmandecoderongpus_tpu_torch.ops import onethread
+    from huffmandecoderongpus_tpu_torch.ops import speculative as spec
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    plan, (w, s, ln) = spec.decode_device_arrays(hf, device=dev)
+    kw = dict(bits=plan.bits, size=plan.size, height=plan.height)
+    rows = {}
+    out, n = comparer(torch, name, rows)(
+        "onethread", lambda: onethread.onethread(w, s, ln, **kw),
+        lambda: onethread.onethread_ref(w, s, ln, **kw), (w, s, ln))
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6
+    row = rows["onethread"]
+    row.update(bound_ms=plan.size * CHAIN_CYCLES_A_ROW / clock * 1e3,
+               bound_by="operations",
+               **({} if card is None else {"device_ms": card}))
+    ok = int(n) == raw.size and np.array_equal(out.cpu().numpy(), raw)
+    print(f"[kernels] {name}: onethread decoded the input: {ok}; chain "
+          f"floor {row['bound_ms']:.4f} ms ({plan.size} symbols x "
+          f"{CHAIN_CYCLES_A_ROW} cycles at {clock / 1e6:.0f} MHz), kernel "
+          f"{row['ms'] / row['bound_ms']:.2f} times it", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: onethread decoded wrong")
+    return rows
+
+
+def spec_card_ms(torch, streams, dev):
+    """{stream: {"spec_all_bits": ms, "spec_double": [ms a level],
+    "spec_query": ms}} on SPEC_TIMED, and {"onethread k": ms} on
+    ONETHREAD_TIMED: the card time a launch (as encode_card_ms) of each
+    stage on the stream's staging, each S2 level on its own."""
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import onethread
+    from huffmandecoderongpus_tpu_torch.ops import spec_all_bits as s1
+    from huffmandecoderongpus_tpu_torch.ops import spec_double as s2
+    from huffmandecoderongpus_tpu_torch.ops import spec_query as s3
+    from huffmandecoderongpus_tpu_torch.ops import speculative as spec
+
+    def card(fn, key, runs=5):
+        return device_breakdown(torch, fn, runs=runs,
+                                per_launch=True).get(key)
+
+    out = {}
+    for k in SPEC_TIMED:
+        plan, (w, s, ln) = spec.decode_device_arrays(
+            encode_bytes(streams[k][1]), device=dev)
+        kw = dict(bits=plan.bits, height=plan.height)
+        row = {"spec_all_bits": card(
+            lambda: s1.spec_all_bits(w, s, ln, **kw), "spec_all_bits")}
+        step0, sym = s1.spec_all_bits(w, s, ln, **kw)
+        kept, lv, row["spec_double"] = [step0], step0, []
+        for j in range(1, max(plan.levels, 1)):
+            dt = s2.level_dtype(j, plan.height)
+            row["spec_double"].append(card(
+                lambda lv=lv, dt=dt: s2.spec_double(lv, bits=plan.bits,
+                                                    dtype=dt),
+                "spec_double"))
+            lv = s2.spec_double(lv, bits=plan.bits, dtype=dt)
+            if j % 2 == 0:
+                kept.append(lv)
+        row["spec_query"] = card(lambda: s3.spec_query(
+            kept, sym, bits=plan.bits, size=plan.size, levels=plan.levels),
+            "spec_query")
+        out[k] = row
+        del kept, lv, step0, sym
+    for k in ONETHREAD_TIMED:
+        plan, (w, s, ln) = spec.decode_device_arrays(
+            encode_bytes(streams[k][1]), device=dev)
+        out[f"onethread {k}"] = card(lambda: onethread.onethread(
+            w, s, ln, bits=plan.bits, size=plan.size, height=plan.height),
+            "onethread", runs=2)
+    return out
+
+
+def drive_spec(torch, mods, hfs, dev, card, card_ms):
+    """Phase 4 of the speculative pipeline and the one-thread decode:
+    get_decoder("spec_xla", device="cuda") on SPEC_DECODED, each decode
+    counted on its own (S1 once, S2 levels - 1 times, S3 once, nothing
+    else: the wrappers count launches only, so a plain version would show
+    as a missing count) and equal to its input; get_decoder(
+    "onethread_device") on ONETHREAD_DECODED the same (S4 once); then a
+    [spec] line for SPEC_TIMED (each stage's card time a launch from the
+    fresh --card-ms process beside its bytes bound, S2's summed over its
+    levels and its median level; the pipeline's program time by CUDA
+    events and the spec_xla wall, beside lane_wide's program and wall on
+    the same stream) and an [onethread] line for ONETHREAD_TIMED (card
+    time against the chain floor).  Returns the launches."""
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+    from huffmandecoderongpus_tpu_torch.ops import speculative as spec
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+    from huffmandecoderongpus_tpu_torch.ops.onethread import onethread
+    from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
+
+    launches = {}
+
+    def drive(decoder, k, path):
+        name, r, h = hfs[k]
+        t0 = time.perf_counter()
+        out, ran = counted(torch, mods, lambda: get_decoder(
+            decoder, device=DEVICE)(h))
+        expect(f"{decoder} {name}, {h.bits} bits, first decode "
+               f"{time.perf_counter() - t0:.3f} s wall",
+               np.array_equal(out, r), ran,
+               {n: c for n, c in path.items() if c})
+        for n, c in ran.items():
+            launches[n] = launches.get(n, 0) + c
+
+    for k in SPEC_DECODED:
+        h = hfs[k][2]
+        levels = spec.make_plan(h.bits, h.uncompressed_size, 1).levels
+        drive("spec_xla", k, {"spec_all_bits": 1,
+                              "spec_double": max(levels - 1, 0),
+                              "spec_query": 1})
+    for k in ONETHREAD_DECODED:
+        drive("onethread_device", k, {"onethread": 1})
+
+    for k in SPEC_TIMED:
+        name, r, h = hfs[k]
+        plan, (w, s, ln) = spec.decode_device_arrays(h, device=dev)
+        kw = dict(bits=plan.bits, size=plan.size, height=plan.height,
+                  levels=plan.levels)
+        ts = event_ms(lambda: spec.speculative_decode(w, s, ln, **kw),
+                      WARMUP + TIMED_RUNS)[WARMUP:]
+        wall, _mn = wall_ms(torch, lambda: get_decoder(
+            "spec_xla", device=DEVICE)(h))
+        st = ws.stage_widescan_inputs(h, device=dev)
+        args = ws.program_args(st)
+        lw = statistics.median(event_ms(
+            lambda: ws.wide_decode_program(st["words"], st["tab"],
+                                           st["lim"], **args),
+            WARMUP + TIMED_RUNS)[WARMUP:])
+        lw_wall, _mn = wall_ms(torch, lambda: ws.decode_widescan(
+            h, device=dev))
+        c = card_ms.get(k, {})
+        s1b = nbytes(w, s, ln) + plan.bits * 3
+        s2b = spec_double_moved(plan.bits, plan.levels, plan.height)
+        s2ms = c.get("spec_double") or []
+        s3b = spec_query_moved(plan.size, plan.levels, plan.height)
+
+        def ms(v, bound_bytes):
+            bound = bound_bytes / HBM_BYTES_PER_S * 1e3
+            return ("not measured" if v is None else
+                    f"{v:.4f} ms ({v / bound:.1f} x its bound "
+                    f"{bound:.4f})")
+
+        s2 = (None if not s2ms or None in s2ms else sum(s2ms))
+        print(f"[spec] {name}: card (profiler, a fresh process) S1 "
+              f"{ms(c.get('spec_all_bits'), s1b)}; S2 over "
+              f"{max(plan.levels - 1, 0)} levels {ms(s2, s2b)}, median level "
+              + ("not measured" if s2 is None else
+                 f"{statistics.median(s2ms):.4f} ms")
+              + f"; S3 {ms(c.get('spec_query'), s3b)}; program (events) "
+              f"median {statistics.median(ts):.4f} ms (min {min(ts):.4f}); "
+              f"spec_xla wall median {wall:.4f} ms; lane_wide program "
+              f"{lw:.4f} ms, wall {lw_wall:.4f} ms; {plan.bits} bits, "
+              f"height {plan.height}, {plan.levels} levels; card {card}",
+              flush=True)
+    clock = sm_clock_mhz(DEVICE)[1] * 1e6
+    for k in ONETHREAD_TIMED:
+        name, r, h = hfs[k]
+        plan, (w, s, ln) = spec.decode_device_arrays(h, device=dev)
+        ev = event_ms(lambda: onethread(w, s, ln, bits=plan.bits,
+                                        size=plan.size, height=plan.height),
+                      1)[0]
+        floor = plan.size * CHAIN_CYCLES_A_ROW / clock * 1e3
+        c = card_ms.get(f"onethread {k}")
+        own = ("not measured" if c is None else
+               f"{c:.3f} ms, {c / floor:.2f} times the floor, "
+               f"{c / 1e3 * clock / plan.size:.1f} cycles a symbol")
+        print(f"[onethread] {name}: card {own} (profiler, a fresh "
+              f"process); events {ev:.3f} ms; chain floor {floor:.3f} ms "
+              f"({plan.size} symbols x {CHAIN_CYCLES_A_ROW} cycles at "
+              f"{clock / 1e6:.0f} MHz); card {card}", flush=True)
+    return launches
+
+
 def check_batch(torch, name, raws, hfs, dev, k3_card=None):
     """Phase 3 on a batch: the batched K1 and K3 (per-stream tables)
     against their plain versions on the batch staging, K2 and K4 between
@@ -2213,8 +2613,12 @@ def main() -> int:
         lane_decode_dense,
         lane_scan,
         lane_scan_indexed,
+        onethread,
         oneshot,
         short_candidate_scan,
+        spec_all_bits,
+        spec_double,
+        spec_query,
     )
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
 
@@ -2226,7 +2630,9 @@ def main() -> int:
             "lane_scan_indexed": lane_scan_indexed,
             "k1_scan2_c01": k1_scan2_c01, "k3_fix2_c01": k3_fix2_c01,
             "short_candidate_scan": short_candidate_scan,
-            "lane_decode_dense": lane_decode_dense, "compact": compact}
+            "lane_decode_dense": lane_decode_dense, "compact": compact,
+            "spec_all_bits": spec_all_bits, "spec_double": spec_double,
+            "spec_query": spec_query, "onethread": onethread}
     dev = torch.device(DEVICE)
 
     # ---- 1. device ----------------------------------------------------------
@@ -2260,7 +2666,8 @@ def main() -> int:
         print(json.dumps({"encode": encode_card_ms(torch, streams, dev),
                           "scan": scan_card_ms(torch, streams, dev),
                           "k3": k3_card_ms(torch, streams, batches, dev),
-                          "probe": probe_card_ms(torch, streams, dev)}))
+                          "probe": probe_card_ms(torch, streams, dev),
+                          "spec": spec_card_ms(torch, streams, dev)}))
         return 0
     card_ms = card_ms_fresh()
     hfs = {k: (f"{k} {name}", r, encode_bytes(r))
@@ -2315,6 +2722,13 @@ def main() -> int:
                                           "compact d")))
     checked.update(check_dense_cases(torch, dev))
     checked.update(check_compact_cases(torch, dev))
+    for k in SPEC_CHECKED:
+        checked[k].update(check_spec(torch, *hfs[k], dev,
+                                     card_ms["spec"].get(k)))
+    checked["spec edges"] = check_spec_cases(torch, dev)
+    for k in ONETHREAD_CHECKED:
+        checked.setdefault(k, {}).update(check_onethread(
+            torch, *hfs[k], dev, card_ms["spec"].get(f"onethread {k}")))
 
     # ---- 4. the slice through the registry ----------------------------------
     def drive(decoder, k):
@@ -2386,7 +2800,8 @@ def main() -> int:
     # the indexed and batch routes, each decode counted on its own
     for route in (drive_indexed(torch, mods, hfs, idx, dev, card),
                   drive_batch(torch, mods, hfs, small, trio, dev, card),
-                  drive_sync(torch, mods, hfs, dev, card)):
+                  drive_sync(torch, mods, hfs, dev, card),
+                  drive_spec(torch, mods, hfs, dev, card, card_ms["spec"])):
         for n, c in route.items():
             launches[n] += c
     if min(launches.values()) < 1:
@@ -2897,7 +3312,8 @@ def drive_probes(torch, hfs, dev, card):
     (``probes.run``, their kernels' launch counts set to 0 just before and
     read just after; each raises on a WRONG line), then ``prof`` on (a)
     ``widescan`` and (d) ``lanedfa`` through the command's function on
-    their `.huff` files, each report's every key present and >= 0.
+    their `.huff` files, and (a) ``speculative``, each report's every key
+    present and >= 0.
     Returns the probe kernels' launches."""
     import tempfile
 
@@ -2928,9 +3344,12 @@ def drive_probes(torch, hfs, dev, card):
     keys = {"widescan": ["k1_scan_discovery", "k2_compose", "k3_fix_splice",
                          "k4_compact", "total"],
             "lanedfa": ["host_bit_matrix", "candidate_scan", "compose",
-                        "main_scan", "host_compaction", "total"]}
+                        "main_scan", "host_compaction", "total"],
+            "speculative": ["decodeAllBits", "makebigtable", "index_query",
+                            "total"]}
     with tempfile.TemporaryDirectory() as tmp:
-        for k, which in (("a", "widescan"), ("d", "lanedfa")):
+        for k, which in (("a", "widescan"), ("d", "lanedfa"),
+                         ("a", "speculative")):
             name, _r, h = hfs[k]
             path = str(pathlib.Path(tmp) / f"{k}.huff")
             write_huff(path, h)

@@ -4,8 +4,8 @@
     python -m huffmandecoderongpus_tpu_torch encode x.bin [x.huff] [--index K]
     python -m huffmandecoderongpus_tpu_torch decode x.huff [out.bin]
         [--decoder NAME]
-    python -m huffmandecoderongpus_tpu_torch prof x.huff [widescan|lanedfa]
-        [--lanes G]
+    python -m huffmandecoderongpus_tpu_torch prof x.huff
+        [widescan|lanedfa|speculative] [--lanes G]
     python -m huffmandecoderongpus_tpu_torch probe
         dispatch|k1fixed|k4|gather|vpu|vpu2
 
@@ -20,9 +20,10 @@ instead byte-compares the decode with the raw file and then times it: the
 minimum wall time over the checked run and ``--repeats`` more.
 
 ``prof`` prints the stage breakdown of one decode of a `.huff` file
-(``harness.profiling``: ``lanedfa`` by default, as the JAX ``prof``, or
-``widescan``).  ``probe`` runs one of the hardware probes (``probes``):
-on the card at its script's sizes, on the CPU at cut sizes.
+(``harness.profiling``: ``lanedfa`` by default, as the JAX ``prof``,
+``widescan`` or ``speculative``).  ``probe`` runs one of the hardware
+probes (``probes``): on the card at its script's sizes, on the CPU at cut
+sizes.
 Every command runs on the card unless ``--device cpu`` is given, which runs
 the kernels' plain versions.
 """
@@ -81,17 +82,19 @@ def encode(src: str, dst: str | None, index: int | None, device) -> None:
 
 
 def prof(src: str, which: str, lanes, device) -> dict:
-    """Print and return the stage breakdown of ``which`` ("widescan" or
-    "lanedfa") decoding the `.huff` file ``src``."""
+    """Print and return the stage breakdown of ``which`` ("widescan",
+    "lanedfa" or "speculative") decoding the `.huff` file ``src``;
+    ``lanes`` is not the speculative pipeline's to set."""
     from huffmandecoderongpus_tpu_torch.harness import profiling
 
     fns = {"widescan": profiling.profile_widescan,
-           "lanedfa": profiling.profile_lanedfa}
+           "lanedfa": profiling.profile_lanedfa,
+           "speculative": profiling.profile_speculative}
     if which not in fns:
         raise SystemExit(f"prof: no breakdown {which!r}; one of "
-                         f"{sorted(fns)} (the speculative pipeline is not "
-                         "ported yet)")
-    report = fns[which](read_huff(src), lanes=lanes, device=device)
+                         f"{sorted(fns)}")
+    kw = {} if which == "speculative" else dict(lanes=lanes)
+    report = fns[which](read_huff(src), device=device, **kw)
     print(f"{which} stage breakdown on {src}:")
     print(profiling.format_report(report))
     return report
@@ -105,7 +108,8 @@ def main(argv=None) -> None:
     p.add_argument("args", nargs="+",
                    help="encode: <input> [output.huff]; "
                         "decode: <input.huff> [output]; "
-                        "prof: <input.huff> [widescan|lanedfa]; "
+                        "prof: <input.huff> "
+                        "[widescan|lanedfa|speculative]; "
                         "probe: <name>")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "

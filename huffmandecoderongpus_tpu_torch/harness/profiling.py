@@ -7,9 +7,6 @@ host clock on the CPU (where torch runs each call to its end): the median
 over ``reps`` runs after one untimed run, whose outputs feed the next
 stage.  Host stages (the lane-DFA's bit matrix and compaction) are host
 clock everywhere.  ``trace`` writes a ``torch.profiler`` Chrome trace.
-
-The speculative pipeline's breakdown (``profile_speculative``) waits for
-that pipeline's port.
 """
 
 from __future__ import annotations
@@ -22,6 +19,7 @@ import time
 import torch
 
 from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+from huffmandecoderongpus_tpu_torch.ops import speculative as spec
 from huffmandecoderongpus_tpu_torch.ops import widescan as ws
 from huffmandecoderongpus_tpu_torch.ops.candidate_scan import candidate_scan
 from huffmandecoderongpus_tpu_torch.ops.k2_compose import k2_compose
@@ -52,6 +50,30 @@ def _host_s(fn, device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter() - t0, out
+
+
+def profile_speculative(hf, reps: int = REPS, *,
+                        device="cuda") -> dict[str, float]:
+    """Stage breakdown of the speculative pipeline, in the JAX report's
+    stages: ``decodeAllBits`` (S1: windows and lookups at every offset),
+    ``makebigtable`` (the ``levels - 1`` doublings, S2 a level),
+    ``index_query`` (S3: the walk, the result and the size check) and
+    ``total``, their sum as in the JAX report."""
+    plan, (words, lut_sym, lut_len) = spec.decode_device_arrays(
+        hf, device=device)
+    kw = dict(bits=plan.bits, height=plan.height)
+    report = {}
+    report["decodeAllBits"], (step0, sym) = _time_stage(
+        lambda: spec.spec_all_bits(words, lut_sym, lut_len, **kw), device,
+        reps)
+    report["makebigtable"], kept = _time_stage(
+        lambda: spec.double_levels(step0, levels=plan.levels, **kw), device,
+        reps)
+    report["index_query"], _ = _time_stage(
+        lambda: spec.spec_query(kept, sym, bits=plan.bits, size=plan.size,
+                                levels=plan.levels), device, reps)
+    report["total"] = sum(report.values())
+    return report
 
 
 def profile_lanedfa(hf, lanes: int | None = None, reps: int = REPS, *,

@@ -203,6 +203,19 @@ def unpack_bits(payload: np.ndarray, bits: int) -> np.ndarray:
     return np.unpackbits(payload, bitorder="little")[:bits]
 
 
+def payload_to_words_u32(payload: np.ndarray, bits: int,
+                         extra_words: int = 1) -> np.ndarray:
+    """Payload bytes -> little-endian uint32 words for fixed-width window
+    extraction on the device.  Bit *p* of the stream is bit ``p % 32`` of
+    ``words[p // 32]``.  ``extra_words`` zero words are appended so that
+    reading ``words[p // 32 + 1]`` is always in bounds for p < bits."""
+    payload = np.asarray(payload, dtype=np.uint8)
+    nwords = (bits + 31) // 32 + extra_words
+    buf = np.zeros(nwords * 4, dtype=np.uint8)
+    buf[: payload.shape[0]] = payload[: min(payload.shape[0], nwords * 4)]
+    return buf.view("<u4")
+
+
 def validate_tree(tree: np.ndarray, what: str = "tree") -> None:
     """Child indices in range, leaves marked on both sides, and no node
     reachable twice (a cycle would send a tree walk into a loop)."""

@@ -56,4 +56,8 @@ def all_decoders(*, device: str) -> dict[str, Decoder]:
 
 def _ensure_loaded() -> None:
     # importing the submodules runs their @register decorators
-    from huffmandecoderongpus_tpu_torch.models import lanedfa  # noqa: F401
+    from huffmandecoderongpus_tpu_torch.models import (  # noqa: F401
+        lanedfa,
+        onethread,
+        speculative,
+    )

@@ -43,7 +43,9 @@ SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
            "k1_main.cu", "lane_scan_indexed.cu", "k1_scan2_c01.cu",
            "k3_fix2_c01.cu", "short_candidate_scan.cu",
            "lane_decode_dense.cu", "compact.cu", "probe_inc.cu",
-           "probe_arith.cu", "probe_gather.cu", "k4_stripped.cu")
+           "probe_arith.cu", "probe_gather.cu", "k4_stripped.cu",
+           "spec_all_bits.cu", "spec_double.cu", "spec_query.cu",
+           "onethread.cu")
 HEADERS = ("widescan.cuh", "lookback.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -139,6 +141,15 @@ _SIGNATURES = {
     # sym, nib, out, G, cells_p, ORP, prefix, lanes, vec, jr, threads,
     # shared, 16-byte stores, stream
     "ws_k4_stripped": [_P] * 3 + [_I] * 10 + [_P],
+    # words, lut_sym, lut_len, step0, sym, bits, height, stream
+    "ws_spec_all_bits": [_P] * 5 + [_I] * 2 + [_P],
+    # s, out, bits, in bytes, out bytes, stream
+    "ws_spec_double": [_P] * 2 + [_I] * 3 + [_P],
+    # level pointers (host), kept, int32 mask, sym, result, state, found,
+    # bits, size, levels, stream
+    "ws_spec_query": [_P] + [_I] * 2 + [_P] * 4 + [_I] * 3 + [_P],
+    # words, lut_sym, lut_len, out, n, bits, size, height, stream
+    "ws_onethread": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,79 @@
+"""S1: the speculative pipeline's decode from every bit offset.
+
+The port of the first stage of ``huffmandecoderongpus_tpu/ops/
+speculative.py`` ``speculative_decode_xla`` (:105-111), XLA ops there and
+no Pallas kernel: for every bit offset the height-bit window, its first
+symbol and code length from the full-height table, and ``step0`` (the
+length, or -1 where the code runs past ``bits``).  CUDA source:
+``csrc/spec_all_bits.cu``.  ``step0`` is int16, the type the JAX pipeline
+keeps level 0 in.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from huffmandecoderongpus_tpu_torch.ops import _build
+from huffmandecoderongpus_tpu_torch.ops.quad import u32
+
+#: kernel launches made by ``spec_all_bits`` on CUDA tensors
+launches = 0
+
+
+def _check_inputs(words, lut_sym, lut_len, bits: int, height: int) -> None:
+    if words.dtype != torch.int32 or words.numel() < (bits + 31) // 32 + 1:
+        raise ValueError("spec_all_bits: words must be int32 with a pad word")
+    if lut_sym.dtype != torch.uint8 or lut_len.dtype != torch.int32:
+        raise ValueError("spec_all_bits: the table is uint8 symbols and int32 "
+                         "lengths")
+    if not 1 <= height <= 22 or lut_sym.numel() != 1 << height or (
+            lut_len.numel() != 1 << height):
+        raise ValueError(f"spec_all_bits: a height-{height} table has "
+                         f"{1 << height} entries (height 1-22)")
+    if bits < 1:
+        raise ValueError("spec_all_bits: bits must be positive")
+
+
+def spec_all_bits(words, lut_sym, lut_len, *, bits: int, height: int):
+    """(step0 int16 (bits,), sym uint8 (bits,)) of the payload ``words``
+    (little-endian uint32 bit patterns as int32, with a zero pad word) under
+    the table (``lut_sym`` uint8, ``lut_len`` int32, 2^height entries each).
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    _check_inputs(words, lut_sym, lut_len, bits, height)
+    if words.is_cpu:
+        return spec_all_bits_ref(words, lut_sym, lut_len, bits=bits,
+                                 height=height)
+    global launches
+    _build.require_cuda("spec_all_bits", words, lut_sym, lut_len)
+    step0 = torch.empty(bits, dtype=torch.int16, device=words.device)
+    sym = torch.empty(bits, dtype=torch.uint8, device=words.device)
+    rc = _build.get_lib().ws_spec_all_bits(
+        words.data_ptr(), lut_sym.data_ptr(), lut_len.data_ptr(),
+        step0.data_ptr(), sym.data_ptr(), bits, height,
+        _build.stream_ptr(words))
+    launches += 1
+    _build.check(rc, "spec_all_bits")
+    return step0, sym
+
+
+def extract_windows(words, b, height: int):
+    """``height``-bit LSB-first windows (int64) starting at bit offsets
+    ``b`` of ``words`` (uint32 bit patterns as int32, >= 1 zero pad word),
+    as the JAX ``extract_windows``."""
+    b = b.to(torch.int64)
+    w = u32(words)
+    q, r = b >> 5, b & 31
+    lo = w[q] >> r
+    # (hi << (32 - r)) has no bits below 32 - r: at r = 0 nothing of it
+    # lands under the mask, which the JAX version masks by hand
+    hi = (w[q + 1] << (32 - r)) & 0xFFFFFFFF
+    return (lo | hi) & ((1 << height) - 1)
+
+
+def spec_all_bits_ref(words, lut_sym, lut_len, *, bits: int, height: int):
+    """Plain torch S1: windows, two table lookups, the stream-end cut."""
+    b = torch.arange(bits, dtype=torch.int64, device=words.device)
+    win = extract_windows(words, b, height)
+    ln = lut_len[win].to(torch.int64)
+    step0 = torch.where(b + ln <= bits, ln, -1).to(torch.int16)
+    return step0, lut_sym[win]

@@ -65,7 +65,13 @@ internal states decode through the four kernels and the one-shot.  K3 for
 md >= 2 (``k3_fix2``, ``k3_fix2_c01``) runs at its edges (``K3_CASES``: md
 2-8, NS 1, 2 and 8, odd entries and entries on a word's last bit, cuts on
 a cell boundary, mid-cell and past the last segment, lanes with cut 0, G =
-200, two trees in adjacent blocks).
+200, two trees in adjacent blocks).  The speculative pipeline's S1-S3
+(``spec_all_bits``, ``spec_double`` at every level, ``spec_query``) and
+the one-thread S4 run against their plain versions on paper1-sized text,
+the tiny inputs (0-3 levels), a stream whose levels cross the int16
+boundary and a stream cut short (found_size -1), and ``spec_xla`` and
+``onethread_device`` launch S1 once, S2 ``levels - 1`` times and S3 once,
+and S4 once.
 Tolerance: bit-exact (integer outputs).
 """
 
@@ -96,6 +102,9 @@ from huffmandecoderongpus_tpu_torch.ops import oneshot, short_candidate_scan
 from huffmandecoderongpus_tpu_torch.ops import widescan
 from huffmandecoderongpus_tpu_torch.ops import k4_stripped, probe_arith
 from huffmandecoderongpus_tpu_torch.ops import probe_gather, probe_inc
+from huffmandecoderongpus_tpu_torch.ops import onethread, spec_all_bits
+from huffmandecoderongpus_tpu_torch.ops import spec_double, spec_query
+from huffmandecoderongpus_tpu_torch.ops import speculative
 from huffmandecoderongpus_tpu_torch.probes import streams as ps
 from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, STATES128
 from torch_streams import comb_stream
@@ -252,7 +261,8 @@ KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
                   e2_compact, e3_place, k1_main, lane_scan_indexed,
                   k1_scan2_c01, k3_fix2_c01, short_candidate_scan,
                   lane_decode_dense, compact, probe_inc, probe_arith,
-                  probe_gather, k4_stripped)
+                  probe_gather, k4_stripped, spec_all_bits, spec_double,
+                  spec_query, onethread)
 
 
 def _launched(fn):
@@ -1841,4 +1851,104 @@ def test_profile_on_cuda(cuda, which):
     fn = (profiling.profile_widescan if which == "widescan"
           else profiling.profile_lanedfa)
     report = fn(hf, reps=2, device=cuda)
+    assert report["total"] > 0 and min(report.values()) >= 0
+
+
+def _spec_stream(name):
+    """(raw, HuffFile) of a speculative-pipeline case; raw is None for the
+    stream cut 3 bits short, whose chain cannot end at its bits."""
+    from huffmandecoderongpus_tpu_torch import huffio as phuffio
+
+    rng = np.random.default_rng(19)
+    if name == "paper1":
+        raw = text_like(rng, ps.PAPER1_BYTES)
+    elif name == "u12":  # height 4: level 13 the first int32 level
+        raw = rng.choice(np.arange(65, 77, dtype=np.uint8), size=20_000)
+    elif name == "cut":
+        hf = phuffio.encode_bytes(text_like(rng, 9000))
+        return None, phuffio.HuffFile(
+            tree=hf.tree, bits=hf.bits - 3,
+            uncompressed_size=hf.uncompressed_size,
+            payload=hf.payload[:(hf.bits + 4) // 8])
+    else:
+        raw = np.frombuffer([b"a", b"ab", b"aab", b"x" * 7][int(name[4:])],
+                            dtype=np.uint8)
+    return raw, phuffio.encode_bytes(raw)
+
+
+SPEC_STREAMS = ["paper1", "u12", "cut", "tiny0", "tiny1", "tiny2", "tiny3"]
+
+
+@pytest.mark.parametrize("name", SPEC_STREAMS)
+def test_spec_kernels_match_plain(cuda, name):
+    raw, hf = _spec_stream(name)
+    plan, (w, s, ln) = speculative.decode_device_arrays(hf, device=cuda)
+    kw = dict(bits=plan.bits, height=plan.height)
+    step0, sym = spec_all_bits.spec_all_bits(w, s, ln, **kw)
+    want = spec_all_bits.spec_all_bits_ref(w, s, ln, **kw)
+    assert torch.equal(step0, want[0]) and torch.equal(sym, want[1])
+    kept, lv = [step0], step0
+    for k in range(1, max(plan.levels, 1)):
+        dtype = spec_double.level_dtype(k, plan.height)
+        got = spec_double.spec_double(lv, bits=plan.bits, dtype=dtype)
+        assert torch.equal(got, spec_double.spec_double_ref(
+            lv, bits=plan.bits, dtype=dtype))
+        lv = got
+        if k % 2 == 0:
+            kept.append(got)
+    q = dict(bits=plan.bits, size=plan.size, levels=plan.levels)
+    result, found = spec_query.spec_query(kept, sym, **q)
+    rres, rfound = spec_query.spec_query_ref(kept, sym, **q)
+    assert torch.equal(result, rres) and int(found) == int(rfound)
+    if raw is None:
+        assert int(found) == -1
+    else:
+        assert int(found) == raw.size
+        np.testing.assert_array_equal(result.cpu().numpy(), raw)
+
+
+@pytest.mark.parametrize("name", SPEC_STREAMS)
+def test_onethread_matches_plain(cuda, name):
+    _raw, hf = _spec_stream(name)
+    plan, (w, s, ln) = speculative.decode_device_arrays(hf, device=cuda)
+    kw = dict(bits=plan.bits, size=plan.size, height=plan.height)
+    out, n = onethread.onethread(w, s, ln, **kw)
+    rout, rn = onethread.onethread_ref(w, s, ln, **kw)
+    assert torch.equal(out, rout) and int(n) == int(rn)
+
+
+def test_spec_decoders_launch_their_kernels(cuda):
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+
+    for name in ("paper1", "tiny1", "tiny3"):
+        raw, hf = _spec_stream(name)
+        levels = speculative.make_plan(hf.bits, hf.uncompressed_size,
+                                       1).levels
+        out, ran = _launched(lambda: get_decoder("spec_xla", device=cuda)(hf))
+        np.testing.assert_array_equal(out, raw)
+        want = {"spec_all_bits": 1, "spec_double": levels - 1,
+                "spec_query": 1}
+        assert ran == {k: v for k, v in want.items() if v}
+        out, ran = _launched(lambda: get_decoder("onethread_device",
+                                                 device=cuda)(hf))
+        np.testing.assert_array_equal(out, raw)
+        assert ran == {"onethread": 1}
+    _raw, hf = _spec_stream("cut")
+    with pytest.raises(RuntimeError, match="decoded -1 symbols"):
+        get_decoder("spec_xla", device=cuda)(hf)
+    # the walk checks its count only (as the JAX one): a header 10 symbols
+    # short makes it raise, the cut stream does not
+    _raw, hf = _spec_stream("paper1")
+    hf.uncompressed_size -= 10
+    with pytest.raises(RuntimeError, match="decoded 53161 symbols"):
+        get_decoder("onethread_device", device=cuda)(hf)
+
+
+def test_profile_speculative_on_cuda(cuda):
+    from huffmandecoderongpus_tpu_torch.harness import profiling
+
+    _raw, hf = _spec_stream("paper1")
+    report = profiling.profile_speculative(hf, reps=2, device=cuda)
+    assert list(report) == ["decodeAllBits", "makebigtable", "index_query",
+                            "total"]
     assert report["total"] > 0 and min(report.values()) >= 0

@@ -122,9 +122,13 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
 
 
-def test_prof_refuses_speculative(small_huff):
+def test_prof_refuses_speculative(small_huff, capsys):
+    # the speculative breakdown is ported now and is no longer refused; a
+    # breakdown the port does not have still is
+    cli.main(["prof", small_huff, "speculative", "--device", "cpu"])
+    assert "index_query" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        cli.main(["prof", small_huff, "speculative", "--device", "cpu"])
+        cli.main(["prof", small_huff, "bigtable", "--device", "cpu"])
 
 
 #: the first word of a line each probe prints, in order

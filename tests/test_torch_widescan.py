@@ -274,7 +274,8 @@ def test_registry():
     np.testing.assert_array_equal(dec(hf, 512), native.simple_decode(hf))
     assert set(all_decoders(device="cpu")) == {
         "lane_wide", "lane_oneshot", "lane_dfa", "lane_dfa_pallas",
-        "lane_dfa_sync"}
+        "lane_dfa_sync", "spec_xla", "spec_xla_cpu", "pes_numpy",
+        "onethread_device"}
     with pytest.raises(TypeError):
         get_decoder("lane_wide")  # the device is never picked implicitly
 
