@@ -147,15 +147,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               under the counts and over steps, a silent and a full
               column, ranks more than two chunks apart, an offset view);
               the speculative pipeline on (a), (b) and (i): S1 (step0,
-              sym), S2 at every level (int16 and int32 levels, the int16
-              -> int32 one among them) and S3 (result, found_size), each
-              against its plain version on the same CUDA inputs, with
-              CUDA-event times and bytes bounds (S2 summed over a decode's
-              levels), and at its edges (the tiny inputs: sizes 1, 2, 3, 7;
-              a top level the first int32 one and the last int16 one; a
-              stream cut 3 bits short, found_size -1 from both); the
-              one-thread S4 on (e) and (f) against its plain walk (out and
-              n) beside its chain floor
+              sym), S2's tile launch (kept levels 2..m) and each pair
+              launch (a kept level from the one below), the one-level
+              yardstick at every level (int16 and int32 levels, the int16
+              -> int32 one among them; its even levels equal to the kept
+              ones) and S3 (result, found_size), each against its plain
+              version on the same CUDA inputs, tolerance 0, with
+              CUDA-event times and bytes bounds (the pairs and the levels
+              summed over a decode), and at its edges (the tiny inputs:
+              sizes 1, 2, 3, 7; a top level the first int32 one and the
+              last int16 one; a stream cut 3 bits short, found_size -1
+              from both; probes.streams.SPEC_CASES on their own tiles:
+              bits off and on a tile, a halo past the end, trees 17 and
+              22 tall); the one-thread S4 on (e) and (f) and at those
+              edges (the trees 17 and 22 tall read its table from device
+              memory) against its plain walk (out and n) beside its chain
+              floor
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
@@ -218,16 +225,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               candidate_scan alone (CUDA events), sync split by kernel,
               and the walls of lane_dfa_sync and lane_dfa.
               The speculative route, each decode counted on its own:
-              get_decoder("spec_xla") on (a)-(i) launches S1 once, S2
-              levels - 1 times and S3 once and nothing else, and
+              get_decoder("spec_xla") on (a)-(i) launches S1 once, S2's
+              tile launch once and a pair launch a kept level above its m
+              (s2_plan: 7 on (a)) and S3 once and nothing else, and
               get_decoder("onethread_device") on (a), (e), (f), (g), (i)
-              launches S4 once, each equal to its input; a [spec] line for
-              (a)-(c) (each stage's card time from the --card-ms process
-              beside its bytes bound, S2 summed over its levels and its
-              median level, the pipeline's program by CUDA events and the
-              spec_xla wall beside lane_wide's program and wall) and an
-              [onethread] line for (a), (f) and (g) (card time against the
-              chain floor, a dependent lookup a symbol)
+              launches S4 once, each equal to its input (the one-level
+              spec_double, the yardstick, is on no decode path: its
+              launches are 0 and it is not held to a launch); a [spec]
+              line for (a)-(c) (each launch's card time from the
+              --card-ms process beside its bytes bound, S2's launches a
+              decode and their sum against the function's bound beside
+              the one-level spec_double's sum over the levels, the
+              pipeline's program by CUDA events and the spec_xla wall
+              beside lane_wide's program and wall) and an [onethread] line for
+              (a), (f) and (g) (card time against the chain floor, a
+              dependent lookup a symbol, in cycles a symbol)
   5. probes   the four probe kernels (probe_inc, probe_arith, probe_gather,
               k4_stripped) against their plain versions at every shape of
               the scripts/ sites they replace (the chained gathers also on
@@ -255,7 +267,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               probe_roll beside x + 1, torch.gather and torch.roll.
               P1 and P3 are timed in turns with their PyTorch call (x + 1,
               torch.gather, torch.roll), both also on the card (profiler)
-  6. result   one JSON line for the twenty-seven kernels (times, launches,
+  6. result   one JSON line for the twenty-nine kernels (times, launches,
               error, and the bound: the bytes each must move at 3.35 TB/s,
               or the operations it does), the card,
               then the last line {"ok": true, "device": {...}}
@@ -385,6 +397,8 @@ KERNELS = {
     # the speculative pipeline's XLA stages, and the one-thread while_loop
     "spec_all_bits": (_CSRC + "spec_all_bits.cu", _SPEC + "105", "a"),
     "spec_double": (_CSRC + "spec_double.cu", _SPEC + "122", "a"),
+    "spec_tile": (_CSRC + "spec_tile.cu", _SPEC + "122", "a"),
+    "spec_pair": (_CSRC + "spec_pair.cu", _SPEC + "122", "a"),
     "spec_query": (_CSRC + "spec_query.cu", _SPEC + "142", "a"),
     "onethread": (_CSRC + "onethread.cu",
                   "huffmandecoderongpus_tpu/models/onethread.py:23", "f"),
@@ -431,12 +445,15 @@ DENSE_PATH = ("candidate_scan", "lane_decode_dense")
 COMPACT_PATH = ("candidate_scan", "lane_scan", "compact")
 #: the kernels get_decoder("lane_oneshot") must launch, once each
 ONESHOT_PATHS = {"c": MD1_PATH, **{k: ("oneshot",) for k in ONESHOT}}
-#: the speculative pipeline's kernels (S2 launches levels - 1 times a
-#: decode); the streams spec_xla decodes in phase 4, those whose stages
-#: phase 3 checks and those with a [spec] line; and the streams
-#: onethread_device decodes, those whose S4 phase 3 checks against its
-#: plain walk and those with an [onethread] line
-SPEC_PATH = ("spec_all_bits", "spec_double", "spec_query")
+#: the speculative pipeline's kernels (S2: the tile launch once and a pair
+#: launch a kept level above its m); the kernels checked and timed against
+#: their plain versions that no decode path launches (the one-level
+#: spec_double, S2's yardstick); the streams spec_xla decodes in phase 4,
+#: those whose stages phase 3 checks and those with a [spec] line; and the
+#: streams onethread_device decodes, those whose S4 phase 3 checks against
+#: its plain walk and those with an [onethread] line
+SPEC_PATH = ("spec_all_bits", "spec_tile", "spec_pair", "spec_query")
+YARDSTICKS = ("spec_double",)
 SPEC_DECODED = "abcdefghi"
 SPEC_CHECKED = "abi"
 SPEC_TIMED = "abc"
@@ -467,6 +484,8 @@ DEVICE_SYMBOLS = {"k1_scan2": ("k1_scan2_kernel",),
                   "compact": ("lanedfa_compact_kernel",),
                   "spec_all_bits": ("spec_all_bits_kernel",),
                   "spec_double": ("spec_double_kernel",),
+                  "spec_tile": ("spec_tile_kernel",),
+                  "spec_pair": ("spec_pair_kernel",),
                   "spec_query": ("spec_query_kernel",),
                   "onethread": ("onethread_kernel",)}
 
@@ -1988,8 +2007,9 @@ def spec_query_moved(size, levels, height) -> int:
 
 
 def spec_double_moved(bits, levels, height) -> int:
-    """Bytes S2 must move over one decode's levels: each level read once
-    and written once, each in its own type."""
+    """Bytes the one-level ``spec_double`` moves over one decode's levels,
+    a launch a level: each level read once and written once, each in its
+    own type (the per-level bound, beside the function's own)."""
     from huffmandecoderongpus_tpu_torch.ops.spec_double import level_dtype
 
     return sum(bits * (level_dtype(k - 1, height).itemsize
@@ -1997,15 +2017,33 @@ def spec_double_moved(bits, levels, height) -> int:
                for k in range(1, max(levels, 1)))
 
 
-def spec_stages(torch, hf, dev, compare=None):
-    """S1, every S2 level and S3 on one stream's staged CUDA inputs, each
+def spec_s2_moved(bits, levels, height) -> int:
+    """Bytes S2 must move, its function's own: step0 read once and each
+    kept level (2, 4, ... below ``levels``) written once."""
+    from huffmandecoderongpus_tpu_torch.ops.spec_double import level_dtype
+
+    top = (levels - 1) // 2 * 2 if levels >= 3 else 0
+    return bits * (2 * bool(top) + sum(level_dtype(k, height).itemsize
+                                       for k in range(2, top + 1, 2)))
+
+
+def spec_stages(torch, hf, dev, compare=None, tile=None):
+    """S1, S2 and S3 on one stream's staged CUDA inputs, each launch
     against its plain version on the same inputs (tolerance 0; raises on
-    any difference).  With ``compare`` (``comparer``'s) S1 and S3 are
-    timed and recorded by it, and each S2 level is timed (CUDA events,
-    median of 20; plain, median of 2).  Returns (plan, result, found, S2's
-    levels: [(k, dtype, err, kernel ms, plain ms, bound ms)])."""
+    any difference): S2's tile launch (plan ``s2_plan``, on ``tile`` where
+    given) against ``spec_tile_ref``, each pair launch (in the plan's
+    block order) against ``spec_pair_ref``, and the one-level
+    ``spec_double`` (the yardstick, on no decode path) at every level
+    against ``spec_double_ref``, its even levels against the kept ones.  With ``compare``
+    (``comparer``'s) S1 and S3 are timed and recorded by it, and each S2
+    launch is timed (CUDA events, median of 20; plain, median of 2).
+    Returns (plan, result, found, S2: {"plan", "tile": (err, ms, plain ms,
+    bound ms) or None, "pairs": [(k, dtype, err, ms, plain ms, bound ms)],
+    "levels": the same for each one-level launch})."""
+    from huffmandecoderongpus_tpu_torch.ops import _build
     from huffmandecoderongpus_tpu_torch.ops import spec_all_bits as s1
     from huffmandecoderongpus_tpu_torch.ops import spec_double as s2
+    from huffmandecoderongpus_tpu_torch.ops import spec_pair, spec_tile
     from huffmandecoderongpus_tpu_torch.ops import spec_query as s3
     from huffmandecoderongpus_tpu_torch.ops import speculative as spec
 
@@ -2019,67 +2057,134 @@ def spec_stages(torch, hf, dev, compare=None):
             raise AssertionError(f"{what} differs from its plain version")
         return got
 
+    def launch(what, kernel, plain, moved):
+        """(outputs, (err, kernel ms, plain ms, bound ms))"""
+        got = kernel()
+        torch.cuda.synchronize()
+        got_t = tuple(got) if isinstance(got, list) else (got,)
+        want = plain()
+        want = tuple(want) if isinstance(want, list) else (want,)
+        err = max_abs_err(torch, got_t, want)
+        if err:
+            raise AssertionError(f"{what} differs from its plain version")
+        times = ((statistics.median(event_ms(kernel, 20)),
+                  statistics.median(event_ms(plain, 2)))
+                 if compare is not None else (None, None))
+        return got, (err, *times, moved / HBM_BYTES_PER_S * 1e3)
+
     plan, (w, s, ln) = spec.decode_device_arrays(hf, device=dev)
     kw = dict(bits=plan.bits, height=plan.height)
     step0, sym = check("spec_all_bits",
                        lambda: s1.spec_all_bits(w, s, ln, **kw),
                        lambda: s1.spec_all_bits_ref(w, s, ln, **kw),
                        (w, s, ln))
-    kept, lv, levels = [step0], step0, []
+    p = spec_tile.s2_plan(plan.bits, plan.height, plan.levels,
+                          sms=_build.sm_count(dev), tile=tile,
+                          size=plan.size)
+    out = dict(plan=p, tile=None, pairs=[], levels=[])
+    kept = [step0]
+    if p["m"]:
+        got, out["tile"] = launch(
+            "spec_tile",
+            lambda: spec_tile.spec_tile(step0, m=p["m"], tile=p["tile"],
+                                        **kw),
+            lambda: spec_tile.spec_tile_ref(step0, bits=plan.bits,
+                                            m=p["m"]),
+            plan.bits * (2 + p["m"]))
+        kept += got
+    for k, seg in zip(p["pairs"], p["segs"]):
+        dt = s2.level_dtype(k, plan.height)
+        lv = kept[-1]
+        got, row = launch(
+            f"spec_pair level {k}",
+            lambda lv=lv, dt=dt, seg=seg: spec_pair.spec_pair(
+                lv, bits=plan.bits, dtype=dt, seg=seg),
+            lambda lv=lv, dt=dt: spec_pair.spec_pair_ref(lv, bits=plan.bits,
+                                                         dtype=dt),
+            nbytes(lv) + plan.bits * dt.itemsize)
+        out["pairs"].append((k, str(dt).split(".")[1], *row))
+        kept.append(got)
+    lv = step0
     for k in range(1, max(plan.levels, 1)):
         dt = s2.level_dtype(k, plan.height)
-        kernel = (lambda lv=lv, dt=dt: s2.spec_double(lv, bits=plan.bits,
-                                                      dtype=dt))
-        plain = (lambda lv=lv, dt=dt: s2.spec_double_ref(lv, bits=plan.bits,
-                                                         dtype=dt))
-        got = kernel()
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, (got,), (plain(),))
-        if err:
-            raise AssertionError(f"spec_double level {k} differs from its "
-                                 "plain version")
-        times = ((statistics.median(event_ms(kernel, 20)),
-                  statistics.median(event_ms(plain, 2)))
-                 if compare is not None else (None, None))
-        levels.append((k, str(dt).split(".")[1], err, *times,
-                       nbytes(lv, got) / HBM_BYTES_PER_S * 1e3))
+        got, row = launch(
+            f"spec_double level {k}",
+            lambda lv=lv, dt=dt: s2.spec_double(lv, bits=plan.bits,
+                                                dtype=dt),
+            lambda lv=lv, dt=dt: s2.spec_double_ref(lv, bits=plan.bits,
+                                                    dtype=dt),
+            nbytes(lv) + plan.bits * dt.itemsize)
+        out["levels"].append((k, str(dt).split(".")[1], *row))
+        if k % 2 == 0 and not torch.equal(got, kept[k // 2]):
+            raise AssertionError(f"spec_double level {k} differs from the "
+                                 "kept level the tile and pairs made")
         lv = got
-        if k % 2 == 0:
-            kept.append(got)
     q = dict(bits=plan.bits, size=plan.size, levels=plan.levels)
     result, found = check(
         "spec_query", lambda: s3.spec_query(kept, sym, **q),
         lambda: s3.spec_query_ref(kept, sym, **q), (),
         spec_query_moved(plan.size, plan.levels, plan.height))
-    return plan, result, int(found), levels
+    return plan, result, int(found), out
+
+
+def _s2_rows(s2):
+    """The result line's rows of S2's kernels from ``spec_stages``' S2: the
+    tile launch, the pair launches summed (one decode's), and the one-level
+    ``spec_double`` summed over one decode's levels (the yardstick)."""
+    rows = {}
+    if s2["tile"] is not None:
+        err, ms, plain, bound = s2["tile"]
+        rows["spec_tile"] = dict(err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=bound, bound_by="bytes")
+    for key, runs in (("spec_pair", s2["pairs"]),
+                      ("spec_double", s2["levels"])):
+        if runs:
+            rows[key] = dict(err=max(r[2] for r in runs),
+                             ms=sum(r[3] for r in runs),
+                             plain_ms=sum(r[4] for r in runs),
+                             bound_ms=sum(r[5] for r in runs),
+                             bound_by="bytes")
+    return rows
 
 
 def check_spec(torch, name, raw, hf, dev, card=None):
-    """Phase 3 on one stream of the speculative pipeline: S1, S2 at every
-    level (its int16 and int32 levels alike) and S3 against their plain
-    versions on the same CUDA inputs, bit-exact, with their times and
-    bytes bounds; the result must be the input and found_size its size.
-    Returns rows for the result line, S2's the sum over its levels (one
-    decode's launches), each with its card time from ``card``
-    (``spec_card_ms``'s row for the stream) where it has one."""
+    """Phase 3 on one stream of the speculative pipeline: S1, S2's tile
+    and pair launches and the one-level yardstick at every level (its
+    int16 and int32 levels alike), and S3 against their plain versions on
+    the same CUDA inputs, bit-exact, with their times and bytes bounds;
+    the result must be the input and found_size its size.  Returns rows
+    for the result line, S2's pairs and levels summed over one decode,
+    each with its card time from ``card`` (``spec_card_ms``'s row for the
+    stream) where it has one."""
     rows = {}
-    plan, result, found, levels = spec_stages(torch, hf, dev,
-                                              comparer(torch, name, rows))
+    plan, result, found, s2 = spec_stages(torch, hf, dev,
+                                          comparer(torch, name, rows))
+    rows.update(_s2_rows(s2))
+    p, levels = s2["plan"], s2["levels"]
+    if "spec_tile" in rows:
+        t, pr = rows["spec_tile"], rows.get("spec_pair")
+        new = t["ms"] + (pr["ms"] if pr else 0.0)
+        print(f"[kernels] {name}: S2 bit-exact, tile launch m={p['m']} "
+              f"tile {p['tile']} halo {p['halo']} ({p['blocks']} blocks, "
+              f"{p['shared']} bytes shared) {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.6f}); "
+              f"{len(s2['pairs'])} pair launches (levels "
+              f"{[r[0] for r in s2['pairs']]}) "
+              + ("" if pr is None else
+                 f"{pr['ms']:.4f} ms summed (plain {pr['plain_ms']:.4f}, "
+                 f"bound {pr['bound_ms']:.6f}); ")
+              + f"S2 {new:.4f} ms in {p['launches']} launches against the "
+              f"one-level spec_double's {rows['spec_double']['ms']:.4f} ms "
+              f"in {len(levels)}", flush=True)
     if levels:
-        ms = [lv[3] for lv in levels]
-        rows["spec_double"] = dict(
-            err=max(lv[2] for lv in levels), ms=sum(ms),
-            plain_ms=sum(lv[4] for lv in levels),
-            bound_ms=sum(lv[5] for lv in levels), bound_by="bytes")
         kinds = [lv[1] for lv in levels]
-        print(f"[kernels] {name}: spec_double max_abs_err 0 (tolerance 0) "
-              f"over {len(levels)} levels ({kinds.count('int16')} written "
-              f"int16, {kinds.count('int32')} int32; first int32 level "
+        print(f"[kernels] {name}: spec_double (one level, the yardstick) "
+              f"max_abs_err 0 (tolerance 0) over {len(levels)} levels "
+              f"({kinds.count('int16')} written int16, "
+              f"{kinds.count('int32')} int32; first int32 level "
               f"{next((lv[0] for lv in levels if lv[1] == 'int32'), '-')}), "
-              f"kernel {sum(ms):.4f} ms summed (median a level "
-              f"{statistics.median(ms):.4f}), plain "
-              f"{rows['spec_double']['plain_ms']:.4f} ms, bound "
-              f"{rows['spec_double']['bound_ms']:.6f} ms", flush=True)
+              f"median a level {statistics.median(lv[3] for lv in levels):.4f}"
+              " ms", flush=True)
     for n, ms in (card or {}).items():
         ms = sum(ms) if isinstance(ms, list) and None not in ms else ms
         if n in rows and isinstance(ms, float):
@@ -2097,52 +2202,74 @@ def check_spec(torch, name, raw, hf, dev, card=None):
 #: and 7: 0-3 levels), text whose top level (12) is the first int32 level
 #: (2^11 x height <= 32767 < 2^12 x height at heights 9-15), a 12-symbol
 #: stream whose top level (12) is the last int16 level at height 4, and
-#: text cut 3 bits short (found_size -1)
+#: text cut 3 bits short (found_size -1); then probes.streams.SPEC_CASES
+#: on their own tiles (bits off and on a tile, a halo past the end, trees
+#: 17 and 22 tall)
 SPEC_TINY = (b"a", b"ab", b"aab", b"x" * 7)
 SPEC_EDGE_BYTES = 6000
 
 
 def spec_edge_streams(rng):
+    """{what: (raw or None, HuffFile, tile or None)}"""
     from huffmandecoderongpus_tpu_torch.huffio import HuffFile, encode_bytes
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
 
     out = {f"tiny {t!r}": (np.frombuffer(t, dtype=np.uint8),
-                           encode_bytes(t)) for t in SPEC_TINY}
+                           encode_bytes(t), None) for t in SPEC_TINY}
     raw = text_like(rng, SPEC_EDGE_BYTES)
-    out["text, top level the first int32"] = (raw, encode_bytes(raw))
+    out["text, top level the first int32"] = (raw, encode_bytes(raw), None)
     raw = uniform12(rng, SPEC_EDGE_BYTES)
-    out["12 symbols, top level the last int16"] = (raw, encode_bytes(raw))
+    out["12 symbols, top level the last int16"] = (raw, encode_bytes(raw),
+                                                   None)
     hf = encode_bytes(text_like(rng, SPEC_EDGE_BYTES))
     out["text cut 3 bits short"] = (None, HuffFile(
         tree=hf.tree, bits=hf.bits - 3,
         uncompressed_size=hf.uncompressed_size,
-        payload=hf.payload[:(hf.bits + 4) // 8]))
+        payload=hf.payload[:(hf.bits + 4) // 8]), None)
+    for case in ps.SPEC_CASES:
+        out[case] = ps.spec_case(case)
     return out
 
 
 def check_spec_cases(torch, dev):
     """Phase 3, the speculative stages at their edges (spec_edge_streams,
-    drawn from seed SEED + 19) against their plain versions: every stage
-    bit-exact, each decode equal to its input, the cut stream's found_size
-    -1 from the kernel and the plain version alike.  Returns {kernel:
-    {"err": 0}}."""
-    from huffmandecoderongpus_tpu_torch.ops import spec_double
+    drawn from seed SEED + 19) against their plain versions: every launch
+    bit-exact (S2 on the case's tile), each decode equal to its input, the
+    cut stream's found_size -1 from the kernels and the plain versions
+    alike; and S4 against its plain walk on each (the trees 17 and 22 tall
+    read its table from device memory).  Returns {kernel: {"err": 0}}."""
+    from huffmandecoderongpus_tpu_torch.ops import onethread, spec_double
+    from huffmandecoderongpus_tpu_torch.ops import speculative as spec
 
-    for what, (raw, hf) in spec_edge_streams(
+    for what, (raw, hf, tile) in spec_edge_streams(
             np.random.default_rng(SEED + 19)).items():
-        plan, result, found, levels = spec_stages(torch, hf, dev)
+        plan, result, found, s2 = spec_stages(torch, hf, dev, tile=tile)
+        p = s2["plan"]
         kinds = [spec_double.level_dtype(2 * j, plan.height)
                  for j in range(plan.levels // 2 + 1)]
         ok = (found == -1 if raw is None else
               found == raw.size and np.array_equal(result.cpu().numpy(),
                                                    raw))
-        print(f"[kernels] speculative edge, {what}: size "
-              f"{plan.size}, {plan.levels} levels ({len(levels)} "
-              f"doublings), height {plan.height}, top kept level "
-              f"{str(kinds[-1]).split('.')[1]}; found_size {found}; "
-              f"bit-exact, as expected: {ok}", flush=True)
-        if not ok:
-            raise AssertionError(f"speculative edge {what}: found {found}")
-    return {n: {"err": 0} for n in SPEC_PATH}
+        _p, (w, s, ln) = spec.decode_device_arrays(hf, device=dev)
+        kw = dict(bits=plan.bits, size=plan.size, height=plan.height)
+        out, n = onethread.onethread(w, s, ln, **kw)
+        rout, rn = onethread.onethread_ref(w, s, ln, **kw)
+        walk = torch.equal(out, rout) and int(n) == int(rn)
+        print(f"[kernels] speculative edge, {what}: size {plan.size}, "
+              f"{plan.bits} bits, {plan.levels} levels, height "
+              f"{plan.height}, top kept level "
+              f"{str(kinds[-1]).split('.')[1]}; S2 m={p['m']} tile "
+              f"{p['tile']} halo {p['halo']} in {p['blocks']} blocks "
+              f"(bits {'a' if p['tile'] and plan.bits % p['tile'] == 0 else 'no'}"
+              f" multiple of the tile), pairs {list(p['pairs'])}, "
+              f"{len(s2['levels'])} one-level launches; found_size {found}; "
+              f"bit-exact, as expected: {ok}; onethread bit-exact against "
+              f"its plain walk ({'shared' if plan.height <= 16 else 'device'}"
+              f"-memory table): {walk}", flush=True)
+        if not ok or not walk:
+            raise AssertionError(f"speculative edge {what}: found {found}, "
+                                 f"walk {walk}")
+    return {n: {"err": 0} for n in (*SPEC_PATH, "spec_double", "onethread")}
 
 
 def check_onethread(torch, name, raw, hf, dev, card=None):
@@ -2177,14 +2304,17 @@ def check_onethread(torch, name, raw, hf, dev, card=None):
 
 
 def spec_card_ms(torch, streams, dev):
-    """{stream: {"spec_all_bits": ms, "spec_double": [ms a level],
-    "spec_query": ms}} on SPEC_TIMED, and {"onethread k": ms} on
-    ONETHREAD_TIMED: the card time a launch (as encode_card_ms) of each
-    stage on the stream's staging, each S2 level on its own."""
+    """{stream: {"spec_all_bits": ms, "spec_tile": ms, "spec_pair": [ms a
+    pair launch], "spec_double": [ms a level], "spec_query": ms}} on
+    SPEC_TIMED, and {"onethread k": ms} on ONETHREAD_TIMED: the card time
+    a launch (as encode_card_ms) of each launch on the stream's staging,
+    S2's as ``double_levels`` makes them (the one-level spec_double's
+    beside, a launch a level)."""
     from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
-    from huffmandecoderongpus_tpu_torch.ops import onethread
+    from huffmandecoderongpus_tpu_torch.ops import _build, onethread
     from huffmandecoderongpus_tpu_torch.ops import spec_all_bits as s1
     from huffmandecoderongpus_tpu_torch.ops import spec_double as s2
+    from huffmandecoderongpus_tpu_torch.ops import spec_pair, spec_tile
     from huffmandecoderongpus_tpu_torch.ops import spec_query as s3
     from huffmandecoderongpus_tpu_torch.ops import speculative as spec
 
@@ -2200,7 +2330,23 @@ def spec_card_ms(torch, streams, dev):
         row = {"spec_all_bits": card(
             lambda: s1.spec_all_bits(w, s, ln, **kw), "spec_all_bits")}
         step0, sym = s1.spec_all_bits(w, s, ln, **kw)
-        kept, lv, row["spec_double"] = [step0], step0, []
+        p = spec_tile.s2_plan(plan.bits, plan.height, plan.levels,
+                              sms=_build.sm_count(dev), size=plan.size)
+        kept = [step0]
+        if p["m"]:
+            row["spec_tile"] = card(lambda: spec_tile.spec_tile(
+                step0, m=p["m"], tile=p["tile"], **kw), "spec_tile")
+            kept += spec_tile.spec_tile(step0, m=p["m"], tile=p["tile"],
+                                        **kw)
+        row["spec_pair"] = []
+        for j, seg in zip(p["pairs"], p["segs"]):
+            dt = s2.level_dtype(j, plan.height)
+            row["spec_pair"].append(card(
+                lambda lv=kept[-1], dt=dt, seg=seg: spec_pair.spec_pair(
+                    lv, bits=plan.bits, dtype=dt, seg=seg), "spec_pair"))
+            kept.append(spec_pair.spec_pair(kept[-1], bits=plan.bits,
+                                            dtype=dt, seg=seg))
+        lv, row["spec_double"] = step0, []
         for j in range(1, max(plan.levels, 1)):
             dt = s2.level_dtype(j, plan.height)
             row["spec_double"].append(card(
@@ -2208,13 +2354,12 @@ def spec_card_ms(torch, streams, dev):
                                                     dtype=dt),
                 "spec_double"))
             lv = s2.spec_double(lv, bits=plan.bits, dtype=dt)
-            if j % 2 == 0:
-                kept.append(lv)
+        del lv
         row["spec_query"] = card(lambda: s3.spec_query(
             kept, sym, bits=plan.bits, size=plan.size, levels=plan.levels),
             "spec_query")
         out[k] = row
-        del kept, lv, step0, sym
+        del kept, step0, sym
     for k in ONETHREAD_TIMED:
         plan, (w, s, ln) = spec.decode_device_arrays(
             encode_bytes(streams[k][1]), device=dev)
@@ -2227,23 +2372,32 @@ def spec_card_ms(torch, streams, dev):
 def drive_spec(torch, mods, hfs, dev, card, card_ms):
     """Phase 4 of the speculative pipeline and the one-thread decode:
     get_decoder("spec_xla", device="cuda") on SPEC_DECODED, each decode
-    counted on its own (S1 once, S2 levels - 1 times, S3 once, nothing
-    else: the wrappers count launches only, so a plain version would show
-    as a missing count) and equal to its input; get_decoder(
-    "onethread_device") on ONETHREAD_DECODED the same (S4 once); then a
-    [spec] line for SPEC_TIMED (each stage's card time a launch from the
-    fresh --card-ms process beside its bytes bound, S2's summed over its
-    levels and its median level; the pipeline's program time by CUDA
-    events and the spec_xla wall, beside lane_wide's program and wall on
-    the same stream) and an [onethread] line for ONETHREAD_TIMED (card
-    time against the chain floor).  Returns the launches."""
+    counted on its own (S1 once, S2's tile launch once and a pair launch
+    a kept level above its m, as ``s2_plan`` says, S3 once, nothing else:
+    the wrappers count launches only, so a plain version would show as a
+    missing count) and equal to its input; get_decoder("onethread_device")
+    on ONETHREAD_DECODED (S4 once); then a [spec] line for SPEC_TIMED
+    (each launch's card time from the fresh --card-ms process beside its
+    bytes bound: S2's launches a decode and their card time summed
+    against the function's bound, step0 read and each kept level written
+    once, the one-level spec_double's sum over the levels beside against
+    its per-level bound; the pipeline's program time by CUDA events and
+    the spec_xla wall, beside lane_wide's program and wall on the same
+    stream) and an [onethread] line for
+    ONETHREAD_TIMED (card time against the chain floor, in cycles a
+    symbol).  Returns the launches."""
     from huffmandecoderongpus_tpu_torch.models import get_decoder
+    from huffmandecoderongpus_tpu_torch.ops import _build, spec_tile
     from huffmandecoderongpus_tpu_torch.ops import speculative as spec
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
     from huffmandecoderongpus_tpu_torch.ops.onethread import onethread
     from huffmandecoderongpus_tpu_torch.probes._timing import sm_clock_mhz
 
     launches = {}
+
+    def add(ran):
+        for n, c in ran.items():
+            launches[n] = launches.get(n, 0) + c
 
     def drive(decoder, k, path):
         name, r, h = hfs[k]
@@ -2254,21 +2408,25 @@ def drive_spec(torch, mods, hfs, dev, card, card_ms):
                f"{time.perf_counter() - t0:.3f} s wall",
                np.array_equal(out, r), ran,
                {n: c for n, c in path.items() if c})
-        for n, c in ran.items():
-            launches[n] = launches.get(n, 0) + c
+        add(ran)
+
+    def s2_path(h):
+        plan = spec.make_plan(h.bits, h.uncompressed_size,
+                              spec.build_decode_lut(h.tree).height)
+        p = spec_tile.s2_plan(plan.bits, plan.height, plan.levels,
+                              sms=_build.sm_count(dev), size=plan.size)
+        return plan, p, {"spec_all_bits": 1, "spec_tile": int(p["m"] > 0),
+                         "spec_pair": len(p["pairs"]), "spec_query": 1}
 
     for k in SPEC_DECODED:
-        h = hfs[k][2]
-        levels = spec.make_plan(h.bits, h.uncompressed_size, 1).levels
-        drive("spec_xla", k, {"spec_all_bits": 1,
-                              "spec_double": max(levels - 1, 0),
-                              "spec_query": 1})
+        drive("spec_xla", k, s2_path(hfs[k][2])[2])
     for k in ONETHREAD_DECODED:
         drive("onethread_device", k, {"onethread": 1})
 
     for k in SPEC_TIMED:
         name, r, h = hfs[k]
-        plan, (w, s, ln) = spec.decode_device_arrays(h, device=dev)
+        plan, p, _path = s2_path(h)
+        _plan, (w, s, ln) = spec.decode_device_arrays(h, device=dev)
         kw = dict(bits=plan.bits, size=plan.size, height=plan.height,
                   levels=plan.levels)
         ts = event_ms(lambda: spec.speculative_decode(w, s, ln, **kw),
@@ -2285,9 +2443,15 @@ def drive_spec(torch, mods, hfs, dev, card, card_ms):
             h, device=dev))
         c = card_ms.get(k, {})
         s1b = nbytes(w, s, ln) + plan.bits * 3
-        s2b = spec_double_moved(plan.bits, plan.levels, plan.height)
-        s2ms = c.get("spec_double") or []
+        s2b = spec_s2_moved(plan.bits, plan.levels, plan.height)
+        s1lb = spec_double_moved(plan.bits, plan.levels, plan.height)
         s3b = spec_query_moved(plan.size, plan.levels, plan.height)
+        parts = ([c.get("spec_tile")] if p["m"] else []) + list(
+            c.get("spec_pair") or [])
+        s2 = (None if len(parts) != p["launches"] or None in parts
+              else sum(parts))
+        lvl = c.get("spec_double") or []
+        s2l = None if not lvl or None in lvl else sum(lvl)
 
         def ms(v, bound_bytes):
             bound = bound_bytes / HBM_BYTES_PER_S * 1e3
@@ -2295,12 +2459,18 @@ def drive_spec(torch, mods, hfs, dev, card, card_ms):
                     f"{v:.4f} ms ({v / bound:.1f} x its bound "
                     f"{bound:.4f})")
 
-        s2 = (None if not s2ms or None in s2ms else sum(s2ms))
         print(f"[spec] {name}: card (profiler, a fresh process) S1 "
-              f"{ms(c.get('spec_all_bits'), s1b)}; S2 over "
-              f"{max(plan.levels - 1, 0)} levels {ms(s2, s2b)}, median level "
-              + ("not measured" if s2 is None else
-                 f"{statistics.median(s2ms):.4f} ms")
+              f"{ms(c.get('spec_all_bits'), s1b)}; S2 {p['launches']} "
+              f"launches a decode (tile m={p['m']}: "
+              + ("not measured" if c.get("spec_tile") is None else
+                 f"{c['spec_tile']:.4f} ms")
+              + f"; pairs {list(p['pairs'])}: "
+              + ", ".join("not measured" if v is None else f"{v:.4f}"
+                          for v in c.get("spec_pair") or [])
+              + f") {ms(s2, s2b)}; the one-level spec_double "
+              f"{max(plan.levels - 1, 0)} launches {ms(s2l, s1lb)}, S2 "
+              + ("not measured" if None in (s2, s2l) else
+                 f"{s2 / s2l:.3f} of it")
               + f"; S3 {ms(c.get('spec_query'), s3b)}; program (events) "
               f"median {statistics.median(ts):.4f} ms (min {min(ts):.4f}); "
               f"spec_xla wall median {wall:.4f} ms; lane_wide program "
@@ -2618,7 +2788,9 @@ def main() -> int:
         short_candidate_scan,
         spec_all_bits,
         spec_double,
+        spec_pair,
         spec_query,
+        spec_tile,
     )
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
 
@@ -2632,6 +2804,7 @@ def main() -> int:
             "short_candidate_scan": short_candidate_scan,
             "lane_decode_dense": lane_decode_dense, "compact": compact,
             "spec_all_bits": spec_all_bits, "spec_double": spec_double,
+            "spec_tile": spec_tile, "spec_pair": spec_pair,
             "spec_query": spec_query, "onethread": onethread}
     dev = torch.device(DEVICE)
 
@@ -2804,7 +2977,7 @@ def main() -> int:
                   drive_spec(torch, mods, hfs, dev, card, card_ms["spec"])):
         for n, c in route.items():
             launches[n] += c
-    if min(launches.values()) < 1:
+    if min(c for n, c in launches.items() if n not in YARDSTICKS) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     # the encoder's launches are counted apart from the decode paths' check
     launches.update(drive_encoder(torch, hfs, dev, card))

@@ -1,7 +1,7 @@
 """K4, the one-shot launch and K1 of one tree of the PyTorch port on a GPU,
 for timing two trees in turns within one machine.
 
-    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1,k3,encode,p4]
+    python3 huffmandecoderongpus_tpu_torch/harness/oneshot_turns.py [TREE] [--tag NAME] [--sections k4,oneshot,k1,k1main,k2,md1,k3,encode,p4,spec,onethread]
 
 Run it as a file, not with ``-m``, as ``scan_turns.py`` beside it: it
 imports the port from TREE (a checkout of this repository; default the one
@@ -82,6 +82,22 @@ beside the card's name and power limit:
              beside the bytes bound (sym and nib read once, the (G, ORP)
              rows written once, at 3.35 TB/s) and, where the tree has
              ``p4_plan``, P4's plan
+  spec       on (a), (b) and (c): S2 as the tree's ``double_levels`` runs
+             it on S1's step0 (the tile and pair launches, or the parent's
+             one launch a level), by CUDA events (median of 20 calls) and
+             on the card (profiler: every S2 kernel summed a call, and its
+             launches a call), beside the function's bytes bound (step0
+             read once, each kept level written once, at 3.35 TB/s) and,
+             where the tree has ``s2_plan``, its plan; and the whole
+             ``speculative_decode`` by events (median of 25 after 3) with
+             its card time by kernel, beside ``wide_decode_program``'s
+             events on the same stream; where the plan orders a pair
+             launch by span (``segs``), that launch on the card (profiler,
+             mean a launch) in the plan's order and in order (seg 1)
+  onethread  S4 on (a), (f) and (g): by events (one call on (a), median of
+             3 on the others) and on the card (profiler, mean of 2), in
+             cycles a symbol at the maximum SM clock against the chain
+             floor (40 cycles a symbol)
 
 The last line is one JSON object of every number.
 """
@@ -90,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import pathlib
 import statistics
@@ -109,7 +126,8 @@ def main() -> int:
     ap.add_argument("tree", nargs="?", default=str(HERE))
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--sections",
-                    default="k4,oneshot,k1,k1main,k2,md1,k3,encode,p4")
+                    default="k4,oneshot,k1,k1main,k2,md1,k3,encode,p4,"
+                    "spec,onethread")
     args = ap.parse_args()
     sections = args.sections.split(",")
     tree = pathlib.Path(args.tree).resolve()
@@ -229,6 +247,11 @@ def main() -> int:
         encode_section(torch, cs, out, streams, dev, card, args.tag)
     if "p4" in sections:
         p4_section(torch, cs, out, streams, dev, card, args.tag)
+    if "spec" in sections:
+        spec_section(torch, cs, out, streams, dev, card, args.tag)
+    if "onethread" in sections:
+        onethread_section(torch, cs, out, streams, dev, card, clock,
+                          args.tag)
     print(json.dumps(out))
     return 0
 
@@ -596,6 +619,130 @@ def p4_section(torch, cs, out, streams, dev, card, tag):
               f"bound {bound:.6f} ms ({moved} bytes); G={G} cells_p="
               f"{cells_p} ORP={ORP}; plan {plan}; card {card}", flush=True)
     out["p4_a"] = row
+
+
+#: S2's kernel names: this design's tile and pair launches, and the
+#: one-level launch of the parent's design
+S2_KERNELS = ("spec_double_kernel", "spec_tile_kernel", "spec_pair_kernel")
+
+
+def spec_section(torch, cs, out, streams, dev, card, tag):
+    """The spec section: S2 and the whole pipeline on (a), (b) and (c)."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import _build
+    from huffmandecoderongpus_tpu_torch.ops import speculative as spec
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+
+    for k in "abc":
+        hf = encode_bytes(streams[k][1])
+        plan, (w, s, ln) = spec.decode_device_arrays(hf, device=dev)
+        kw = dict(bits=plan.bits, height=plan.height)
+        step0, _sym = spec.spec_all_bits(w, s, ln, **kw)
+        if "size" in inspect.signature(spec.double_levels).parameters:
+            kw["size"] = plan.size  # the pairs' block order
+
+        def s2(step0=step0, kw=kw, levels=plan.levels):
+            return spec.double_levels(step0, levels=levels, **kw)
+
+        def program(w=w, s=s, ln=ln, plan=plan):
+            return spec.speculative_decode(
+                w, s, ln, bits=plan.bits, size=plan.size,
+                height=plan.height, levels=plan.levels)
+
+        ev = statistics.median(event_ms(s2, K4_RUNS, warmup=2))
+        times, launches = cs.device_breakdown(
+            torch, s2, counts=True, symbols={"s2": S2_KERNELS})
+        bound = cs.spec_s2_moved(plan.bits, plan.levels,
+                                 plan.height) / cs.HBM_BYTES_PER_S * 1e3
+        p = (spec.s2_plan(plan.bits, plan.height, plan.levels,
+                          sms=_build.sm_count(dev), size=plan.size)
+             if hasattr(spec, "s2_plan") else None)
+        prog = statistics.median(event_ms(program, WARMUP + RUNS)[WARMUP:])
+        split = cs.device_breakdown(torch, program)
+        st = ws.stage_widescan_inputs(hf, device=dev)
+        a = ws.program_args(st)
+        lw = statistics.median(event_ms(
+            lambda: ws.wide_decode_program(st["words"], st["tab"],
+                                           st["lim"], **a),
+            WARMUP + RUNS)[WARMUP:])
+        card_ms = times.get("s2")
+        out[f"spec_{k}"] = dict(bits=plan.bits, height=plan.height,
+                                levels=plan.levels, s2_events_ms=ev,
+                                s2_card_ms=card_ms,
+                                s2_launches=launches.get("s2"),
+                                s2_bound_ms=bound, plan=p,
+                                program_ms=prog, program_card=split,
+                                lane_wide_ms=lw)
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.4f} ms, {card_ms / bound:.2f} times the bound")
+        print(f"[spec] {tag} ({k}): S2 events {ev:.4f} ms, card {own} in "
+              f"{launches.get('s2')} launches a call; bound {bound:.4f} ms; "
+              f"plan {p}; program (events) {prog:.4f} ms, card "
+              + "  ".join(f"{n} {v:.4f}" for n, v in split.items())
+              + f"; lane_wide program {lw:.4f} ms; {plan.bits} bits, "
+              f"height {plan.height}; card {card}", flush=True)
+        if p is not None and any(g > 1 for g in p["segs"]):
+            pair_order(torch, cs, out, k, step0, plan, p, card, tag)
+        del step0, _sym
+
+
+def pair_order(torch, cs, out, k, step0, plan, p, card, tag):
+    """Each pair launch the plan orders by span, on the card in the plan's
+    order and in order."""
+    from huffmandecoderongpus_tpu_torch.ops import spec_double, spec_pair
+    from huffmandecoderongpus_tpu_torch.ops import spec_tile
+
+    kept = spec_tile.spec_tile(step0, bits=plan.bits, height=plan.height,
+                               m=p["m"], tile=p["tile"])
+    lv, rows = kept[-1], {}
+    for j, seg in zip(p["pairs"], p["segs"]):
+        dt = spec_double.level_dtype(j, plan.height)
+        if seg > 1:
+            ms = {g: cs.device_breakdown(
+                torch, lambda g=g: spec_pair.spec_pair(
+                    lv, bits=plan.bits, dtype=dt, seg=g),
+                per_launch=True).get("spec_pair") for g in (seg, 1)}
+            rows[j] = dict(seg=seg, card_ms=ms[seg], in_order_ms=ms[1])
+            print(f"[spec] {tag} ({k}): pair to level {j}, seg {seg}: "
+                  f"card {ms[seg]} ms; in order {ms[1]} ms; card {card}",
+                  flush=True)
+        lv = spec_pair.spec_pair(lv, bits=plan.bits, dtype=dt,
+                                 seg=seg)
+    out[f"spec_{k}"]["pair_order"] = rows
+
+
+def onethread_section(torch, cs, out, streams, dev, card, clock, tag):
+    """The onethread section: S4 on (a), (f) and (g)."""
+    from huffmandecoderongpus_tpu_torch.harness.timing import event_ms
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.ops import speculative as spec
+    from huffmandecoderongpus_tpu_torch.ops.onethread import onethread
+
+    for k in "afg":
+        plan, (w, s, ln) = spec.decode_device_arrays(
+            encode_bytes(streams[k][1]), device=dev)
+
+        def fn(w=w, s=s, ln=ln, plan=plan):
+            return onethread(w, s, ln, bits=plan.bits, size=plan.size,
+                             height=plan.height)
+
+        ev = statistics.median(event_ms(fn, 1 if k == "a" else 3,
+                                        warmup=1))
+        card_ms = cs.device_breakdown(
+            torch, fn, runs=2, per_launch=True,
+            symbols={"onethread": ("onethread_kernel",)}).get("onethread")
+        floor = plan.size * cs.CHAIN_CYCLES_A_ROW / clock * 1e3
+        cyc = None if card_ms is None else card_ms / 1e3 * clock / plan.size
+        out[f"onethread_{k}"] = dict(size=plan.size, height=plan.height,
+                                     events_ms=ev, card_ms=card_ms,
+                                     floor_ms=floor, cycles_a_symbol=cyc)
+        own = ("not measured" if card_ms is None else
+               f"{card_ms:.3f} ms, {card_ms / floor:.2f} times the floor, "
+               f"{cyc:.1f} cycles a symbol")
+        print(f"[onethread] {tag} ({k}): events {ev:.3f} ms, card {own}; "
+              f"floor {floor:.3f} ms ({plan.size} symbols, height "
+              f"{plan.height}); card {card}", flush=True)
 
 
 #: K2's kernel names: this design's one, and the three-launch design's

@@ -56,7 +56,8 @@ def profile_speculative(hf, reps: int = REPS, *,
                         device="cuda") -> dict[str, float]:
     """Stage breakdown of the speculative pipeline, in the JAX report's
     stages: ``decodeAllBits`` (S1: windows and lookups at every offset),
-    ``makebigtable`` (the ``levels - 1`` doublings, S2 a level),
+    ``makebigtable`` (S2: the kept levels, by the tile launch and a pair
+    launch a kept level above its m, as ``double_levels`` runs them),
     ``index_query`` (S3: the walk, the result and the size check) and
     ``total``, their sum as in the JAX report."""
     plan, (words, lut_sym, lut_len) = spec.decode_device_arrays(
@@ -67,8 +68,8 @@ def profile_speculative(hf, reps: int = REPS, *,
         lambda: spec.spec_all_bits(words, lut_sym, lut_len, **kw), device,
         reps)
     report["makebigtable"], kept = _time_stage(
-        lambda: spec.double_levels(step0, levels=plan.levels, **kw), device,
-        reps)
+        lambda: spec.double_levels(step0, levels=plan.levels, size=plan.size,
+                                   **kw), device, reps)
     report["index_query"], _ = _time_stage(
         lambda: spec.spec_query(kept, sym, bits=plan.bits, size=plan.size,
                                 levels=plan.levels), device, reps)

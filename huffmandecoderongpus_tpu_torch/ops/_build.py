@@ -44,8 +44,8 @@ SOURCES = ("k1_scan2.cu", "k2_compose.cu", "k3_fix2.cu", "k4_compact.cu",
            "k3_fix2_c01.cu", "short_candidate_scan.cu",
            "lane_decode_dense.cu", "compact.cu", "probe_inc.cu",
            "probe_arith.cu", "probe_gather.cu", "k4_stripped.cu",
-           "spec_all_bits.cu", "spec_double.cu", "spec_query.cu",
-           "onethread.cu")
+           "spec_all_bits.cu", "spec_double.cu", "spec_tile.cu",
+           "spec_pair.cu", "spec_query.cu", "onethread.cu")
 HEADERS = ("widescan.cuh", "lookback.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -145,11 +145,16 @@ _SIGNATURES = {
     "ws_spec_all_bits": [_P] * 5 + [_I] * 2 + [_P],
     # s, out, bits, in bytes, out bytes, stream
     "ws_spec_double": [_P] * 2 + [_I] * 3 + [_P],
+    # step0, kept level pointers (host), n_out, bits, height, m, tile,
+    # threads, shared, stream
+    "ws_spec_tile": [_P] * 2 + [_I] * 7 + [_P],
+    # s, out, bits, in bytes, out bytes, seg, stream
+    "ws_spec_pair": [_P] * 2 + [_I] * 4 + [_P],
     # level pointers (host), kept, int32 mask, sym, result, state, found,
     # bits, size, levels, stream
     "ws_spec_query": [_P] + [_I] * 2 + [_P] * 4 + [_I] * 3 + [_P],
-    # words, lut_sym, lut_len, out, n, bits, size, height, stream
-    "ws_onethread": [_P] * 5 + [_I] * 3 + [_P],
+    # words, packed table, out, n, n_words, bits, size, height, stream
+    "ws_onethread": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,11 @@ The port of ``huffmandecoderongpus_tpu/models/onethread.py``
 there and the reference's ``<<<1,1>>>`` decoder (``onethread.cu:13-52``):
 from bit 0 while the position is inside the stream, the window's symbol
 goes to ``out[n]`` (dropped past ``size``, while ``n`` keeps counting) and
-the position moves by its code length.  CUDA source: ``csrc/onethread.cu``.
+the position moves by its code length.  CUDA source: ``csrc/onethread.cu``:
+the walk reads a packed table (``pack_table``: one 16-bit entry a window,
+symbol and length together) from shared memory where it fits (height up to
+16), else from device memory, and its bits from a register buffer topped
+up a word ahead, so a symbol's chain is one table load.
 """
 
 from __future__ import annotations
@@ -16,6 +20,17 @@ from huffmandecoderongpus_tpu_torch.ops import _build
 
 #: kernel launches made by ``onethread`` on CUDA tensors
 launches = 0
+
+
+def pack_table(lut_sym, lut_len):
+    """The walk's table, (2^h rounded up to 8,) int16 on the tables'
+    device: ``(sym << 5) | (len - 1)`` a window (lengths 1-22 take the low
+    5 bits, the symbol the 8 above), zeros in the padding.  Torch ops."""
+    n = lut_sym.numel()
+    tab = torch.zeros(-(-n // 8) * 8, dtype=torch.int16,
+                      device=lut_sym.device)
+    tab[:n] = (lut_sym.to(torch.int16) << 5) | (lut_len - 1).to(torch.int16)
+    return tab
 
 
 def onethread(words, lut_sym, lut_len, *, bits: int, size: int,
@@ -37,12 +52,14 @@ def onethread(words, lut_sym, lut_len, *, bits: int, size: int,
                              height=height)
     global launches
     _build.require_cuda("onethread", words, lut_sym, lut_len)
+    if lut_sym.numel() != 1 << height or lut_len.numel() != 1 << height:
+        raise ValueError("onethread: the tables hold 2^height entries")
+    tab = pack_table(lut_sym, lut_len)
     out = torch.empty(size, dtype=torch.uint8, device=words.device)
     n = torch.empty((), dtype=torch.int32, device=words.device)
     rc = _build.get_lib().ws_onethread(
-        words.data_ptr(), lut_sym.data_ptr(), lut_len.data_ptr(),
-        out.data_ptr(), n.data_ptr(), bits, size, height,
-        _build.stream_ptr(words))
+        words.data_ptr(), tab.data_ptr(), out.data_ptr(), n.data_ptr(),
+        words.numel(), bits, size, height, _build.stream_ptr(words))
     launches += 1
     _build.check(rc, "onethread")
     return out, n

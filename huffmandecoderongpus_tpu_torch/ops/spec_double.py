@@ -5,7 +5,10 @@ The port of ``double`` in ``huffmandecoderongpus_tpu/ops/speculative.py``
 s'[b] = s[b] + s[b + s[b]] where both spans are valid and the jump stays
 inside the stream, else -1.  CUDA source: ``csrc/spec_double.cu``.  A level
 is written once, in the type its spans fit (``level_dtype``); the JAX
-pipeline keeps the even levels in that type (:129-135).
+pipeline keeps the even levels in that type (:129-135).  No decode
+launches it: S2 makes the kept levels by ``spec_tile`` and ``spec_pair``,
+and this one-level kernel is the yardstick the card tests and
+``chip_smoke.py`` hold them against, level by level.
 """
 
 from __future__ import annotations

@@ -7,13 +7,15 @@ span of 2^k codewords from it, then let every output index walk those
 levels down to its codeword.  ``levels`` is a static function of the
 header's size, so no step reads anything back to the host.
 
-On a CUDA device the pipeline runs three hand-written kernels, S1
-(``spec_all_bits``: windows and table lookups, once), S2 (``spec_double``:
-a doubling level, ``levels - 1`` times) and S3 (``spec_query``: the walk,
-the result and the size check, once); on the CPU their plain versions.
-Every second level is kept for the query, in int16 where its spans fit (the
-JAX rule); the odd levels are recomputed by the query from the kept level
-below.  ``speculative_decode_numpy`` is the host oracle, a copy of the JAX
+On a CUDA device the pipeline runs hand-written kernels, S1
+(``spec_all_bits``: windows and table lookups, once), S2 (``spec_tile``:
+levels 1..m of a tile in shared memory, once, then ``spec_pair``: a kept
+level from the one below, two levels a launch, as ``s2_plan`` says) and
+S3 (``spec_query``: the walk, the result and the size check, once); on the
+CPU their plain versions.  Every second level is kept for the query, in
+int16 where its spans fit (the JAX rule); no odd level is written, and the
+query recomputes each from the kept level below.
+``speculative_decode_numpy`` is the host oracle, a copy of the JAX
 package's numpy pipeline.
 """
 
@@ -25,17 +27,17 @@ import numpy as np
 import torch
 
 from huffmandecoderongpus_tpu_torch.huffio import payload_to_words_u32
+from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import require_device
 from huffmandecoderongpus_tpu_torch.ops.lut import DecodeLUT, build_decode_lut
 from huffmandecoderongpus_tpu_torch.ops.spec_all_bits import (  # noqa: F401
     extract_windows,
     spec_all_bits,
 )
-from huffmandecoderongpus_tpu_torch.ops.spec_double import (
-    level_dtype,
-    spec_double,
-)
+from huffmandecoderongpus_tpu_torch.ops.spec_double import level_dtype
+from huffmandecoderongpus_tpu_torch.ops.spec_pair import spec_pair
 from huffmandecoderongpus_tpu_torch.ops.spec_query import spec_query
+from huffmandecoderongpus_tpu_torch.ops.spec_tile import s2_plan, spec_tile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,15 +59,21 @@ def make_plan(bits: int, size: int, height: int) -> SpecPlan:
     return SpecPlan(bits=bits, size=size, height=height, levels=levels)
 
 
-def double_levels(step0, *, bits: int, height: int, levels: int) -> list:
+def double_levels(step0, *, bits: int, height: int, levels: int,
+                  size: int) -> list:
     """The kept levels 0, 2, 4, ... below max(levels, 1): ``step0`` and
-    every second of the ``levels - 1`` doublings, each in
-    ``level_dtype``."""
-    kept, s = [step0], step0
-    for k in range(1, max(levels, 1)):
-        s = spec_double(s, bits=bits, dtype=level_dtype(k, height))
-        if k % 2 == 0:
-            kept.append(s)
+    every second doubling, each in ``level_dtype``: the tile launch's
+    levels 2..m, then a pair launch a kept level (``s2_plan``; ``size``,
+    the header's, sets the pairs' block order)."""
+    p = s2_plan(bits, height, levels, sms=_build.sm_count(step0.device),
+                size=size)
+    kept = [step0]
+    if p["m"]:
+        kept += spec_tile(step0, bits=bits, height=height, m=p["m"],
+                          tile=p["tile"])
+    for k, seg in zip(p["pairs"], p["segs"]):
+        kept.append(spec_pair(kept[-1], bits=bits,
+                              dtype=level_dtype(k, height), seg=seg))
     return kept
 
 
@@ -75,7 +83,8 @@ def speculative_stages(words, lut_sym, lut_len, *, bits: int, size: int,
     ``result`` and ``found`` (S3)."""
     step0, sym = spec_all_bits(words, lut_sym, lut_len, bits=bits,
                                height=height)
-    kept = double_levels(step0, bits=bits, height=height, levels=levels)
+    kept = double_levels(step0, bits=bits, height=height, levels=levels,
+                         size=size)
     result, found = spec_query(kept, sym, bits=bits, size=size,
                                levels=levels)
     return dict(step0=step0, sym=sym, kept=kept, result=result, found=found)

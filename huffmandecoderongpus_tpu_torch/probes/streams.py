@@ -1009,3 +1009,37 @@ def p4_case(case, device, G=None):
     if case == "offset":
         sym_t, nib_t = _view(sym_t, 1), _view(nib_t, 1)
     return sym_t, nib_t, ORP
+
+
+#: the speculative pipeline's edge cases beside its tiny inputs: S2's tile
+#: launch on a tile the case gives (None: the plan's own), so that a stream
+#: takes several blocks, its bits are no multiple of the tile ("-t<tile>"),
+#: or are one ("h1-t16"), or a block before the last has its halo run past
+#: the stream's end and the last block is a sliver ("halo-past"); and
+#: trees 17 and 22 tall (S4's table read from device memory, S2 at those
+#: heights)
+SPEC_CASES = ("text-halo-past", "text-t2048", "u12-t2048", "alpha-t8192",
+              "h1-t16", "fib17", "fib22")
+
+
+def spec_case(case):
+    """(raw, HuffFile, tile or None) of a SPEC_CASES case, from seed
+    SEED + 20."""
+    rng = np.random.default_rng(SEED + 20)
+    if case.startswith("fib"):
+        raw, tree = fib_tree_stream(rng, int(case[3:]) + 1, 4000, 40)
+        return raw, encode_bytes(raw, tree), None
+    if case == "h1-t16":
+        raw = np.frombuffer(b"ab" * 40, dtype=np.uint8)
+    elif case.startswith("text"):
+        raw = text_like(rng, 3000)
+    elif case.startswith("u12"):
+        raw = near_uniform(rng, 4000, 12)
+    else:  # all 256 symbols, skewed
+        w = rng.random(256) ** 3 + 1e-4
+        raw = rng.choice(np.arange(256, dtype=np.uint8), size=5000,
+                         p=w / w.sum()).astype(np.uint8)
+    hf = encode_bytes(raw)
+    if case == "text-halo-past":  # bits = 3 tiles and 100-123 offsets
+        return raw, hf, (hf.bits - 100) // 24 * 8
+    return raw, hf, int(case.rsplit("-t", 1)[1])

@@ -66,12 +66,18 @@ md >= 2 (``k3_fix2``, ``k3_fix2_c01``) runs at its edges (``K3_CASES``: md
 2-8, NS 1, 2 and 8, odd entries and entries on a word's last bit, cuts on
 a cell boundary, mid-cell and past the last segment, lanes with cut 0, G =
 200, two trees in adjacent blocks).  The speculative pipeline's S1-S3
-(``spec_all_bits``, ``spec_double`` at every level, ``spec_query``) and
-the one-thread S4 run against their plain versions on paper1-sized text,
-the tiny inputs (0-3 levels), a stream whose levels cross the int16
-boundary and a stream cut short (found_size -1), and ``spec_xla`` and
-``onethread_device`` launch S1 once, S2 ``levels - 1`` times and S3 once,
-and S4 once.
+(``spec_all_bits``; S2's tile launch ``spec_tile`` and pair launches
+``spec_pair`` as ``s2_plan`` says, and the one-level ``spec_double``, the
+yardstick, at every level; ``spec_query``) and the one-thread S4 run
+against their plain versions on paper1-sized text, the tiny inputs (0-3 levels), a stream
+whose levels cross the int16 boundary, a stream cut short (found_size -1)
+and ``probes.streams.SPEC_CASES`` (S2 on the case's tile: several blocks,
+bits off and on a tile, a halo past the end; trees 17 and 22 tall, whose
+S4 table is read from device memory), the tile launch at an odd ``bits``
+after a kernel that left -32768 in every SM's shared memory, and
+``spec_xla`` and
+``onethread_device`` launch S1 once, S2's tile once and a pair a kept
+level above its m, S3 once, and S4 once.
 Tolerance: bit-exact (integer outputs).
 """
 
@@ -103,7 +109,8 @@ from huffmandecoderongpus_tpu_torch.ops import widescan
 from huffmandecoderongpus_tpu_torch.ops import k4_stripped, probe_arith
 from huffmandecoderongpus_tpu_torch.ops import probe_gather, probe_inc
 from huffmandecoderongpus_tpu_torch.ops import onethread, spec_all_bits
-from huffmandecoderongpus_tpu_torch.ops import spec_double, spec_query
+from huffmandecoderongpus_tpu_torch.ops import spec_double, spec_pair
+from huffmandecoderongpus_tpu_torch.ops import spec_query, spec_tile
 from huffmandecoderongpus_tpu_torch.ops import speculative
 from huffmandecoderongpus_tpu_torch.probes import streams as ps
 from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, STATES128
@@ -262,7 +269,7 @@ KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
                   k1_scan2_c01, k3_fix2_c01, short_candidate_scan,
                   lane_decode_dense, compact, probe_inc, probe_arith,
                   probe_gather, k4_stripped, spec_all_bits, spec_double,
-                  spec_query, onethread)
+                  spec_tile, spec_pair, spec_query, onethread)
 
 
 def _launched(fn):
@@ -1879,6 +1886,41 @@ def _spec_stream(name):
 SPEC_STREAMS = ["paper1", "u12", "cut", "tiny0", "tiny1", "tiny2", "tiny3"]
 
 
+def _s2_matches_plain(step0, plan, tile=None):
+    """The kept levels by S2's tile and pair launches (``s2_plan``, on
+    ``tile`` where given), each against its plain version, and the
+    one-level ``spec_double`` (the yardstick) at every level against its
+    plain version, its even levels against the kept ones."""
+    p = spec_tile.s2_plan(plan.bits, plan.height, plan.levels,
+                          sms=_build.sm_count(step0.device), tile=tile,
+                          size=plan.size)
+    kw = dict(bits=plan.bits, height=plan.height)
+    kept = [step0]
+    if p["m"]:
+        got = spec_tile.spec_tile(step0, m=p["m"], tile=p["tile"], **kw)
+        want = spec_tile.spec_tile_ref(step0, bits=plan.bits, m=p["m"])
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        kept += got
+    for k, seg in zip(p["pairs"], p["segs"]):
+        dtype = spec_double.level_dtype(k, plan.height)
+        got = spec_pair.spec_pair(kept[-1], bits=plan.bits, dtype=dtype,
+                                  seg=seg)
+        assert torch.equal(got, spec_pair.spec_pair_ref(
+            kept[-1], bits=plan.bits, dtype=dtype))
+        kept.append(got)
+    lv = step0
+    for k in range(1, max(plan.levels, 1)):
+        dtype = spec_double.level_dtype(k, plan.height)
+        got = spec_double.spec_double(lv, bits=plan.bits, dtype=dtype)
+        assert torch.equal(got, spec_double.spec_double_ref(
+            lv, bits=plan.bits, dtype=dtype))
+        lv = got
+        if k % 2 == 0:
+            assert torch.equal(got, kept[k // 2])
+    assert len(kept) == spec_query.kept_count(plan.levels)
+    return kept
+
+
 @pytest.mark.parametrize("name", SPEC_STREAMS)
 def test_spec_kernels_match_plain(cuda, name):
     raw, hf = _spec_stream(name)
@@ -1887,15 +1929,7 @@ def test_spec_kernels_match_plain(cuda, name):
     step0, sym = spec_all_bits.spec_all_bits(w, s, ln, **kw)
     want = spec_all_bits.spec_all_bits_ref(w, s, ln, **kw)
     assert torch.equal(step0, want[0]) and torch.equal(sym, want[1])
-    kept, lv = [step0], step0
-    for k in range(1, max(plan.levels, 1)):
-        dtype = spec_double.level_dtype(k, plan.height)
-        got = spec_double.spec_double(lv, bits=plan.bits, dtype=dtype)
-        assert torch.equal(got, spec_double.spec_double_ref(
-            lv, bits=plan.bits, dtype=dtype))
-        lv = got
-        if k % 2 == 0:
-            kept.append(got)
+    kept = _s2_matches_plain(step0, plan)
     q = dict(bits=plan.bits, size=plan.size, levels=plan.levels)
     result, found = spec_query.spec_query(kept, sym, **q)
     rres, rfound = spec_query.spec_query_ref(kept, sym, **q)
@@ -1905,6 +1939,125 @@ def test_spec_kernels_match_plain(cuda, name):
     else:
         assert int(found) == raw.size
         np.testing.assert_array_equal(result.cpu().numpy(), raw)
+
+
+@pytest.mark.parametrize("seg", [2, 5, 16])
+def test_spec_pair_in_span_order_matches_plain(cuda, seg):
+    # the block order the plan gives top levels of large streams, here on
+    # paper1-sized text: every block once, whatever the order
+    _raw, hf = _spec_stream("paper1")
+    plan, (w, s, ln) = speculative.decode_device_arrays(hf, device=cuda)
+    step0, _sym = spec_all_bits.spec_all_bits(w, s, ln, bits=plan.bits,
+                                              height=plan.height)
+    lv = spec_double.spec_double_ref(step0, bits=plan.bits,
+                                     dtype=torch.int16)
+    got = spec_pair.spec_pair(lv, bits=plan.bits, dtype=torch.int16,
+                              seg=seg)
+    assert torch.equal(got, spec_pair.spec_pair_ref(lv, bits=plan.bits,
+                                                    dtype=torch.int16))
+
+
+@pytest.mark.parametrize("case", ps.SPEC_CASES)
+def test_spec_cases_match_plain(cuda, case):
+    raw, hf, tile = ps.spec_case(case)
+    plan, (w, s, ln) = speculative.decode_device_arrays(hf, device=cuda)
+    step0, sym = spec_all_bits.spec_all_bits(w, s, ln, bits=plan.bits,
+                                             height=plan.height)
+    kept = _s2_matches_plain(step0, plan, tile)
+    result, found = spec_query.spec_query(kept, sym, bits=plan.bits,
+                                          size=plan.size, levels=plan.levels)
+    assert int(found) == raw.size
+    np.testing.assert_array_equal(result.cpu().numpy(), raw)
+    kw = dict(bits=plan.bits, size=plan.size, height=plan.height)
+    out, n = onethread.onethread(w, s, ln, **kw)
+    rout, rn = onethread.onethread_ref(w, s, ln, **kw)
+    assert torch.equal(out, rout) and int(n) == int(rn) == raw.size
+
+
+#: a kernel that leaves -32768 in all the shared memory its blocks get
+_POISON_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void poison_kernel(int n) {
+  extern __shared__ int16_t buf[];
+  volatile int16_t* v = buf;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] = INT16_MIN;
+}
+
+extern "C" int poison(int blocks, int shared, cudaStream_t stream) {
+  cudaFuncSetAttribute(poison_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  poison_kernel<<<blocks, 1024, shared, stream>>>(shared / 2);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def poison_shared(cuda, tmp_path_factory):
+    """A call that fills every SM's shared memory with -32768: four
+    blocks an SM, each with the most a tile launch's block may have."""
+    import ctypes
+
+    d = tmp_path_factory.mktemp("poison")
+    (d / "poison.cu").write_text(_POISON_CU)
+    subprocess.run([_build.nvcc(), *_build.ARCH, "-Xcompiler", "-fPIC",
+                    "-shared", "-o", str(d / "poison.so"),
+                    str(d / "poison.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(d / "poison.so"))
+    lib.poison.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.poison.restype = ctypes.c_int
+
+    def run(t):
+        assert lib.poison(4 * _build.sm_count(cuda), spec_tile.SHARED_MAX,
+                          _build.stream_ptr(t)) == 0
+
+    return run
+
+
+def _odd_bits_text():
+    """(raw, HuffFile) of seeded text whose ``bits`` is odd."""
+    from huffmandecoderongpus_tpu_torch import huffio as phuffio
+
+    for n in range(3000, 3100):
+        raw = text_like(np.random.default_rng(n), n)
+        hf = phuffio.encode_bytes(raw)
+        if hf.bits % 2:
+            return raw, hf
+    raise AssertionError("no odd bits")
+
+
+@pytest.mark.parametrize("tiles", ["sliver", "plan"])
+def test_spec_tile_reads_nothing_unstaged(cuda, poison_shared, tiles):
+    # the last block's range ends at an odd ``bits``, so its last pair of
+    # offsets has a high half past the level (never staged at level 1):
+    # that half is taken as -1, whatever the shared memory held, so -32768
+    # left there by another kernel changes nothing (read as a span, it
+    # would index before the buffer); "sliver" gives 3 tiles and 100-123
+    # offsets, "plan" the plan's own tile
+    raw, hf = _odd_bits_text()
+    plan, (w, s, ln) = speculative.decode_device_arrays(hf, device=cuda)
+    tile = (plan.bits - 100) // 24 * 8 if tiles == "sliver" else None
+    p = spec_tile.s2_plan(plan.bits, plan.height, plan.levels,
+                          size=plan.size, tile=tile)
+    rest = plan.bits - (p["blocks"] - 1) * p["tile"]
+    assert rest % 2 and rest < p["tile"] + p["halo"]
+    step0, sym = spec_all_bits.spec_all_bits(w, s, ln, bits=plan.bits,
+                                             height=plan.height)
+    want = spec_tile.spec_tile_ref(step0, bits=plan.bits, m=p["m"])
+    for _ in range(3):
+        poison_shared(step0)
+        got = spec_tile.spec_tile(step0, bits=plan.bits, height=plan.height,
+                                  m=p["m"], tile=p["tile"])
+        torch.cuda.synchronize(cuda)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+    poison_shared(step0)
+    result, found = speculative.speculative_decode(
+        w, s, ln, bits=plan.bits, size=plan.size, height=plan.height,
+        levels=plan.levels)
+    assert int(found) == raw.size
+    np.testing.assert_array_equal(result.cpu().numpy(), raw)
 
 
 @pytest.mark.parametrize("name", SPEC_STREAMS)
@@ -1922,12 +2075,15 @@ def test_spec_decoders_launch_their_kernels(cuda):
 
     for name in ("paper1", "tiny1", "tiny3"):
         raw, hf = _spec_stream(name)
-        levels = speculative.make_plan(hf.bits, hf.uncompressed_size,
-                                       1).levels
+        plan = speculative.make_plan(
+            hf.bits, hf.uncompressed_size,
+            speculative.build_decode_lut(hf.tree).height)
+        p = spec_tile.s2_plan(plan.bits, plan.height, plan.levels,
+                              size=plan.size, sms=_build.sm_count(cuda))
         out, ran = _launched(lambda: get_decoder("spec_xla", device=cuda)(hf))
         np.testing.assert_array_equal(out, raw)
-        want = {"spec_all_bits": 1, "spec_double": levels - 1,
-                "spec_query": 1}
+        want = {"spec_all_bits": 1, "spec_tile": int(p["m"] > 0),
+                "spec_pair": len(p["pairs"]), "spec_query": 1}
         assert ran == {k: v for k, v in want.items() if v}
         out, ran = _launched(lambda: get_decoder("onethread_device",
                                                  device=cuda)(hf))

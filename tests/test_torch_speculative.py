@@ -3,8 +3,8 @@ package's, on the CPU.
 
 The port's decode table, window extraction and plan against
 ``huffmandecoderongpus_tpu.ops.lut``/``ops.speculative``; the whole pipeline
-(the plain versions of S1-S3: ``spec_all_bits``, ``spec_double`` a level,
-``spec_query``) against ``speculative_decode_xla``, once on the port's
+(the plain versions of S1-S3: ``spec_all_bits``, S2's tile and pair
+launches, ``spec_query``) against ``speculative_decode_xla``, once on the port's
 table and once on the JAX table carried across by ``lut_from_arrays``;
 each stage against its XLA twin; the numpy oracle against the JAX one; the
 one-thread walk (S4's plain version) against ``_onethread_decode``; and the
@@ -324,24 +324,34 @@ def test_double_reads_minus_one_back_from_int16():
         spec_double.spec_double(s.to(torch.int32), bits=7, dtype=torch.int16)
 
 
-@pytest.mark.parametrize("name,levels,doublings", [
-    ("tiny0", 0, 0), ("tiny1", 1, 0), ("tiny2", 2, 1), ("tiny3", 3, 2),
-    ("text", 15, 14)])
-def test_doublings_are_levels_less_one(monkeypatch, name, levels, doublings):
+@pytest.mark.parametrize("name,levels,tiles,pairs", [
+    ("tiny0", 0, 0, 0), ("tiny1", 1, 0, 0), ("tiny2", 2, 0, 0),
+    ("tiny3", 3, 1, 0), ("text", 15, 1, 3), ("u12", 15, 1, 2),
+    ("skewed", 17, 1, 4)])
+def test_s2_launches_follow_the_plan(monkeypatch, name, levels, tiles,
+                                     pairs):
+    # one tile launch for the kept levels 2..m and a pair launch for each
+    # kept level above (s2_plan), none below 3 levels; no odd level written
     _raw_, hf = stream(name)
     plan, (w, s, ln) = spec.decode_device_arrays(hf, device="cpu")
     assert plan.levels == levels
     calls = []
-    real = spec.spec_double
+    for mod, fn in ((spec, "spec_tile"), (spec, "spec_pair"),
+                    (spec_double, "spec_double")):
+        real = getattr(mod, fn)
 
-    def counting(*a, **kw):
-        calls.append(kw["dtype"])
-        return real(*a, **kw)
+        def counting(*a, fn=fn, real=real, **kw):
+            calls.append(fn)
+            return real(*a, **kw)
 
-    monkeypatch.setattr(spec, "spec_double", counting)
+        monkeypatch.setattr(mod, fn, counting)
     st = spec.speculative_stages(w, s, ln, bits=plan.bits, size=plan.size,
                                  height=plan.height, levels=plan.levels)
-    assert len(calls) == doublings
+    assert calls.count("spec_tile") == tiles
+    assert calls.count("spec_pair") == pairs
+    assert "spec_double" not in calls
+    p = spec.s2_plan(plan.bits, plan.height, plan.levels, size=plan.size)
+    assert p["launches"] == tiles + pairs
     assert int(st["found"]) == plan.size
 
 
