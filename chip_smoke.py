@@ -158,11 +158,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               sizes 1, 2, 3, 7; a top level the first int32 one and the
               last int16 one; a stream cut 3 bits short, found_size -1
               from both; probes.streams.SPEC_CASES on their own tiles:
-              bits off and on a tile, a halo past the end, trees 17 and
-              22 tall); the one-thread S4 on (e) and (f) and at those
-              edges (the trees 17 and 22 tall read its table from device
-              memory) against its plain walk (out and n) beside its chain
-              floor
+              bits off and on a tile, a halo past the end, trees 14, 15,
+              17, 20 and 22 tall (S1's table whole in shared memory, or
+              in two levels), S3's block of outputs one under, at and one
+              over, streams cut short with a taken -1 in a block's prefix
+              or only below it, found_size -1 from both; S1 also on
+              tables less some codes, probes.streams.NO_CODE_CASES); the
+              one-thread S4 on (e) and (f) and at those edges (the trees
+              17-22 tall read its table from device memory) against its
+              plain walk (out and n) beside its chain floor
   4. slice    get_decoder("lane_wide", device="cuda") on each stream, the
               launch counts set to 0 just before and read just after:
               bytes equal to the input, and each stream's kernels launched
@@ -2204,7 +2208,7 @@ def check_spec(torch, name, raw, hf, dev, card=None):
 #: stream whose top level (12) is the last int16 level at height 4, and
 #: text cut 3 bits short (found_size -1); then probes.streams.SPEC_CASES
 #: on their own tiles (bits off and on a tile, a halo past the end, trees
-#: 17 and 22 tall)
+#: 14-22 tall, S3's block edges, two more cut streams)
 SPEC_TINY = (b"a", b"ab", b"aab", b"x" * 7)
 SPEC_EDGE_BYTES = 6000
 
@@ -2269,7 +2273,39 @@ def check_spec_cases(torch, dev):
         if not ok or not walk:
             raise AssertionError(f"speculative edge {what}: found {found}, "
                                  f"walk {walk}")
+    check_spec_no_code(torch, dev)
     return {n: {"err": 0} for n in (*SPEC_PATH, "spec_double", "onethread")}
+
+
+def check_spec_no_code(torch, dev):
+    """Phase 3, S1 on tables less some codes (probes.streams.NO_CODE_CASES:
+    windows that match no code, length and symbol 0, in a table whole in
+    shared memory and in two-level ones) against its plain version, on the
+    whole stream and 5 bits short."""
+    from huffmandecoderongpus_tpu_torch.ops import spec_all_bits as s1
+    from huffmandecoderongpus_tpu_torch.ops import speculative as spec
+    from huffmandecoderongpus_tpu_torch.probes import streams as ps
+
+    for case, lengths in ps.NO_CODE_CASES:
+        _raw, hf, _tile = ps.spec_case(case)
+        height, sym, ln = ps.table_without_codes(hf.tree, lengths)
+        plan, (w, _s, _ln) = spec.decode_device_arrays(hf, device=dev)
+        s, ln = torch.from_numpy(sym).to(dev), torch.from_numpy(ln).to(dev)
+        for bits in (plan.bits, plan.bits - 5):
+            kw = dict(bits=bits, height=height)
+            got = s1.spec_all_bits(w, s, ln, **kw)
+            want = s1.spec_all_bits_ref(w, s, ln, **kw)
+            ok = all(torch.equal(g, x) for g, x in zip(got, want))
+            print(f"[kernels] speculative edge, {case} less the codes of "
+                  f"lengths {lengths}: S1 at height {height} "
+                  f"({'two-level' if height > s1.SHARED_HEIGHT else 'whole'}"
+                  f" table), {bits} bits, "
+                  f"{int((got[0] == 0).sum())} offsets of no code, "
+                  f"bit-exact: {ok}", flush=True)
+            if not ok:
+                raise AssertionError(f"spec_all_bits on {case} less codes "
+                                     f"{lengths} differs from its plain "
+                                     f"version")
 
 
 def check_onethread(torch, name, raw, hf, dev, card=None):
@@ -2388,6 +2424,8 @@ def drive_spec(torch, mods, hfs, dev, card, card_ms):
     symbol).  Returns the launches."""
     from huffmandecoderongpus_tpu_torch.models import get_decoder
     from huffmandecoderongpus_tpu_torch.ops import _build, spec_tile
+    from huffmandecoderongpus_tpu_torch.ops import spec_all_bits as s1
+    from huffmandecoderongpus_tpu_torch.ops import spec_query as s3
     from huffmandecoderongpus_tpu_torch.ops import speculative as spec
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
     from huffmandecoderongpus_tpu_torch.ops.onethread import onethread
@@ -2459,8 +2497,11 @@ def drive_spec(torch, mods, hfs, dev, card, card_ms):
                     f"{v:.4f} ms ({v / bound:.1f} x its bound "
                     f"{bound:.4f})")
 
+        table = ("two-level table" if plan.height > s1.SHARED_HEIGHT
+                 else "table whole in shared memory")
         print(f"[spec] {name}: card (profiler, a fresh process) S1 "
-              f"{ms(c.get('spec_all_bits'), s1b)}; S2 {p['launches']} "
+              f"{ms(c.get('spec_all_bits'), s1b)} ({table}, "
+              f"{s1.RUN} offsets a thread); S2 {p['launches']} "
               f"launches a decode (tile m={p['m']}: "
               + ("not measured" if c.get("spec_tile") is None else
                  f"{c['spec_tile']:.4f} ms")
@@ -2471,7 +2512,9 @@ def drive_spec(torch, mods, hfs, dev, card, card_ms):
               f"{max(plan.levels - 1, 0)} launches {ms(s2l, s1lb)}, S2 "
               + ("not measured" if None in (s2, s2l) else
                  f"{s2 / s2l:.3f} of it")
-              + f"; S3 {ms(c.get('spec_query'), s3b)}; program (events) "
+              + f"; S3 {ms(c.get('spec_query'), s3b)} "
+              f"({-(-plan.size >> s3.BLOCK_LEVELS)} blocks of "
+              f"{1 << s3.BLOCK_LEVELS} outputs); program (events) "
               f"median {statistics.median(ts):.4f} ms (min {min(ts):.4f}); "
               f"spec_xla wall median {wall:.4f} ms; lane_wide program "
               f"{lw:.4f} ms, wall {lw_wall:.4f} ms; {plan.bits} bits, "

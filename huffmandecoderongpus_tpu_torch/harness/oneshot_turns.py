@@ -93,7 +93,12 @@ beside the card's name and power limit:
              its card time by kernel, beside ``wide_decode_program``'s
              events on the same stream; where the plan orders a pair
              launch by span (``segs``), that launch on the card (profiler,
-             mean a launch) in the plan's order and in order (seg 1)
+             mean a launch) in the plan's order and in order (seg 1); and
+             S1 (``spec_all_bits`` on the staged stream) and S3
+             (``spec_query`` on S2's kept levels), each on the card
+             (profiler, mean a launch) beside its bytes bound
+             (``chip_smoke.py``'s: S1 the words and the table read, 3
+             bytes an offset written; S3 ``spec_query_moved``)
   onethread  S4 on (a), (f) and (g): by events (one call on (a), median of
              3 on the others) and on the card (profiler, mean of 2), in
              cycles a symbol at the maximum SM clock against the chain
@@ -650,6 +655,23 @@ def spec_section(torch, cs, out, streams, dev, card, tag):
                 w, s, ln, bits=plan.bits, size=plan.size,
                 height=plan.height, levels=plan.levels)
 
+        kept = s2()
+        s1_card = cs.device_breakdown(
+            torch, lambda w=w, s=s, ln=ln, plan=plan: spec.spec_all_bits(
+                w, s, ln, bits=plan.bits, height=plan.height),
+            per_launch=True, symbols={"s1": ("spec_all_bits_kernel",)}
+        ).get("s1")
+        s3_card = cs.device_breakdown(
+            torch, lambda kept=kept, sym=_sym, plan=plan: spec.spec_query(
+                kept, sym, bits=plan.bits, size=plan.size,
+                levels=plan.levels),
+            per_launch=True, symbols={"s3": ("spec_query_kernel",)}
+        ).get("s3")
+        del kept
+        s1_bound = (cs.nbytes(w, s, ln) + 3 * plan.bits) / \
+            cs.HBM_BYTES_PER_S * 1e3
+        s3_bound = cs.spec_query_moved(plan.size, plan.levels, plan.height) \
+            / cs.HBM_BYTES_PER_S * 1e3
         ev = statistics.median(event_ms(s2, K4_RUNS, warmup=2))
         times, launches = cs.device_breakdown(
             torch, s2, counts=True, symbols={"s2": S2_KERNELS})
@@ -673,7 +695,16 @@ def spec_section(torch, cs, out, streams, dev, card, tag):
                                 s2_launches=launches.get("s2"),
                                 s2_bound_ms=bound, plan=p,
                                 program_ms=prog, program_card=split,
-                                lane_wide_ms=lw)
+                                lane_wide_ms=lw, s1_card_ms=s1_card,
+                                s1_bound_ms=s1_bound, s3_card_ms=s3_card,
+                                s3_bound_ms=s3_bound)
+
+        def own(v, b):
+            return ("not measured" if v is None else
+                    f"{v:.4f} ms, {v / b:.2f} times the bound {b:.4f}")
+
+        print(f"[spec] {tag} ({k}): S1 card {own(s1_card, s1_bound)}; S3 "
+              f"card {own(s3_card, s3_bound)}; card {card}", flush=True)
         own = ("not measured" if card_ms is None else
                f"{card_ms:.4f} ms, {card_ms / bound:.2f} times the bound")
         print(f"[spec] {tag} ({k}): S2 events {ev:.4f} ms, card {own} in "

@@ -141,8 +141,9 @@ _SIGNATURES = {
     # sym, nib, out, G, cells_p, ORP, prefix, lanes, vec, jr, threads,
     # shared, 16-byte stores, stream
     "ws_k4_stripped": [_P] * 3 + [_I] * 10 + [_P],
-    # words, lut_sym, lut_len, step0, sym, bits, height, stream
-    "ws_spec_all_bits": [_P] * 5 + [_I] * 2 + [_P],
+    # words, lut_sym, lut_len, packed (or null), step0, sym, bits, height,
+    # stream
+    "ws_spec_all_bits": [_P] * 6 + [_I] * 2 + [_P],
     # s, out, bits, in bytes, out bytes, stream
     "ws_spec_double": [_P] * 2 + [_I] * 3 + [_P],
     # step0, kept level pointers (host), n_out, bits, height, m, tile,

@@ -23,13 +23,18 @@ launches = 0
 
 
 def pack_table(lut_sym, lut_len):
-    """The walk's table, (2^h rounded up to 8,) int16 on the tables'
-    device: ``(sym << 5) | (len - 1)`` a window (lengths 1-22 take the low
-    5 bits, the symbol the 8 above), zeros in the padding.  Torch ops."""
+    """The packed table, (2^h rounded up to 8,) int16 on the tables'
+    device: ``(sym << 5) | ((len - 1) & 31)`` a window (lengths 1-22 take
+    the low 5 bits as 0-21, the symbol the 8 above; a window that matches
+    no code, length 0, packs as 31, so its symbol bits stay whole), zeros in
+    the padding.  S1 (``csrc/spec_all_bits.cu``) packs the same entry
+    inside its launch and reads the length as ``((e & 31) + 1) & 31``.
+    Torch ops."""
     n = lut_sym.numel()
     tab = torch.zeros(-(-n // 8) * 8, dtype=torch.int16,
                       device=lut_sym.device)
-    tab[:n] = (lut_sym.to(torch.int16) << 5) | (lut_len - 1).to(torch.int16)
+    tab[:n] = (lut_sym.to(torch.int16) << 5) | (
+        (lut_len - 1) & 31).to(torch.int16)
     return tab
 
 

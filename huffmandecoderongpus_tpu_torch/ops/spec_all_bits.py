@@ -7,6 +7,16 @@ symbol and code length from the full-height table, and ``step0`` (the
 length, or -1 where the code runs past ``bits``).  CUDA source:
 ``csrc/spec_all_bits.cu``.  ``step0`` is int16, the type the JAX pipeline
 keeps level 0 in.
+
+The kernel looks each window up with one load of a packed 16-bit entry (the
+entry of ``onethread.pack_table``, packed inside the launch), a thread takes
+``RUN`` consecutive offsets from one 64-bit window, and persistent blocks
+take the runs grid-stride.  A table up to ``SHARED_HEIGHT`` sits whole in
+each block's shared memory; a taller one is a two-level table: its first
+``2^SHARED_HEIGHT`` entries in shared memory, taken where their length is
+1..SHARED_HEIGHT, and the whole table packed into device memory for the
+other windows, which relies on ``build_decode_lut``'s rule that a code of
+length L fills every window agreeing with it in the low L bits.
 """
 
 from __future__ import annotations
@@ -18,9 +28,21 @@ from huffmandecoderongpus_tpu_torch.ops.quad import u32
 
 #: kernel launches made by ``spec_all_bits`` on CUDA tensors
 launches = 0
+#: tables up to this height sit whole in a block's shared memory; a taller
+#: one is looked up in two levels (``csrc/spec_all_bits.cu``)
+SHARED_HEIGHT = 14
+#: consecutive offsets a thread takes from one funnel window
+RUN = 8
 
 
 def _check_inputs(words, lut_sym, lut_len, bits: int, height: int) -> None:
+    """Refuse what the kernel does not take.  The table must be a decode
+    table as ``build_decode_lut`` (or the JAX package's) writes it: above
+    ``SHARED_HEIGHT`` the kernel takes a window's entry from its low
+    ``SHARED_HEIGHT`` bits wherever that entry's length is 1..SHARED_HEIGHT,
+    which holds only for a table in which a code of length L fills every
+    window that agrees with it in the low L bits; up to ``SHARED_HEIGHT``
+    any table is looked up whole.  Lengths are 0..22."""
     if words.dtype != torch.int32 or words.numel() < (bits + 31) // 32 + 1:
         raise ValueError("spec_all_bits: words must be int32 with a pad word")
     if lut_sym.dtype != torch.uint8 or lut_len.dtype != torch.int32:
@@ -47,10 +69,12 @@ def spec_all_bits(words, lut_sym, lut_len, *, bits: int, height: int):
     _build.require_cuda("spec_all_bits", words, lut_sym, lut_len)
     step0 = torch.empty(bits, dtype=torch.int16, device=words.device)
     sym = torch.empty(bits, dtype=torch.uint8, device=words.device)
+    packed = (torch.empty(1 << height, dtype=torch.int16, device=words.device)
+              if height > SHARED_HEIGHT else None)
     rc = _build.get_lib().ws_spec_all_bits(
         words.data_ptr(), lut_sym.data_ptr(), lut_len.data_ptr(),
-        step0.data_ptr(), sym.data_ptr(), bits, height,
-        _build.stream_ptr(words))
+        0 if packed is None else packed.data_ptr(), step0.data_ptr(),
+        sym.data_ptr(), bits, height, _build.stream_ptr(words))
     launches += 1
     _build.check(rc, "spec_all_bits")
     return step0, sym

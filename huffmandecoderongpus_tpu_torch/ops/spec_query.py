@@ -6,7 +6,11 @@ kernel: each output index walks the doubling levels top-down to its
 codeword's bit position (odd levels composed from the kept level below),
 takes its symbol there, and ``found_size`` is ``size`` when the last
 codeword ends at ``bits`` and no taken span was -1, else -1.  CUDA source:
-``csrc/spec_query.cu``.
+``csrc/spec_query.cu``: outputs that share the high bits of their index
+share that part of the walk, so a block of ``2^BLOCK_LEVELS`` outputs walks
+its first index's high bits once and expands its outputs as a tree (node
+``n + 2^k`` one jump past node ``n``), each jump into a node below ``size``
+made once.
 """
 
 from __future__ import annotations
@@ -19,6 +23,13 @@ from huffmandecoderongpus_tpu_torch.ops import _build
 
 #: kernel launches made by ``spec_query`` on CUDA tensors
 launches = 0
+#: a block's outputs, 2^BLOCK_LEVELS, its threads, and the levels warp 0
+#: expands by shuffles (``csrc/spec_query.cu`` B, THREADS and SHUF)
+BLOCK_LEVELS = 10
+THREADS = 128
+SHUFFLE_LEVELS = 5
+#: the most bits the kernel takes: positions stay below bits + 32
+MAX_BITS = 2**31 - 33
 
 
 def kept_count(levels: int) -> int:
@@ -37,6 +48,8 @@ def _check_inputs(kept, sym, bits, size, levels) -> None:
                              "int32")
     if sym.dtype != torch.uint8 or sym.numel() != bits or bits < 1:
         raise ValueError("spec_query: sym must be (bits,) uint8")
+    if bits > MAX_BITS:
+        raise ValueError(f"spec_query: at most {MAX_BITS} bits")
     if size < 0:
         raise ValueError("spec_query: size must not be negative")
 

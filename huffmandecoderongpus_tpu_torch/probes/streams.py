@@ -20,6 +20,7 @@ from huffmandecoderongpus_tpu_torch.huffio import (
     encode_bytes,
     tree_codes,
 )
+from huffmandecoderongpus_tpu_torch.ops.spec_query import BLOCK_LEVELS
 
 SEED = 0
 TEXT_SYMBOLS = 84
@@ -1015,20 +1016,74 @@ def p4_case(case, device, G=None):
 #: launch on a tile the case gives (None: the plan's own), so that a stream
 #: takes several blocks, its bits are no multiple of the tile ("-t<tile>"),
 #: or are one ("h1-t16"), or a block before the last has its halo run past
-#: the stream's end and the last block is a sliver ("halo-past"); and
-#: trees 17 and 22 tall (S4's table read from device memory, S2 at those
-#: heights)
+#: the stream's end and the last block is a sliver ("halo-past"); trees 14,
+#: 15, 17, 20 and 22 tall (S1's table whole in shared memory up to 14, in
+#: two levels above; S4's read from device memory above 16; S2 at those
+#: heights); S3's block of 2^BLOCK_LEVELS outputs: text one output under,
+#: at and one over it ("text-block-1", "text-block", "text-block+1"), and
+#: text of 3 blocks and 5 outputs cut short so that a taken -1 span falls
+#: in the last block's prefix ("cut-prefix", the first codeword that does
+#: not fit 10 before the end) or only in its levels below the block's
+#: ("cut-low", 3 before the end): raw None, found_size -1
 SPEC_CASES = ("text-halo-past", "text-t2048", "u12-t2048", "alpha-t8192",
-              "h1-t16", "fib17", "fib22")
+              "h1-t16", "fib14", "fib15", "fib17", "fib20", "fib22",
+              "text-block-1", "text-block", "text-block+1", "cut-prefix",
+              "cut-low")
+#: S3's block (csrc/spec_query.cu B) and the cut cases' size
+QUERY_BLOCK = 1 << BLOCK_LEVELS
+CUT_SIZE = 3 * QUERY_BLOCK + 5
+
+
+def cut_stream(raw, first_out):
+    """The HuffFile of ``raw`` cut so that codeword ``first_out`` is the
+    first that runs past ``bits`` (one bit short of its end), the header's
+    size kept."""
+    hf = encode_bytes(raw)
+    ends = np.cumsum(tree_codes(hf.tree)[1][raw].astype(np.int64))
+    bits = int(ends[first_out]) - 1
+    return HuffFile(tree=hf.tree, bits=bits,
+                    uncompressed_size=hf.uncompressed_size,
+                    payload=hf.payload[:(bits + 7) // 8])
+
+
+#: S1 on tables less some codes (a SPEC_CASES case, the code lengths of
+#: the codes taken out): windows that match no code, whole in shared
+#: memory (height 10) and in two levels (15, 20)
+NO_CODE_CASES = (("text-block+1", (3, 9)), ("fib15", (2, 15)),
+                 ("fib20", (1, 17, 20)))
+
+
+def table_without_codes(tree, lengths):
+    """(height, sym, length) numpy of ``tree``'s decode table less the code
+    of the first symbol of each length in ``lengths``: length and symbol 0
+    at every window of those codes, as an incomplete tree's table has
+    them."""
+    from huffmandecoderongpus_tpu_torch.ops.lut import build_decode_lut
+
+    table = build_decode_lut(tree)
+    code, length, present = tree_codes(tree)
+    sym, ln = table.sym.copy(), table.length.copy()
+    for L in lengths:
+        c = int(np.flatnonzero(present & (length == L))[0])
+        at = np.arange(int(code[c]), 1 << table.height, 1 << L)
+        sym[at], ln[at] = 0, 0
+    return table.height, sym, ln
 
 
 def spec_case(case):
     """(raw, HuffFile, tile or None) of a SPEC_CASES case, from seed
-    SEED + 20."""
+    SEED + 20; raw is None for the cut cases."""
     rng = np.random.default_rng(SEED + 20)
     if case.startswith("fib"):
         raw, tree = fib_tree_stream(rng, int(case[3:]) + 1, 4000, 40)
         return raw, encode_bytes(raw, tree), None
+    if case.startswith("cut"):
+        raw = text_like(rng, CUT_SIZE)
+        return None, cut_stream(raw, CUT_SIZE - (10 if case == "cut-prefix"
+                                                 else 3)), None
+    if case.startswith("text-block"):
+        raw = text_like(rng, QUERY_BLOCK + int(case[10:] or 0))
+        return raw, encode_bytes(raw), None
     if case == "h1-t16":
         raw = np.frombuffer(b"ab" * 40, dtype=np.uint8)
     elif case.startswith("text"):

@@ -1959,19 +1959,45 @@ def test_spec_pair_in_span_order_matches_plain(cuda, seg):
 
 @pytest.mark.parametrize("case", ps.SPEC_CASES)
 def test_spec_cases_match_plain(cuda, case):
+    # every launch against its plain version; the cut cases (raw None)
+    # give found_size -1 from both
     raw, hf, tile = ps.spec_case(case)
     plan, (w, s, ln) = speculative.decode_device_arrays(hf, device=cuda)
-    step0, sym = spec_all_bits.spec_all_bits(w, s, ln, bits=plan.bits,
-                                             height=plan.height)
+    kw = dict(bits=plan.bits, height=plan.height)
+    step0, sym = spec_all_bits.spec_all_bits(w, s, ln, **kw)
+    want = spec_all_bits.spec_all_bits_ref(w, s, ln, **kw)
+    assert torch.equal(step0, want[0]) and torch.equal(sym, want[1])
     kept = _s2_matches_plain(step0, plan, tile)
-    result, found = spec_query.spec_query(kept, sym, bits=plan.bits,
-                                          size=plan.size, levels=plan.levels)
-    assert int(found) == raw.size
-    np.testing.assert_array_equal(result.cpu().numpy(), raw)
+    q = dict(bits=plan.bits, size=plan.size, levels=plan.levels)
+    result, found = spec_query.spec_query(kept, sym, **q)
+    rres, rfound = spec_query.spec_query_ref(kept, sym, **q)
+    assert torch.equal(result, rres) and int(found) == int(rfound)
+    assert int(found) == (-1 if raw is None else raw.size)
+    if raw is not None:
+        np.testing.assert_array_equal(result.cpu().numpy(), raw)
     kw = dict(bits=plan.bits, size=plan.size, height=plan.height)
     out, n = onethread.onethread(w, s, ln, **kw)
     rout, rn = onethread.onethread_ref(w, s, ln, **kw)
-    assert torch.equal(out, rout) and int(n) == int(rn) == raw.size
+    assert torch.equal(out, rout) and int(n) == int(rn)
+    if raw is not None:
+        assert int(n) == raw.size
+
+
+@pytest.mark.parametrize("case,lengths", ps.NO_CODE_CASES)
+def test_spec_all_bits_on_windows_of_no_code(cuda, case, lengths):
+    # a table less some codes (length and symbol 0 at their windows, as an
+    # incomplete tree's), whole in shared memory and in two levels: step0 0
+    # and the symbol there as the plain version has them
+    _raw, hf, _tile = ps.spec_case(case)
+    _h, sym, ln = ps.table_without_codes(hf.tree, lengths)
+    plan, (w, _s, _ln) = speculative.decode_device_arrays(hf, device=cuda)
+    s, ln = torch.from_numpy(sym).to(cuda), torch.from_numpy(ln).to(cuda)
+    for bits in (plan.bits, plan.bits - 5):
+        kw = dict(bits=bits, height=plan.height)
+        step0, got = spec_all_bits.spec_all_bits(w, s, ln, **kw)
+        want = spec_all_bits.spec_all_bits_ref(w, s, ln, **kw)
+        assert torch.equal(step0, want[0]) and torch.equal(got, want[1])
+        assert (step0 == 0).any()
 
 
 #: a kernel that leaves -32768 in all the shared memory its blocks get

@@ -22,7 +22,10 @@ Tolerance 0 (integer outputs).
 """
 
 import dataclasses
+import importlib.util
+import pathlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -30,6 +33,7 @@ import torch
 from huffmandecoderongpus_tpu.ops import speculative as jspec
 from huffmandecoderongpus_tpu_torch import huffio
 from huffmandecoderongpus_tpu_torch.ops import onethread, spec_double
+from huffmandecoderongpus_tpu_torch.ops import spec_all_bits as s1
 from huffmandecoderongpus_tpu_torch.ops import spec_pair, spec_query
 from huffmandecoderongpus_tpu_torch.ops import spec_tile
 from huffmandecoderongpus_tpu_torch.ops import speculative as spec
@@ -304,8 +308,21 @@ def test_spec_cases_cover_their_edges(name):
                           size=plan.size, tile=tile)
     ends = [lo + p["tile"] for lo in range(0, plan.bits, p["tile"])]
     halo_past = any(e < plan.bits < e + p["halo"] for e in ends)
+    block = 1 << spec_query.BLOCK_LEVELS
+    assert ps.QUERY_BLOCK == block
     if name.startswith("fib"):
         assert plan.height == int(name[3:]) and p["blocks"] == 1
+        assert (plan.height > s1.SHARED_HEIGHT) == (plan.height >= 15)
+    elif name.startswith("cut"):
+        # a taken -1 in the last block's prefix, or only in its threads'
+        # own levels (the walk, emulated)
+        assert plan.size == ps.CUT_SIZE and plan.size % block == 5
+        bad = {part for _k, _n, _l, part, b in _emulated_query(name)[3]
+               if b}
+        assert bad == ({"prefix", "block"} if name == "cut-prefix"
+                       else {"block"})
+    elif name.startswith("text-block"):
+        assert plan.size - block == int(name[10:] or 0)
     elif name == "h1-t16":
         assert plan.bits % p["tile"] == 0 and p["blocks"] == 5
     else:
@@ -465,3 +482,268 @@ def test_plan_orders_pairs_by_span_only_past_the_l2(height):
             far = 3 * span * elem >= spec_tile.SPAN_ORDER_BYTES
             assert (seg > 1) == (far and round(span / 1024) > 1)
             assert 1 <= seg <= spec_pair.blocks(bits)
+
+
+# ---- S3: a block's prefix, then its tree --------------------------------------
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its bounds), imported once."""
+    if "cs" not in _CACHE:
+        loader = importlib.util.spec_from_file_location(
+            "chip_smoke", REPO / "chip_smoke.py")
+        cs = importlib.util.module_from_spec(loader)
+        loader.loader.exec_module(cs)
+        _CACHE["cs"] = cs
+    return _CACHE["cs"]
+
+
+def emulate_query(kept, sym, *, bits, size, levels,
+                  B=spec_query.BLOCK_LEVELS, threads=spec_query.THREADS,
+                  shuf=spec_query.SHUFFLE_LEVELS):
+    """The kernel's launch (``csrc/spec_query.cu``) block by block in
+    numpy: thread 0 walks the block's prefix (base's bits >= B), warp 0
+    expands ``shuf`` levels by shuffles (lane l the node base +
+    l 2^(B-shuf)), then a level a round over the block's threads (node
+    (2m + 1) 2^k from (2m) 2^k, m = thread + threads u), a node at or past
+    ``size`` making no jump; then a thread an output.  Returns (result,
+    found, jumps): a jump (level, node it leads to, kept loads, part:
+    "prefix", "warp" or "block", its span -1) each edge walked."""
+    lv = [k.numpy().astype(np.int64) for k in kept]
+    sy = sym.numpy()
+    jumps = []
+    state = dict(bad=False, end=False)
+
+    def jump(k, pos, node, part):
+        at = min(pos, bits - 1)
+        d1 = delta = int(lv[k // 2][at])
+        if k % 2:  # the second load at a clamped offset, whatever d1 is
+            t = pos + d1
+            d2 = int(lv[k // 2][min(max(t, 0), bits - 1)])
+            ok = d1 != -1 and t < bits and d2 != -1 and t + d2 <= bits
+            delta = d1 + d2 if ok else -1
+        jumps.append((k, node, 1 + k % 2, part, delta == -1))
+        if delta == -1:
+            state["bad"] = True
+            return pos
+        return pos + delta
+
+    result = np.full(size, -1, dtype=np.int64)
+    for base in range(0, size, 1 << B):
+        p = 0
+        for k in range(levels - 1, B - 1, -1):
+            if base >> k & 1:
+                p = jump(k, p, base >> k << k, "prefix")
+        lanes = [p] * 32
+        for r in range(shuf):
+            b = shuf - 1 - r
+            was = list(lanes)
+            for lane in range(32):
+                n = base + (lane << (B - shuf))
+                if lane & ((2 << b) - 1) == 1 << b and n < size:
+                    lanes[lane] = jump(B - 1 - r,
+                                       was[lane & ~((2 << b) - 1)], n,
+                                       "warp")
+        pos = {lane << (B - shuf): p for lane, p in enumerate(lanes)}
+        for k in range(B - shuf - 1, -1, -1):
+            for t in range(threads):
+                for m in range(t, 1 << (B - 1 - k), threads):
+                    at = (2 * m + 1) << k
+                    if base + at < size:
+                        assert at not in pos  # one writer a node
+                        pos[at] = jump(k, pos[(2 * m) << k], base + at,
+                                       "block")
+        for i in range(min(1 << B, size - base)):
+            result[base + i] = sy[min(pos[i], bits - 1)]
+            if base + i == size - 1:
+                ln = int(lv[0][min(pos[i], bits - 1)])
+                state["end"] = ln != -1 and pos[i] + ln == bits
+    assert (result >= 0).all()
+    found = size if state["end"] and not state["bad"] else -1
+    return torch.from_numpy(result.astype(np.uint8)), found, jumps
+
+
+def _ctz(n):
+    return (n & -n).bit_length() - 1
+
+
+def _jax_decode(name, hf, plan):
+    if ("jax", name) not in _CACHE:
+        jw, js, jl = jspec.decode_device_arrays(hf)[1]
+        jr, jf = jspec.speculative_decode_xla(
+            jw, js, jl, bits=plan.bits, size=plan.size, height=plan.height,
+            levels=plan.levels)
+        _CACHE["jax", name] = (np.asarray(jr), int(jf))
+    return _CACHE["jax", name]
+
+
+def _emulated_query(name):
+    """(plan, result, found, jumps, plain result, plain found) of a case."""
+    if ("query", name) not in _CACHE:
+        _raw_, hf, _tile = stream(name)
+        plan, step0, sym = staged(hf)
+        kept = chained(step0, plan)
+        q = dict(bits=plan.bits, size=plan.size, levels=plan.levels)
+        _CACHE["query", name] = (plan, *emulate_query(kept, sym, **q),
+                                 *spec_query.spec_query_ref(kept, sym, **q))
+    return _CACHE["query", name]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_emulated_query_matches_plain_and_jax(name):
+    raw, hf, _tile = stream(name)
+    plan, result, found, _jumps, want, wfound = _emulated_query(name)
+    assert found == int(wfound)
+    assert torch.equal(result, want)
+    jr, jf = _jax_decode(name, hf, plan)
+    assert found == jf
+    np.testing.assert_array_equal(result.numpy(), jr)
+    assert found == (-1 if raw is None else raw.size)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_emulated_query_reads_each_edge_once(name):
+    # every node n in 1..size-1 has its edge walked: a tree edge once in
+    # the grid, a prefix edge (n a multiple of 2^B) once a block that
+    # shares it; at level ctz(n), two loads where it is odd; so the
+    # distinct edges read what chip_smoke.py spec_query_moved counts
+    plan, _r, _f, jumps, _w, _wf = _emulated_query(name)
+    B = spec_query.BLOCK_LEVELS
+    tree = [n for _k, n, _l, part, _b in jumps if part != "prefix"]
+    assert len(tree) == len(set(tree))
+    assert all(n % (1 << B) for n in tree)
+    assert all(n % (1 << B) == 0 for _k, n, _l, part, _b in jumps
+               if part == "prefix")
+    assert all(k == _ctz(n) and loads == 1 + k % 2
+               for k, n, loads, _p, _b in jumps)
+    first = {}  # each distinct edge's loads, its first walk
+    for k, n, loads, _p, _b in jumps:
+        first.setdefault(n, (k, loads))
+    assert set(first) == set(range(1, plan.size))
+    moved = 2 * plan.size + sum(
+        spec_double.level_dtype(k - k % 2, plan.height).itemsize * loads
+        for k, loads in first.values())
+    assert moved == _chip_smoke().spec_query_moved(plan.size, plan.levels,
+                                                   plan.height)
+    # beside them, each block's prefix: at most its levels above B
+    blocks = -(-plan.size >> B)
+    prefix = len(jumps) - len(tree)
+    assert prefix - sum(1 for n in first if n % (1 << B) == 0) <= (
+        blocks * max(plan.levels - B, 0))
+
+
+# ---- S1: runs of offsets on the packed table ------------------------------
+
+
+def emulate_all_bits(words, lut_sym, lut_len, *, bits, height, sms=132,
+                     per_sm=4):
+    """The kernel's launch (``csrc/spec_all_bits.cu``) in numpy: the
+    packed table (``pack_table``'s entry) whole in shared memory up to
+    SHARED_HEIGHT, else its first level there and the rest from the packed
+    table; a thread a run of RUN offsets from one 64-bit window,
+    grid-stride over persistent blocks.  Returns (step0, sym, windows that
+    read the device-memory table), checking that every offset is written
+    by one run, every shift is 0..31 and every window ends inside the 64
+    bits, and every word read lies inside ``words``."""
+    packed = onethread.pack_table(lut_sym, lut_len).numpy().astype(
+        np.int64) & 0xFFFF
+    first_bits = min(height, s1.SHARED_HEIGHT)
+    first = packed[:1 << first_bits]
+    w = words.numpy().astype(np.int64) & 0xFFFFFFFF
+    run = s1.RUN
+    runs = -(-bits // run)
+    grid = min(-(-runs // 512), sms * per_sm) * 512
+    owner = np.arange(runs) % grid  # grid-stride: thread g, g + grid, ...
+    assert np.bincount(owner, minlength=1).sum() == runs
+    b0 = np.arange(runs, dtype=np.int64) * run
+    q = b0 >> 5
+    assert q.max() + 1 < w.size
+    window = w[q] | (w[q + 1] << 32)
+    step0 = np.zeros(bits, dtype=np.int64)
+    sym = np.zeros(bits, dtype=np.int64)
+    writes = np.zeros(bits, dtype=np.int64)
+    far = 0
+    for j in range(run):
+        shift = (b0 & 31) + j
+        assert shift.max() <= 31 and shift.max() + height <= 64
+        win = (window >> shift) & ((1 << height) - 1)
+        e = first[win & ((1 << first_bits) - 1)]
+        if height > first_bits:
+            miss = (e & 31) >= s1.SHARED_HEIGHT
+            e = np.where(miss, packed[win], e)
+            far += int(miss[b0 + j < bits].sum())
+        ln = ((e & 31) + 1) & 31
+        b = b0 + j
+        keep = b < bits
+        step0[b[keep]] = np.where(b + ln <= bits, ln, -1)[keep]
+        sym[b[keep]] = (e >> 5)[keep]
+        writes[b[keep]] += 1
+    assert (writes == 1).all()
+    return (torch.from_numpy(step0.astype(np.int16)),
+            torch.from_numpy(sym.astype(np.uint8)), far)
+
+
+def _jax_stage1(words, sym, length, height, bits):
+    b = jnp.arange(bits, dtype=jnp.int32)
+    win = jspec.extract_windows(jnp.asarray(words.numpy().view(np.uint32)), b,
+                                height).astype(jnp.int32)
+    ln = jnp.take(jnp.asarray(length.numpy()), win, mode="clip")
+    sy = jnp.take(jnp.asarray(sym.numpy()), win, mode="clip")
+    return np.asarray(jnp.where(b + ln <= bits, ln, -1)), np.asarray(sy)
+
+
+def _check_all_bits(w, s, ln, bits, height):
+    step0, sym, far = emulate_all_bits(w, s, ln, bits=bits, height=height)
+    want = s1.spec_all_bits_ref(w, s, ln, bits=bits, height=height)
+    assert torch.equal(step0, want[0]) and torch.equal(sym, want[1])
+    js, jy = _jax_stage1(w, s, ln, height, bits)
+    np.testing.assert_array_equal(step0.numpy(), js)
+    np.testing.assert_array_equal(sym.numpy(), jy)
+    return far
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_emulated_all_bits_matches_plain_and_jax(name):
+    _raw_, hf, _tile = stream(name)
+    plan, (w, s, ln) = spec.decode_device_arrays(hf, device="cpu")
+    far = _check_all_bits(w, s, ln, plan.bits, plan.height)
+    if plan.height <= s1.SHARED_HEIGHT:
+        assert far == 0
+
+
+@pytest.mark.parametrize("height,name", [(1, "tiny0"), (9, "text"),
+                                         (14, "fib14"), (15, "fib15"),
+                                         (20, "fib20"), (22, "fib22")])
+@pytest.mark.parametrize("cut", [0, 3, 13])
+def test_emulated_all_bits_at_heights_and_stream_ends(height, name, cut):
+    # a tail shorter than a run and the -1 cut at the stream's end: the
+    # stream's last ``cut`` bits dropped (bits no multiple of RUN)
+    _raw_, hf, _tile = stream(name)
+    plan, (w, s, ln) = spec.decode_device_arrays(hf, device="cpu")
+    assert plan.height == height
+    bits = max(plan.bits - cut, 1)
+    _check_all_bits(w, s, ln, bits, height)
+    step0 = s1.spec_all_bits_ref(w, s, ln, bits=bits, height=height)[0]
+    if cut:
+        assert bits % s1.RUN and (step0[-1] == -1 or step0[-1] <= 1)
+
+
+@pytest.mark.parametrize("name,lengths", [("text", (3, 9)),
+                                          *ps.NO_CODE_CASES])
+def test_zero_length_windows_keep_their_symbol(name, lengths):
+    _raw_, hf, _tile = stream(name)
+    height, s, ln = ps.table_without_codes(hf.tree, lengths)
+    s, ln = torch.from_numpy(s), torch.from_numpy(ln)
+    assert (ln == 0).any()
+    # the entry keeps the symbol whole; length 0 packs as 31
+    e = onethread.pack_table(s, ln)[:1 << height].to(torch.int32) & 0xFFFF
+    assert torch.equal(e >> 5, s.to(torch.int32))
+    assert torch.equal(((e & 31) + 1) & 31, ln)
+    plan, (w, _s, _ln) = spec.decode_device_arrays(hf, device="cpu")
+    far = _check_all_bits(w, s, ln, plan.bits, height)
+    step0 = s1.spec_all_bits_ref(w, s, ln, bits=plan.bits, height=height)[0]
+    assert (step0 == 0).any()
+    if height > s1.SHARED_HEIGHT:
+        assert far > 0
