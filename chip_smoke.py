@@ -34,7 +34,8 @@ seeded streams, drawn in this order from one generator:
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
-  1. device   the card's name and power limit (nvidia-smi)
+  1. device   the card's name and power limit (nvidia-smi), and the host
+              CPU (lscpu, /proc/cpuinfo)
   2. build    the kernels from csrc/ with nvcc, and the build time
   3. kernels  each kernel against its plain torch version on the same CUDA
               inputs, at the shapes its decode path gives it: K1-K4 on (a),
@@ -243,7 +244,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               pipeline's program by CUDA events and the spec_xla wall
               beside lane_wide's program and wall) and an [onethread] line for
               (a), (f) and (g) (card time against the chain floor, a
-              dependent lookup a symbol, in cycles a symbol)
+              dependent lookup a symbol, in cycles a symbol).
+              The suites: a corpus directory of the reference's five
+              suite corpora (hello, paper1, news, book2, kjv.txt) as
+              seeded text at their real sizes (SUITE_CORPORA), encoded by
+              the host encoder beside their raw files, under
+              HUFF_FILES_DIR; the host C++ runtime built with g++; every
+              serial decoder on every corpus through evalandshow (a
+              checked run and the minimum of SUITE_REPEATS more); then,
+              the launch counts set to 0 just before and read just after,
+              the suites bigtable, quickgraph1, quickgraph2, opt, batch
+              and testall through the CLI's run_suite on the card and the
+              verify command, each suite's rows and wall printed ([suite]
+              lines): every row byte-equal to its raw file (a mismatch
+              raises), every kernel of SUITE_PATH launched; then the DFA
+              table builds on kjv.txt's tree at jumpbits 1-14 (host ms)
+              and each device row's speedup over simple a corpus
   5. probes   the four probe kernels (probe_inc, probe_arith, probe_gather,
               k4_stripped) against their plain versions at every shape of
               the scripts/ sites they replace (the chained gathers also on
@@ -362,6 +378,18 @@ LONG_SYMBOLS = 30
 
 DEVICE = "cuda"
 
+#: the suite phase's corpus directory: the reference's five MAINRUN_NAMES
+#: as seeded text (text_like, drawn from SUITE_SEED) at the real corpora's
+#: sizes (kjv.txt's from its `.huff` header, as KJV_BYTES), each encoded
+#: by the port's host encoder with its raw file beside it
+SUITE_SEED = 22
+SUITE_CORPORA = {"hello": 12, "paper1": PAPER1_BYTES, "news": 377_109,
+                 "book2": 610_856, "kjv.txt": KJV_BYTES}
+#: the suites run through run_suite on the card, and their --repeats
+SUITES = ("bigtable", "quickgraph1", "quickgraph2", "opt", "batch",
+          "testall")
+SUITE_REPEATS = 1
+
 _CSRC = "huffmandecoderongpus_tpu_torch/csrc/"
 _PWS = "huffmandecoderongpus_tpu/ops/pallas_widescan.py:"
 _PLD = "huffmandecoderongpus_tpu/ops/pallas_lanedfa.py:"
@@ -458,6 +486,13 @@ ONESHOT_PATHS = {"c": MD1_PATH, **{k: ("oneshot",) for k in ONESHOT}}
 #: its plain walk and those with an [onethread] line
 SPEC_PATH = ("spec_all_bits", "spec_tile", "spec_pair", "spec_query")
 YARDSTICKS = ("spec_double",)
+#: the kernels the suites' device rows launch on these corpora: lane_wide
+#: (the one-shot on paper1 and news, K1-K4 on book2 and kjv.txt, the
+#: lane-DFA chain on hello), lane_dfa_pallas (the two scans), spec_xla
+#: (S1-S3) and the batch suite's program
+SUITE_PATH = ("oneshot", "k1_scan2", "k2_compose", "k3_fix2", "k4_compact",
+              "candidate_scan", "lane_scan", "k1_scan2_c01", "k3_fix2_c01",
+              *SPEC_PATH)
 SPEC_DECODED = "abcdefghi"
 SPEC_CHECKED = "abi"
 SPEC_TIMED = "abc"
@@ -2795,6 +2830,146 @@ def drive_batch(torch, mods, hfs, small, trio, dev, card):
     return total
 
 
+#: the registry's host decoders (models/serial.py, models/dfa.py)
+SERIAL = ("justreaddata", "simple", "simple_rp", "bigtable_v1",
+          "bigtable_simple", "bigtable_multisym", "jumptable", "lin")
+
+
+def host_cpu() -> str:
+    """The host CPU as lscpu gives it (model name, vendor, family and
+    model, CPUs), with /proc/cpuinfo's model name beside it, since a
+    host may report its model name as unknown to lscpu."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True,
+                             text=True).stdout
+    except OSError:
+        out = ""
+    fields = dict(line.split(":", 1) for line in out.splitlines()
+                  if ":" in line)
+    parts = [f"lscpu {k} {fields[k].strip()}" for k in (
+        "Model name", "Vendor ID", "CPU family", "Model", "CPU(s)")
+        if k in fields]
+    info = pathlib.Path("/proc/cpuinfo")
+    names = [line.split(":", 1)[1].strip()
+             for line in (info.read_text().splitlines() if info.exists()
+                          else []) if line.startswith("model name")]
+    if names:
+        parts.append(f"/proc/cpuinfo model name {names[0]}")
+    return ", ".join(parts) or "not reported"
+
+
+def run_printed(what, fn):
+    """fn() with its standard output taken and printed after it, each line
+    marked [suite], then its wall; returns what fn returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            value = fn()
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"[suite] {line}")
+    wall = time.perf_counter() - t0
+    print(f"[suite] {what}: {wall:.1f} s wall, "
+          f"{len(buf.getvalue().splitlines())} lines", flush=True)
+    return value
+
+
+def drive_suites(torch, mods, cpu):
+    """Phase 4's suites.  A corpus directory of the five MAINRUN_NAMES
+    (SUITE_CORPORA, under HUFF_FILES_DIR); every serial decoder on every
+    corpus (evalandshow: a checked run, then the minimum of SUITE_REPEATS
+    more); then, the launch counts set to 0 just before and read just
+    after, the SUITES through run_suite on the card and the verify command,
+    each suite's rows and wall printed; every kernel of SUITE_PATH must
+    have launched.  Then the DFA table builds on kjv.txt's tree at jumpbits
+    1-14 (host ms) and each device row's speedup over simple a corpus
+    (bigtable's rows).  A row that decodes wrong raises DecodeMismatch;
+    returns the suites' launches."""
+    import os
+    import tempfile
+
+    from huffmandecoderongpus_tpu_torch import data, native
+    from huffmandecoderongpus_tpu_torch.harness import cli, evalandshow
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes, write_huff
+    from huffmandecoderongpus_tpu_torch.models import dfa, get_decoder
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"[suite] host library {native.lib_path().name} built and loaded "
+          f"in {time.perf_counter() - t0:.1f} s; host CPU {cpu}", flush=True)
+    saved = {k: os.environ.get(k) for k in ("HUFF_FILES_DIR",
+                                            "HUFF_CACHE_DIR")}
+    rng = np.random.default_rng(SUITE_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = pathlib.Path(tmp) / "files"
+        files.mkdir()
+        t0 = time.perf_counter()
+        for name, n in SUITE_CORPORA.items():
+            raw = text_like(rng, n)
+            raw.tofile(files / name)
+            write_huff(files / f"{name}.huff", encode_bytes(raw))
+        print(f"[suite] corpora {SUITE_CORPORA} (bytes) written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        os.environ["HUFF_FILES_DIR"] = str(files)
+        os.environ["HUFF_CACHE_DIR"] = str(pathlib.Path(tmp) / "cache")
+        try:
+            if data.available_corpora() != data.MAINRUN_NAMES:
+                raise AssertionError(f"corpora {data.available_corpora()}")
+            tds = [data.load_test_data(n) for n in data.MAINRUN_NAMES]
+            run_printed("every serial decoder on every corpus", lambda: [
+                evalandshow(get_decoder(d, device=DEVICE), td,
+                            repeats=SUITE_REPEATS)
+                for d in SERIAL for td in tds])
+            for m in mods.values():
+                m.launches = 0
+            results = {suite: run_printed(suite, lambda suite=suite:
+                                        cli.run_suite(suite, SUITE_REPEATS,
+                                                      device=DEVICE))
+                     for suite in SUITES}
+            run_printed("verify command", lambda: cli.main(
+                ["verify", str(files / "kjv.txt.huff"),
+                 str(files / "kjv.txt"), "--device", DEVICE]))
+            torch.cuda.synchronize()
+            ran = {n: m.launches for n, m in mods.items() if m.launches}
+            print(f"[suite] launches in the suites and verify: {ran}",
+                  flush=True)
+            missing = [n for n in SUITE_PATH if not ran.get(n)]
+            if missing:
+                raise AssertionError(f"the suites launched no {missing}")
+            tree = tds[-1].cd.tree
+            builds = {}
+            for k in range(1, 15):
+                for what, build in (("jump", dfa.build_jump_dfa),
+                                    ("lin", dfa.build_lin_dfa)):
+                    t0 = time.perf_counter()
+                    build(tree, k)
+                    builds[f"{what} {k}"] = (time.perf_counter() - t0) * 1e3
+            print("[suite] DFA table builds on kjv.txt's tree (host ms): "
+                  + "  ".join(f"{k} {v:.2f}" for k, v in builds.items())
+                  + f"; host CPU {cpu}", flush=True)
+            rows = results["bigtable"]
+            simple = {r.dataset: r.min_seconds for r in rows
+                      if r.decoder == "simple"}
+            for c in data.MAINRUN_NAMES:
+                print(f"[suite] {c}: speedup over simple (bigtable rows) "
+                      + "  ".join(f"{r.decoder} "
+                                  f"{simple[c] / r.min_seconds:.3f}x"
+                                  for r in rows
+                                  if r.dataset == c and r.decoder != "simple")
+                      + f"; host CPU {cpu}", flush=True)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return ran
+
+
 def main() -> int:
     import torch
 
@@ -2850,6 +3025,11 @@ def main() -> int:
             "spec_tile": spec_tile, "spec_pair": spec_pair,
             "spec_query": spec_query, "onethread": onethread}
     dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+
+    def phase_done(what):
+        print(f"[phase] {what} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
     # ---- 1. device ----------------------------------------------------------
     card = subprocess.run(
@@ -2859,6 +3039,8 @@ def main() -> int:
     print(f"[device] {card}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}", flush=True)
+    cpu = host_cpu()
+    print(f"[device] host CPU {cpu}", flush=True)
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2946,6 +3128,8 @@ def main() -> int:
         checked.setdefault(k, {}).update(check_onethread(
             torch, *hfs[k], dev, card_ms["spec"].get(f"onethread {k}")))
 
+    phase_done("3 kernels")
+
     # ---- 4. the slice through the registry ----------------------------------
     def drive(decoder, k):
         """One decode of stream k, the launch counts set to 0 just before
@@ -3017,13 +3201,16 @@ def main() -> int:
     for route in (drive_indexed(torch, mods, hfs, idx, dev, card),
                   drive_batch(torch, mods, hfs, small, trio, dev, card),
                   drive_sync(torch, mods, hfs, dev, card),
-                  drive_spec(torch, mods, hfs, dev, card, card_ms["spec"])):
+                  drive_spec(torch, mods, hfs, dev, card, card_ms["spec"]),
+                  drive_suites(torch, mods, cpu)):
         for n, c in route.items():
             launches[n] += c
     if min(c for n, c in launches.items() if n not in YARDSTICKS) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    phase_done("4 decode routes and suites")
     # the encoder's launches are counted apart from the decode paths' check
     launches.update(drive_encoder(torch, hfs, dev, card))
+    phase_done("4 encoder")
 
     # ---- 5. the probes: their kernels, the probe programs, prof ------------
     probe_rows = check_probe_kernels(torch, hfs, dev, card_ms["probe"])
@@ -3032,6 +3219,8 @@ def main() -> int:
     print("[launch] " + hw_dispatch.split_line(hw_dispatch.host_split(dev),
                                                hw_dispatch.host_calls(dev))
           + f"; card {card}", flush=True)
+
+    phase_done("5 probes")
 
     # ---- 6. result ----------------------------------------------------------
     # each kernel's times from the stream named in KERNELS (the lane-DFA

@@ -75,6 +75,13 @@ class HuffFile:
         """Size of the serialized container."""
         return 4 + _HEADER.size + 9 * self.nodes + self.payload_bytes
 
+    def payload_padded(self, pad: int = 3) -> np.ndarray:
+        """Payload with ``pad`` zero bytes appended, so fixed-width window
+        reads past the last bit are safe (reference: huffdata.c:58-64)."""
+        out = np.zeros(self.payload_bytes + pad, dtype=np.uint8)
+        out[: self.payload_bytes] = self.payload
+        return out
+
 
 def read_huff(path, load_index: bool = True) -> HuffFile:
     """Parse a `.huff` file; raises ValueError on a malformed one.  With
@@ -260,6 +267,35 @@ def table_min_depth(tree: np.ndarray) -> int:
     return int(_leaf_depths(tree).min())  # a tree has at least one leaf
 
 
+def tree_size(tree: np.ndarray, root: int = 0) -> int:
+    """Number of nodes in the subtree under ``root`` (huffdata.c:232-238)."""
+    count, stack = 0, [root]
+    while stack:
+        node = stack.pop()
+        count += 1
+        if tree[node, 1] != LEAF:
+            stack += [int(tree[node, 1]), int(tree[node, 2])]
+    return count
+
+
+def table_num_groups(tree: np.ndarray, bits: int, root: int = 0) -> int:
+    """Number of ``bits``-bit jump tables a DFA decomposition needs: one
+    for the root and one for each internal node at a depth that is a
+    multiple of ``bits`` (tableNumGroupsToGo, huffdata.c:242-256)."""
+    count, stack = 1, [(root, bits)]
+    while stack:
+        node, down = stack.pop()
+        if tree[node, 1] == LEAF:
+            continue
+        if down == 0:
+            count += 1
+            stack.append((node, bits))
+        else:
+            stack += [(int(tree[node, 1]), down - 1),
+                      (int(tree[node, 2]), down - 1)]
+    return count
+
+
 def tree_codes(tree: np.ndarray):
     """``(code, length, present)``, each of size 256: bit k of ``code[s]``
     is the k-th edge from the root to symbol s's leaf (LSB-first, the
@@ -281,6 +317,55 @@ def tree_codes(tree: np.ndarray):
             stack.append((int(tree[node, 1]), prefix, depth + 1))
             stack.append((int(tree[node, 2]), prefix | (1 << depth), depth + 1))
     return code, length, present
+
+
+def _printable(sym: int) -> str:
+    return chr(sym) if 32 <= sym < 127 else f"\\x{sym:02x}"
+
+
+@dataclasses.dataclass
+class HuffTree:
+    """A node array with its metrics and its printouts."""
+
+    tree: np.ndarray
+
+    @property
+    def nodes(self) -> int:
+        return int(self.tree.shape[0])
+
+    @property
+    def height(self) -> int:
+        return table_height(self.tree)
+
+    @property
+    def min_depth(self) -> int:
+        return table_min_depth(self.tree)
+
+    @property
+    def size(self) -> int:
+        return tree_size(self.tree)
+
+    def num_groups(self, bits: int) -> int:
+        return table_num_groups(self.tree, bits)
+
+    def format_codes(self) -> str:
+        """One line a symbol: its code, first edge first, and the symbol
+        (listHuffCodes, huffdata.c:133-146)."""
+        code, length, present = tree_codes(self.tree)
+        return "\n".join(
+            "".join("1" if (int(code[s]) >> k) & 1 else "0"
+                    for k in range(int(length[s])))
+            + f" '{_printable(s)}'" for s in range(256) if present[s])
+
+    def format_table(self) -> str:
+        """The node array, a line a node (showHuffTable,
+        huffdata.c:291-300)."""
+        lines = []
+        for i in range(self.nodes):
+            sym, z, o = (int(v) for v in self.tree[i])
+            lines.append(f"{i}   '{_printable(sym)}'" if z == LEAF
+                         else f"{i}   {z}   {o}")
+        return "\n".join(lines)
 
 
 def build_tree(freqs: np.ndarray) -> np.ndarray:

@@ -23,7 +23,9 @@ def pes_numpy(hf, param=None, *, device) -> np.ndarray:
     return speculative_decode_numpy(hf)
 
 
-@register("spec_xla", backend="cuda")
+#: a slow contrast row in the suites: a few seconds of timing, not the
+#: harness's default budget (the JAX entry's cap)
+@register("spec_xla", backend="cuda", suite_budget_s=5.0)
 def spec_xla(hf, param=None, *, device) -> np.ndarray:
     """The pipeline on the decoder's device (fastgpu.cu role): S1, S2 a
     level and S3 on the card, their plain versions on the CPU.  A timed

@@ -38,6 +38,7 @@ from huffmandecoderongpus_tpu_torch.ops.spec_double import level_dtype
 from huffmandecoderongpus_tpu_torch.ops.spec_pair import spec_pair
 from huffmandecoderongpus_tpu_torch.ops.spec_query import spec_query
 from huffmandecoderongpus_tpu_torch.ops.spec_tile import s2_plan, spec_tile
+from huffmandecoderongpus_tpu_torch.utils.debug import debug_enabled, dump
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,13 +81,21 @@ def double_levels(step0, *, bits: int, height: int, levels: int,
 def speculative_stages(words, lut_sym, lut_len, *, bits: int, size: int,
                        height: int, levels: int) -> dict:
     """Every stage's outputs: ``step0`` and ``sym`` (S1), ``kept`` (S2),
-    ``result`` and ``found`` (S3)."""
+    ``result`` and ``found`` (S3); under ``HUFF_DEBUG`` each is dumped
+    (``utils.debug``), as the reference's debug builds print bitdecode,
+    bitsteps and bitsindex."""
     step0, sym = spec_all_bits(words, lut_sym, lut_len, bits=bits,
                                height=height)
     kept = double_levels(step0, bits=bits, height=height, levels=levels,
                          size=size)
     result, found = spec_query(kept, sym, bits=bits, size=size,
                                levels=levels)
+    if debug_enabled():
+        dump("S1 sym", sym)
+        for i, level in enumerate(kept):
+            dump(f"S2 level {2 * i}", level)
+        dump("S3 result", result)
+        dump("S3 found", found)
     return dict(step0=step0, sym=sym, kept=kept, result=result, found=found)
 
 

@@ -195,3 +195,29 @@ def test_read_index_rejects_malformed(tmp_path, corrupt, match):
     path.write_bytes(corrupt(path.read_bytes()))
     with pytest.raises(ValueError, match=match):
         huffio.read_index(path)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES) + ["md1", "two", "s128"])
+def test_tree_metrics_match_jax(name):
+    _, hf = make(name)
+    tree = hf.tree
+    assert huffio.tree_size(tree) == jtree.tree_size(tree) == hf.nodes
+    for bits in (1, 2, 3, 4, 8, 14):
+        assert huffio.table_num_groups(tree, bits) == \
+            jtree.table_num_groups(tree, bits)
+    got, want = huffio.HuffTree(tree), jtree.HuffTree(tree)
+    assert (got.nodes, got.height, got.min_depth, got.size) == (
+        want.nodes, want.height, want.min_depth, want.size)
+    assert got.num_groups(4) == want.num_groups(4)
+    assert got.format_codes() == want.format_codes()
+    assert got.format_table() == want.format_table()
+
+
+@pytest.mark.parametrize("pad", [0, 3, 4])
+def test_payload_padded_matches_jax(pad):
+    _, hf = make("md3")
+    got = huffio.HuffFile(tree=hf.tree, bits=hf.bits,
+                          uncompressed_size=hf.uncompressed_size,
+                          payload=hf.payload).payload_padded(pad)
+    np.testing.assert_array_equal(got, hf.payload_padded(pad))
+    assert got.size == hf.payload_bytes + pad

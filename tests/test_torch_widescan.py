@@ -275,7 +275,9 @@ def test_registry():
     assert set(all_decoders(device="cpu")) == {
         "lane_wide", "lane_oneshot", "lane_dfa", "lane_dfa_pallas",
         "lane_dfa_sync", "spec_xla", "spec_xla_cpu", "pes_numpy",
-        "onethread_device"}
+        "onethread_device", "justreaddata", "simple", "simple_rp",
+        "bigtable_v1", "bigtable_simple", "bigtable_multisym", "jumptable",
+        "lin"}
     with pytest.raises(TypeError):
         get_decoder("lane_wide")  # the device is never picked implicitly
 
