@@ -259,7 +259,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
               lines): every row byte-equal to its raw file (a mismatch
               raises), every kernel of SUITE_PATH launched; then the DFA
               table builds on kjv.txt's tree at jumpbits 1-14 (host ms)
-              and each device row's speedup over simple a corpus
+              and each device row's speedup over simple a corpus.
+              The multi-device layer ("sharded"), on virtual shards of
+              the one card (a device named D times in make_mesh), each
+              decode counted on its own: spec_sharded, lane_sharded and
+              lane_sharded_wide through the registry (a shard a visible
+              card) on (a); decode_sharded, decode_lane_sharded and
+              decode_lane_sharded_wide on (a) and (b) at 1, 2 and 4
+              shards, each shard launching its path once (the block
+              decode no kernel, the lane-DFA body candidate_scan and
+              lane_scan, the wide body K1, K2 twice, K3 and K4);
+              decode_lane_sharded_indexed on the indexed (a) at 2 and 4
+              shards (k1_main and K4 a shard); (c) (md 1) through
+              decode_lane_sharded_wide's fallback to the lane-DFA body;
+              each shard's K1-K4 at 2 shards on (a) against their plain
+              versions, tolerance 0; a two-process gloo job sharing the
+              card (two shards a process) and a one-process NCCL group
+              (two shards) through decode_sharded_multihost, both
+              processes of this script run with --multihost-worker, each
+              printing its bytes' SHA-256, equal to the input's; then
+              each decode's program (CUDA events) and wall beside
+              lane_wide's program on the same stream, and the scaling
+              sweep's table on (a) (lane and wide paths) at 1, 2 and 4
+              shards ([sharded] lines)
   5. probes   the four probe kernels (probe_inc, probe_arith, probe_gather,
               k4_stripped) against their plain versions at every shape of
               the scripts/ sites they replace (the chained gathers also on
@@ -2750,6 +2772,282 @@ def drive_indexed(torch, mods, hfs, idx, dev, card):
     return total
 
 
+#: the sharded phase: the streams each sharded decoder decodes, the virtual
+#: shards of the card it runs on, and the kernels a shard launches a decode
+#: (K2 twice: the shard's composite map, then its entries; the block
+#: decode is torch ops, no kernel of its own)
+SHARDED_STREAMS = "ab"
+SHARDS = (1, 2, 4)
+SHARDED_PATHS = {
+    "spec_sharded": {},
+    "lane_sharded": {"candidate_scan": 1, "lane_scan": 1},
+    "lane_sharded_wide": {"k1_scan2": 1, "k2_compose": 2, "k3_fix2": 1,
+                          "k4_compact": 1},
+}
+#: the index-sharded decode's shards, and its kernels a shard
+INDEXED_SHARDS = (2, 4)
+#: walls and CUDA-event program runs a sharded decode is timed over
+SHARDED_WALLS, SHARDED_RUNS = 3, 5
+#: the multi-process jobs: the worker mode's flag, the stream (news-sized
+#: text from its own seed), the shards a process and the workers' limit
+MH_ARG = "--multihost-worker"
+MH_SEED, MH_SHARDS, MH_TIMEOUT = 23, 2, 300
+
+
+def mh_stream():
+    """The multi-process jobs' stream, drawn the same in every process."""
+    return text_like(np.random.default_rng(MH_SEED), NEWS_BYTES)
+
+
+def mh_worker(args) -> int:
+    """``chip_smoke.py --multihost-worker INIT NUM PID SHARDS``: join the
+    job, decode mh_stream() with decode_sharded_multihost over SHARDS
+    virtual shards of cuda:0 a process, print one JSON line (pid, backend,
+    sha256 of the bytes, equal to the input)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
+    from huffmandecoderongpus_tpu_torch.parallel.mesh import distributed_init
+    from huffmandecoderongpus_tpu_torch.parallel.multihost import (
+        decode_sharded_multihost,
+        global_mesh,
+    )
+
+    init, num, pid, shards = args
+    distributed_init(init, int(num), int(pid))
+    mesh = global_mesh(devices=["cuda:0"] * int(shards))
+    raw = mh_stream()
+    out = decode_sharded_multihost(encode_bytes(raw), mesh=mesh)
+    print(json.dumps({"pid": int(pid), "backend": dist.get_backend(),
+                      "shards": mesh.size,
+                      "sha256": hashlib.sha256(out.tobytes()).hexdigest(),
+                      "equal": bool(np.array_equal(out, raw))}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def start_mh_jobs():
+    """Start the two-process job (gloo: the processes share the card, two
+    shards each) and the one-process group (NCCL: its process has the
+    card); returns (the backend each should pick, the process)."""
+    import socket
+
+    jobs = []
+    for backend, num in (("gloo", 2), ("nccl", 1)):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        for pid in range(num):
+            jobs.append((backend, subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()),
+                 MH_ARG, f"tcp://127.0.0.1:{port}", str(num), str(pid),
+                 str(MH_SHARDS)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return jobs
+
+
+def finish_mh_jobs(jobs):
+    """Wait for the jobs (each process at most MH_TIMEOUT s); raise unless
+    every process exited 0 with the input's SHA-256."""
+    import hashlib
+
+    want = hashlib.sha256(mh_stream().tobytes()).hexdigest()
+    try:
+        for backend, p in jobs:
+            out, err = p.communicate(timeout=MH_TIMEOUT)
+            lines = out.strip().splitlines()
+            if p.returncode or not lines:
+                raise AssertionError(f"{backend} worker failed (rc "
+                                     f"{p.returncode}): {err[-2000:]}")
+            res = json.loads(lines[-1])
+            print(f"[sharded] decode_sharded_multihost, {backend} process "
+                  f"{res['pid']} of a {res['shards']}-shard mesh on "
+                  f"{NEWS_BYTES} bytes: sha256 {res['sha256']}, equal to the "
+                  f"input: {res['equal']}", flush=True)
+            if res["backend"] != backend:
+                raise AssertionError(f"a worker picked {res['backend']}, "
+                                     f"expected {backend}")
+            if res["sha256"] != want or not res["equal"]:
+                raise AssertionError(f"{backend} worker decoded wrong bytes")
+    finally:
+        for _b, p in jobs:
+            p.kill()
+            p.wait()
+
+
+def check_wide_shards(torch, trace, st):
+    """Each shard's K1-K4 of a traced ``lane_sharded_wide_runner`` run
+    against their plain versions on the same CUDA inputs, tolerance 0;
+    returns {kernel: {"err": ...}} over the shards."""
+    from huffmandecoderongpus_tpu_torch.ops import k1_scan2, k2_compose
+    from huffmandecoderongpus_tpu_torch.ops import k3_fix2, k4_compact
+
+    p = st["plan"]
+    k3 = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"], C0=st["C0"],
+              C1=st["C1"], NS=st["NS"])
+    k1 = dict(k3, B=p["B"], H=st["H"], steps=p["steps"])
+    errs = dict.fromkeys(("k1_scan2", "k2_compose", "k3_fix2", "k4_compact"),
+                         0)
+    for sh in trace["shards"]:
+        wm, tab, lim = sh["inputs"]
+        exmap = sh["k1"][3]
+        rs, rv = k3_fix2.k3_fix2_ref(wm, tab, sh["entry"], *sh["cut"],
+                                     sh["k1"][0].clone(), sh["k1"][1].clone(),
+                                     **k3)
+        for kname, got, want in (
+                ("k1_scan2", sh["k1"], k1_scan2.k1_scan2_ref(wm, tab, lim,
+                                                             **k1)),
+                ("k2_compose", (sh["tot"], sh["entry"]),
+                 (k2_compose.k2_compose_ref(exmap, 0)[1],
+                  k2_compose.k2_compose_ref(exmap, sh["start"])[0])),
+                ("k3_fix2", sh["k3"], (rs, rv)),
+                ("k4_compact", (sh["k4"],),
+                 (k4_compact.k4_compact_ref(rs, rv, ORP=p["ORP"]),))):
+            errs[kname] = max(errs[kname], max_abs_err(torch, got, want))
+    print("[sharded] lane_sharded_wide (a) at 2 shards: each shard's K1-K4 "
+          f"against their plain versions on the card, max_abs_err {errs} "
+          "(tolerance 0)", flush=True)
+    if any(errs.values()):
+        raise AssertionError(f"a shard's kernel differs: {errs}")
+    return {k: {"err": e} for k, e in errs.items()}
+
+
+def drive_sharded(torch, mods, hfs, idx, dev, card, checked):
+    """Phase 4 of the multi-device layer, on virtual shards of the one card:
+    spec_sharded, lane_sharded and lane_sharded_wide through the registry
+    (one shard a visible card), then decode_sharded, decode_lane_sharded
+    and decode_lane_sharded_wide on (a) and (b) at SHARDS virtual shards,
+    the index-sharded decode on the indexed (a) at INDEXED_SHARDS, (c)
+    (md 1) through lane_sharded_wide's fallback, each decode counted on its
+    own (every shard launches its path once); each shard's K1-K4 at 2
+    shards on (a) against their plain versions (into ``checked``); the
+    multi-process jobs; then each decode's program (CUDA events) and wall
+    beside lane_wide's program on the stream, and the scaling sweep on (a)
+    at SHARDS.  Raises on any failure; returns the launches summed."""
+    from huffmandecoderongpus_tpu_torch.harness.scaling import (
+        format_sweep,
+        scaling_sweep,
+    )
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+    from huffmandecoderongpus_tpu_torch.ops import widescan as ws
+    from huffmandecoderongpus_tpu_torch.parallel import (
+        block_decode,
+        decode_lane_sharded,
+        decode_lane_sharded_indexed,
+        decode_lane_sharded_wide,
+        decode_sharded,
+        lane_sharded,
+        make_mesh,
+    )
+
+    jobs = start_mh_jobs()
+    total = dict.fromkeys(mods, 0)
+
+    def add(ran):
+        for n, c in ran.items():
+            total[n] += c
+
+    def path(name, D):
+        return {n: c * D for n, c in SHARDED_PATHS[name].items()}
+
+    cards = torch.cuda.device_count()
+    name, r, h = hfs["a"]
+    for dec in SHARDED_PATHS:
+        out, ran = counted(torch, mods, lambda dec=dec: get_decoder(
+            dec, device=DEVICE)(h))
+        expect(f"{dec} (registry, {cards} card) {name}",
+               np.array_equal(out, r), ran, path(dec, cards))
+        add(ran)
+    fns = {"spec_sharded": decode_sharded, "lane_sharded": decode_lane_sharded,
+           "lane_sharded_wide": decode_lane_sharded_wide}
+    for k in SHARDED_STREAMS:
+        name, r, h = hfs[k]
+        for D in SHARDS:
+            mesh = make_mesh(devices=[dev] * D)
+            for dec, fn in fns.items():
+                out, ran = counted(torch, mods, lambda fn=fn: fn(h, mesh=mesh))
+                expect(f"{dec} {name} at {D} virtual shards",
+                       np.array_equal(out, r), ran, path(dec, D))
+                add(ran)
+    name, r, h = idx["a"]
+    for D in INDEXED_SHARDS:
+        mesh = make_mesh(devices=[dev] * D)
+        out, ran = counted(torch, mods, lambda: decode_lane_sharded_indexed(
+            h, *h.index, mesh=mesh))
+        expect(f"decode_lane_sharded_indexed {name} at {D} virtual shards",
+               np.array_equal(out, r), ran,
+               {"k1_main": D, "k4_compact": D})
+        add(ran)
+    name, r, h = hfs["c"]
+    mesh = make_mesh(devices=[dev] * 2)
+    out, ran = counted(torch, mods, lambda: decode_lane_sharded_wide(
+        h, mesh=mesh))
+    expect(f"decode_lane_sharded_wide {name} at 2 virtual shards (md 1: "
+           "the lane-DFA sharded fallback)", np.array_equal(out, r), ran,
+           path("lane_sharded", 2))
+    add(ran)
+    # each shard's kernels against their plain versions (not counted)
+    name, r, h = hfs["a"]
+    run, materialize = lane_sharded.lane_sharded_wide_runner(
+        h, mesh=make_mesh(devices=[dev] * 2))
+    trace = {}
+    if not np.array_equal(materialize(run(trace))[0], r):
+        raise AssertionError("traced lane_sharded_wide run decoded wrong")
+    checked["a, 2 shards"] = check_wide_shards(
+        torch, trace, lane_sharded.wide_sharded_staging(h, 2, device=dev))
+    del trace
+    finish_mh_jobs(jobs)
+
+    # times: each decode's program by CUDA events and its wall, beside the
+    # unsharded lane_wide program on the same stream
+    for k in SHARDED_STREAMS:
+        name, r, h = hfs[k]
+        st = ws.stage_widescan_inputs(h, device=dev)
+        args = ws.program_args(st)
+        ts = event_ms(lambda: ws.wide_decode_program(
+            st["words"], st["tab"], st["lim"], **args), 1 + SHARDED_RUNS)[1:]
+        wide = statistics.median(ts)
+        del st
+        words, lut_sym, lut_len, height = block_decode.stage_block(h)
+        staged = [torch.from_numpy(a).to(dev)
+                  for a in (words, lut_sym, lut_len)]
+        for D in SHARDS:
+            mesh = make_mesh(devices=[dev] * D)
+            programs = {
+                "spec_sharded": lambda: block_decode.decode_sharded_arrays(
+                    *staged, bits=h.bits, size=h.uncompressed_size,
+                    height=height, mesh=mesh),
+                "lane_sharded": lane_sharded.lane_sharded_runner(
+                    h, mesh=mesh)[0],
+                "lane_sharded_wide": lane_sharded.lane_sharded_wide_runner(
+                    h, mesh=mesh)[0]}
+            for dec, fn in fns.items():
+                ts = event_ms(programs[dec], 1 + SHARDED_RUNS)[1:]
+                wall, wmin = wall_ms(torch, lambda fn=fn: fn(h, mesh=mesh),
+                                     runs=SHARDED_WALLS)
+                print(f"[sharded] {dec} {name} at {D} virtual shards: "
+                      f"program median {statistics.median(ts):.4f} ms (min "
+                      f"{min(ts):.4f}) over {SHARDED_RUNS} runs, wall median "
+                      f"{wall:.4f} ms (min {wmin:.4f}) over {SHARDED_WALLS}; "
+                      f"lane_wide's program {wide:.4f} ms; card {card}",
+                      flush=True)
+            del programs
+        del staged
+        torch.cuda.empty_cache()
+    name, r, h = hfs["a"]
+    for sweep_path in ("lane", "wide"):
+        points = scaling_sweep(h, r, sizes=list(SHARDS), repeats=SHARDED_WALLS,
+                               path=sweep_path, devices=[dev] * max(SHARDS))
+        print(f"[sharded] scaling sweep on {name} ({sweep_path} path, "
+              f"virtual shards of one card: the cost of sharding, not "
+              f"scaling; card {card}):", flush=True)
+        for line in format_sweep(points).splitlines():
+            print(f"[sharded]   {line}", flush=True)
+    return total
+
+
 def drive_batch(torch, mods, hfs, small, trio, dev, card):
     """Phase 4 of the batch route: the five small streams in one program
     (auto-split keeps them together), (f), (g) and the book2-sized one with
@@ -2983,6 +3281,8 @@ def main() -> int:
     if not csrc.is_dir():
         print(f"chip_smoke: no {csrc} beside this script", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == [MH_ARG]:
+        return mh_worker(sys.argv[2:])
     from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
     from huffmandecoderongpus_tpu_torch.models import get_decoder
     from huffmandecoderongpus_tpu_torch.ops import (
@@ -3208,6 +3508,10 @@ def main() -> int:
     if min(c for n, c in launches.items() if n not in YARDSTICKS) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     phase_done("4 decode routes and suites")
+    for n, c in drive_sharded(torch, mods, hfs, idx, dev, card,
+                              checked).items():
+        launches[n] += c
+    phase_done("4 sharded")
     # the encoder's launches are counted apart from the decode paths' check
     launches.update(drive_encoder(torch, hfs, dev, card))
     phase_done("4 encoder")

@@ -24,13 +24,18 @@ Layering (bottom-up):
   models    — the decoder registry: the host decoders (``serial``,
               ``dfa``), the speculative pipeline, the one-thread decode and
               the lane decoders (``lane_wide``, ``lane_oneshot``,
-              ``lane_dfa``, ``lane_dfa_pallas``, ``lane_dfa_sync``)
+              ``lane_dfa``, ``lane_dfa_pallas``, ``lane_dfa_sync``) and
+              the sharded decoders
+  parallel  — the shard mesh (virtual shards of one device, or a
+              ``torch.distributed`` job), the block-parallel and the
+              lane-sharded decodes, the multi-process decode
   data      — the reference's corpora (``HUFF_FILES_DIR``) as TestData pairs
   probes    — the hardware probes of ``scripts/``, on the card
   harness   — timers, evaluate (verify + min-of-N), the truncation sweeps,
               the stage profiler, and the command line (the reference's
               suites; ``encode``, ``decode``, ``verify``, ``info``,
-              ``bits``, ``corpora``, ``decoders``, ``prof``, ``probe``)
+              ``bits``, ``corpora``, ``decoders``, ``prof``, ``probe``,
+              ``scaling``), the scaling sweep
   utils     — env-gated debug dumps
 
 This package never imports jax.

@@ -16,6 +16,8 @@ commands.
         [widescan|lanedfa|speculative] [--lanes G]
     python -m huffmandecoderongpus_tpu_torch probe
         dispatch|k1fixed|k4|gather|vpu|vpu2
+    python -m huffmandecoderongpus_tpu_torch scaling [CORPUS]
+        [lane|wide|block] [--shards N] [--repeats N]
 
 The suites are the JAX package's, which keep mainrun.c's names
 (mainrun.c:512-636): ``default hello peskjv peshello bigtable
@@ -42,7 +44,11 @@ file's) header and tree height, ``bits`` its leading stream bits,
 prints the stage breakdown of one decode of a `.huff` file
 (``harness.profiling``: ``lanedfa`` by default, ``widescan`` or
 ``speculative``).  ``probe`` runs one of the hardware probes (``probes``):
-on the card at its script's sizes, on the CPU at cut sizes.
+on the card at its script's sizes, on the CPU at cut sizes.  ``scaling``
+times a sharded decode of a corpus (default paper1; ``harness.scaling``:
+the ``lane`` path by default, ``wide`` or ``block``) at 1, 2, 4, ...
+shards: the visible cards, or with ``--shards N`` N virtual shards on
+``--device`` (on the CPU one without it).
 
 Every suite and command runs on the card unless ``--device cpu`` is given,
 which runs the kernels' plain versions; ``--device cuda`` without a card
@@ -88,7 +94,7 @@ SUITES = [
     "batch",  # small corpora in one batched device program
 ]
 COMMANDS = ["encode", "decode", "verify", "info", "bits", "corpora",
-            "decoders", "prof", "probe"]
+            "decoders", "prof", "probe", "scaling"]
 #: the corpora of the bigtable, bts and testall suites, in their order
 BIGTABLE_NAMES = ("paper1", "hello", "news", "kjv.txt", "book2")
 
@@ -303,6 +309,27 @@ def prof(src: str, which: str, lanes, device) -> dict:
     return report
 
 
+def scaling(name: str, path: str, repeats: int, shards, device) -> list:
+    """The ``scaling`` command: the sweep's table for corpus ``name``, over
+    ``shards`` virtual shards on ``device``, or the visible cards."""
+    from huffmandecoderongpus_tpu_torch.harness.scaling import (
+        format_sweep,
+        scaling_sweep,
+    )
+
+    dev = require_device(device)
+    if shards is not None:
+        devices = [dev] * shards
+    else:
+        devices = None if dev.type == "cuda" else [dev]
+    td = corpus.load_test_data(name)
+    points = scaling_sweep(td.cd, td.ucd, repeats=repeats, path=path,
+                           devices=devices)
+    print(f"scaling sweep on {name} ({path} path):")
+    print(format_sweep(points))
+    return points
+
+
 def _huff(name: str):
     """A `.huff` path, or a corpus name of ``data``."""
     return read_huff(name) if name.endswith(".huff") else corpus.load_huff(name)
@@ -329,7 +356,8 @@ def main(argv=None) -> None:
                         "bits: [corpus|x.huff] [count]; "
                         "prof: <input.huff> "
                         "[widescan|lanedfa|speculative]; "
-                        "probe: <name>")
+                        "probe: <name>; "
+                        "scaling: [corpus] [lane|wide|block]")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -346,6 +374,9 @@ def main(argv=None) -> None:
                    help="decode: compare with this raw file, then time it")
     p.add_argument("--lanes", type=int, metavar="G", default=None,
                    help="prof: the lane count (default: the decoder's plan)")
+    p.add_argument("--shards", type=int, metavar="N", default=None,
+                   help="scaling: N virtual shards on --device (default: "
+                        "the visible cards; one on the CPU)")
     ns = p.parse_args(argv)
     args = ns.args
 
@@ -425,6 +456,12 @@ def main(argv=None) -> None:
 
         _need(args, 1, "probe dispatch|k1fixed|k4|gather|vpu|vpu2")
         probes.run(args[0], ns.device)
+        return
+
+    if ns.test == "scaling":
+        scaling(args[0] if args else "paper1",
+                args[1] if len(args) > 1 else "lane", ns.repeats,
+                ns.shards, ns.device)
         return
 
     print(f"running test: {ns.test}", file=sys.stderr)

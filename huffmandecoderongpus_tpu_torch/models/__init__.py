@@ -10,7 +10,8 @@ host whatever it is.
 
 ``param`` is the reference's paramdata channel: a decoder's default
 (``jumptable``'s and ``lin``'s jumpbits) unless the call passes one; the
-device decoders read a given ``param`` as their lane count.
+device decoders read a given ``param`` as their lane count, the sharded
+ones as their cap on the shards.
 """
 
 from __future__ import annotations

@@ -42,36 +42,65 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
 )
 
 
-def compose(cnt: torch.Tensor, ex: torch.Tensor):
-    """Chain the per-lane exit maps ``cnt``/``ex`` (H, G) int32: lane 0
-    enters at offset 0, lane g+1 where lane g's chain from its own entry
-    exits.  Returns (entry_off, base, n) (G,) int32 and total (0-d int32):
-    each lane's entry offset, the symbols before it, its own symbols, and
-    all symbols.
+def prefix_maps(cnt: torch.Tensor, ex: torch.Tensor):
+    """(M, C) (H, G) int64: column g the exit offset and the symbols over
+    lanes 0..g for a chain entering lane 0 at each offset, from the
+    per-lane exit maps ``cnt``/``ex`` (H, G) int32.  An exit offset
+    outside [0, H) is read as 0, as the reference's select chain does.
 
     Plain torch: an inclusive prefix scan of the maps by doubling
     (log2(G) steps of (H, G) gathers), where the JAX package folds
-    sqrt(G)-lane groups; the composition is the same.  An exit offset
-    outside [0, H) is read as 0, as the reference's select chain does."""
-    H, G = cnt.shape
-    cn = cnt.to(torch.int64)
-    ex = ex.to(torch.int64)
-    ex = torch.where((ex >= 0) & (ex < H), ex, 0)
+    sqrt(G)-lane groups; the composition is the same."""
+    G = cnt.shape[1]
+    H = cnt.shape[0]
+    C = cnt.to(torch.int64)
+    M = ex.to(torch.int64)
+    M = torch.where((M >= 0) & (M < H), M, 0)
     # column g of (M, C): exit offset and symbols over lanes (g - d, g]
     # for a chain entering the first of them at each offset
-    M, C = ex, cn
     d = 1
     while d < G:
         nxt = M[:, :-d]
         M = torch.cat([M[:, :d], M[:, d:].gather(0, nxt)], dim=1)
         C = torch.cat([C[:, :d], C[:, :-d] + C[:, d:].gather(0, nxt)], dim=1)
         d *= 2
-    zero = torch.zeros(1, dtype=torch.int64, device=cnt.device)
-    entry = torch.cat([zero, M[0, :-1]])
-    base = torch.cat([zero, C[0, :-1]])
-    n = cn.gather(0, entry[None])[0]
+    return M, C
+
+
+def shard_map_of(cnt: torch.Tensor, ex: torch.Tensor, maps=None):
+    """The composite map of G lanes, (exit, count) (H,) int32: for a chain
+    entering the first lane at each offset, its entry offset into the lane
+    after the last, and the symbols it decodes on the way (the JAX
+    ``_stitch``'s shard map).  ``maps``: ``prefix_maps(cnt, ex)``, when
+    the caller has it."""
+    M, C = prefix_maps(cnt, ex) if maps is None else maps
+    return M[:, -1].to(torch.int32), C[:, -1].to(torch.int32)
+
+
+def compose(cnt: torch.Tensor, ex: torch.Tensor, start=0, base=0, *,
+            maps=None):
+    """Chain the per-lane exit maps ``cnt``/``ex`` (H, G) int32: lane 0
+    enters at offset ``start`` (an int or a 0-d tensor; one outside [0, H)
+    is read as 0) with ``base`` symbols before it, lane g+1 where lane g's
+    chain from its own entry exits.  Returns (entry_off, base, n) (G,)
+    int32 and total (0-d int32): each lane's entry offset, the symbols
+    before it, its own symbols, and the symbols through the last lane.
+    ``maps``: ``prefix_maps(cnt, ex)``, when the caller has it."""
+    H = cnt.shape[0]
+    M, C = prefix_maps(cnt, ex) if maps is None else maps
+    dev = cnt.device
+    s = torch.as_tensor(start, dtype=torch.int64, device=dev).reshape(1)
+    s = torch.where((s >= 0) & (s < H), s, 0)
+    b = torch.as_tensor(base, dtype=torch.int64, device=dev).reshape(1)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    row_m = M.index_select(0, s)[0]
+    row_c = C.index_select(0, s)[0]
+    entry = torch.cat([s, row_m[:-1]])
+    lane_base = b + torch.cat([zero, row_c[:-1]])
+    n = cnt.to(torch.int64).gather(0, entry[None])[0]
     i32 = torch.int32
-    return entry.to(i32), base.to(i32), n.to(i32), C[0, -1].to(i32)
+    return (entry.to(i32), lane_base.to(i32), n.to(i32),
+            (b[0] + row_c[-1]).to(i32))
 
 
 def require_device(device) -> torch.device:

@@ -2134,3 +2134,121 @@ def test_profile_speculative_on_cuda(cuda):
     assert list(report) == ["decodeAllBits", "makebigtable", "index_query",
                             "total"]
     assert report["total"] > 0 and min(report.values()) >= 0
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer on the card: virtual shards of one card
+
+
+_SHARDED_PATHS = {
+    "spec_sharded": {},  # torch ops, no kernel of its own
+    "lane_sharded": {"candidate_scan": 1, "lane_scan": 1},
+    "lane_sharded_wide": {"k1_scan2": 1, "k2_compose": 2, "k3_fix2": 1,
+                          "k4_compact": 1},
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SHARDED_PATHS))
+def test_sharded_registry_entries_on_cuda(cuda, name):
+    # one shard a visible card; each shard launches its path once (K2
+    # twice: its composite map, then its entries)
+    from huffmandecoderongpus_tpu_torch.models import get_decoder
+
+    raw = text_like(np.random.default_rng(12), 200_000)
+    hf = encode_bytes(raw)
+    D = torch.cuda.device_count()
+    out, ran = _launched(lambda: get_decoder(name, device=cuda)(hf))
+    np.testing.assert_array_equal(out, raw)
+    assert ran == {k: v * D for k, v in _SHARDED_PATHS[name].items()}
+    hf.uncompressed_size += 7
+    with pytest.raises(RuntimeError, match="decoded"):
+        get_decoder(name, device=cuda)(hf)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_decodes_on_virtual_shards(cuda, D):
+    from huffmandecoderongpus_tpu_torch.parallel import (
+        decode_lane_sharded,
+        decode_lane_sharded_indexed,
+        decode_lane_sharded_wide,
+        decode_sharded,
+        make_mesh,
+    )
+
+    mesh = make_mesh(devices=[cuda] * D)
+    raw = text_like(np.random.default_rng(13), 300_000)
+    hf = encode_bytes(raw)
+    for fn, name in ((decode_sharded, "spec_sharded"),
+                     (decode_lane_sharded, "lane_sharded"),
+                     (decode_lane_sharded_wide, "lane_sharded_wide")):
+        out, ran = _launched(lambda fn=fn: fn(hf, mesh=mesh))
+        np.testing.assert_array_equal(out, raw)
+        assert ran == {k: v * D for k, v in _SHARDED_PATHS[name].items()}
+    hfi = encode_bytes(raw, block_symbols=512)
+    out, ran = _launched(lambda: decode_lane_sharded_indexed(
+        hfi, *hfi.index, mesh=mesh))
+    np.testing.assert_array_equal(out, raw)
+    assert ran == {"k1_main": D, "k4_compact": D}
+
+
+def test_wide_shards_match_plain_on_cuda(cuda):
+    # each shard's K1-K4 against their plain versions on the card
+    from huffmandecoderongpus_tpu_torch.parallel import lane_sharded, make_mesh
+
+    raw = text_like(np.random.default_rng(14), 300_000)
+    hf = encode_bytes(raw)
+    run, materialize = lane_sharded.lane_sharded_wide_runner(
+        hf, mesh=make_mesh(devices=[cuda] * 2))
+    trace = {}
+    out = run(trace)
+    np.testing.assert_array_equal(materialize(out)[0], raw)
+    st = lane_sharded.wide_sharded_staging(hf, 2, device=cuda)
+    p = st["plan"]
+    k1 = dict(B=p["B"], H=st["H"], steps=p["steps"], steps_p=p["steps_p"],
+              SEG=p["SEG"], md=st["md"], C0=st["C0"], C1=st["C1"],
+              NS=st["NS"])
+    k3 = dict(steps_p=p["steps_p"], SEG=p["SEG"], md=st["md"], C0=st["C0"],
+              C1=st["C1"], NS=st["NS"])
+    for sh in trace["shards"]:
+        wm, tab, lim = sh["inputs"]
+        for g, w in zip(sh["k1"], k1_scan2.k1_scan2_ref(wm, tab, lim, **k1)):
+            assert torch.equal(g, w)
+        exmap = sh["k1"][3]
+        assert torch.equal(sh["tot"], k2_compose.k2_compose_ref(exmap, 0)[1])
+        assert torch.equal(sh["entry"],
+                           k2_compose.k2_compose_ref(exmap, sh["start"])[0])
+        rs, rv = k3_fix2.k3_fix2_ref(wm, tab, sh["entry"], *sh["cut"],
+                                     sh["k1"][0].clone(), sh["k1"][1].clone(),
+                                     **k3)
+        assert torch.equal(sh["k3"][0], rs) and torch.equal(sh["k3"][1], rv)
+        assert torch.equal(sh["k4"], k4_compact.k4_compact_ref(
+            rs, rv, ORP=p["ORP"]))
+
+
+def test_lane_shards_past_the_stream_on_cuda(cuda):
+    # shards wholly past the stream: the scans' limit N - lane0*B is zero
+    # or negative, the kernels clamp it and no lane is live
+    from huffmandecoderongpus_tpu_torch.parallel import lane_sharded, make_mesh
+
+    raw = text_like(np.random.default_rng(15), 400)
+    hf = encode_bytes(raw)
+    out = lane_sharded.decode_lane_sharded(hf, mesh=make_mesh(
+        devices=[cuda] * 8))
+    np.testing.assert_array_equal(out, raw)
+    dfa = lanedfa.build_lane_dfa(hf.tree)
+    mat, B = lanedfa.bits_matrix(hf.payload, hf.bits, 8, dfa.height,
+                                 round_to=512)
+    tab = torch.from_numpy(lanedfa.pad_table(dfa.entry)).to(cuda)
+    for d in range(8):
+        bits_d = torch.from_numpy(np.ascontiguousarray(mat[:, d:d + 1])).to(
+            cuda)
+        kw = dict(B=B, H=dfa.height, N=hf.bits - d * B)
+        cnt, ex = candidate_scan.candidate_scan(bits_d, tab, **kw)
+        rcnt, rex = candidate_scan.candidate_scan_ref(bits_d, tab, **kw)
+        assert torch.equal(cnt, rcnt) and torch.equal(ex, rex)
+        start = torch.zeros(1, dtype=torch.int32, device=cuda)
+        sym, valid = lane_scan.lane_scan(bits_d, tab, start, **kw)
+        rsym, rvalid = lane_scan.lane_scan_ref(bits_d, tab, start, **kw)
+        assert torch.equal(sym, rsym) and torch.equal(valid, rvalid)
+        if hf.bits - d * B <= 0:
+            assert not valid.any()

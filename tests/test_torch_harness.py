@@ -395,9 +395,8 @@ def test_a_wrong_raw_file_stops_the_suite(corpus_dir, tmp_path, monkeypatch,
 def test_decoders_command(capsys):
     out = _out(capsys, cli.main, ["decoders", "--device", "cpu"])
     names = [line.split()[0] for line in out.splitlines()]
-    assert len(names) == 17 and names == sorted(names)
-    assert set(jax_decoders()) == set(names) | {
-        "spec_sharded", "lane_sharded_wide", "lane_sharded"}
+    assert len(names) == 20 and names == sorted(names)
+    assert set(jax_decoders()) == set(names)
     assert "jumptable  backend=host-native" in out
 
 

@@ -277,7 +277,7 @@ def test_registry():
         "lane_dfa_sync", "spec_xla", "spec_xla_cpu", "pes_numpy",
         "onethread_device", "justreaddata", "simple", "simple_rp",
         "bigtable_v1", "bigtable_simple", "bigtable_multisym", "jumptable",
-        "lin"}
+        "lin", "spec_sharded", "lane_sharded_wide", "lane_sharded"}
     with pytest.raises(TypeError):
         get_decoder("lane_wide")  # the device is never picked implicitly
 
