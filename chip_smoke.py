@@ -2666,14 +2666,36 @@ def check_batch(torch, name, raws, hfs, dev, k3_card=None):
     return rows
 
 
+def launch_counts() -> dict:
+    """{kernel: launches so far}, from the port's ``launch.<kernel>``
+    counters."""
+    from huffmandecoderongpus_tpu_torch.utils import trace
+
+    return {name[len("launch."):]: n for name, n in trace.counts().items()
+            if name.startswith("launch.")}
+
+
+def launched_since(before: dict, mods) -> dict:
+    """{kernel: launches} of the kernels ``mods`` since ``before`` (a
+    ``launch_counts()``), those that launched."""
+    now = launch_counts()
+    return {n: now.get(n, 0) - before.get(n, 0) for n in mods
+            if now.get(n, 0) != before.get(n, 0)}
+
+
+def encode_retries() -> int:
+    """Encodes finished off their first plan so far (``encode.retry``)."""
+    from huffmandecoderongpus_tpu_torch.utils import trace
+
+    return trace.counts().get("encode.retry", 0)
+
+
 def counted(torch, mods, fn):
-    """fn()'s result and the kernels it launched, the counts of ``mods``
-    set to 0 just before and read just after."""
-    for m in mods.values():
-        m.launches = 0
+    """fn()'s result and the launches of the kernels ``mods`` it made."""
+    before = launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {n: m.launches for n, m in mods.items() if m.launches}
+    return out, launched_since(before, mods)
 
 
 def expect(what, ok, ran, path):
@@ -3180,7 +3202,7 @@ def drive_suites(torch, mods, cpu):
     """Phase 4's suites.  A corpus directory of the five MAINRUN_NAMES
     (SUITE_CORPORA, under HUFF_FILES_DIR); every serial decoder on every
     corpus (evalandshow: a checked run, then the minimum of SUITE_REPEATS
-    more); then, the launch counts set to 0 just before and read just
+    more); then, the launch counts read just before and just
     after, the SUITES through run_suite on the card and the verify command,
     each suite's rows and wall printed; every kernel of SUITE_PATH must
     have launched.  Then the DFA table builds on kjv.txt's tree at jumpbits
@@ -3222,8 +3244,7 @@ def drive_suites(torch, mods, cpu):
                 evalandshow(get_decoder(d, device=DEVICE), td,
                             repeats=SUITE_REPEATS)
                 for d in SERIAL for td in tds])
-            for m in mods.values():
-                m.launches = 0
+            before = launch_counts()
             results = {suite: run_printed(suite, lambda suite=suite:
                                         cli.run_suite(suite, SUITE_REPEATS,
                                                       device=DEVICE))
@@ -3232,7 +3253,7 @@ def drive_suites(torch, mods, cpu):
                 ["verify", str(files / "kjv.txt.huff"),
                  str(files / "kjv.txt"), "--device", DEVICE]))
             torch.cuda.synchronize()
-            ran = {n: m.launches for n, m in mods.items() if m.launches}
+            ran = launched_since(before, mods)
             print(f"[suite] launches in the suites and verify: {ran}",
                   flush=True)
             missing = [n for n in SUITE_PATH if not ran.get(n)]
@@ -3285,45 +3306,15 @@ def main() -> int:
         return mh_worker(sys.argv[2:])
     from huffmandecoderongpus_tpu_torch.huffio import encode_bytes
     from huffmandecoderongpus_tpu_torch.models import get_decoder
-    from huffmandecoderongpus_tpu_torch.ops import (
-        _build,
-        candidate_scan,
-        compact,
-        k1_main,
-        k1_scan,
-        k1_scan2,
-        k1_scan2_c01,
-        k2_compose,
-        k3_fix,
-        k3_fix2,
-        k3_fix2_c01,
-        k4_compact,
-        lane_decode_dense,
-        lane_scan,
-        lane_scan_indexed,
-        onethread,
-        oneshot,
-        short_candidate_scan,
-        spec_all_bits,
-        spec_double,
-        spec_pair,
-        spec_query,
-        spec_tile,
-    )
+    from huffmandecoderongpus_tpu_torch.ops import _build, oneshot
     from huffmandecoderongpus_tpu_torch.ops import widescan as ws
 
-    mods = {"k1_scan2": k1_scan2, "k2_compose": k2_compose,
-            "k3_fix2": k3_fix2, "k4_compact": k4_compact,
-            "k1_scan": k1_scan, "k3_fix": k3_fix,
-            "candidate_scan": candidate_scan, "lane_scan": lane_scan,
-            "oneshot": oneshot, "k1_main": k1_main,
-            "lane_scan_indexed": lane_scan_indexed,
-            "k1_scan2_c01": k1_scan2_c01, "k3_fix2_c01": k3_fix2_c01,
-            "short_candidate_scan": short_candidate_scan,
-            "lane_decode_dense": lane_decode_dense, "compact": compact,
-            "spec_all_bits": spec_all_bits, "spec_double": spec_double,
-            "spec_tile": spec_tile, "spec_pair": spec_pair,
-            "spec_query": spec_query, "onethread": onethread}
+    mods = ("k1_scan2", "k2_compose", "k3_fix2", "k4_compact", "k1_scan",
+            "k3_fix", "candidate_scan", "lane_scan", "oneshot", "k1_main",
+            "lane_scan_indexed", "k1_scan2_c01", "k3_fix2_c01",
+            "short_candidate_scan", "lane_decode_dense", "compact",
+            "spec_all_bits", "spec_double", "spec_tile", "spec_pair",
+            "spec_query", "onethread")
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
@@ -3608,29 +3599,27 @@ def drive_sync(torch, mods, hfs, dev, card):
         name, r, h = hfs[k]
         st, entry, out_rows = dense_staging(torch, h, dev)
         kw = dict(B=st["B"], H=st["H"], N=st["N"])
-        for m in mods.values():
-            m.launches = 0
+        before = launch_counts()
         # the dense pipeline: candidate scan, compose, dense decode, trim
         cnt, ex = candidate_scan.candidate_scan(st["bits"], st["tab"], **kw)
         entry = ld.compose(cnt, ex)[0]
         dense, counts = lane_decode_dense.lane_decode_dense(
             st["bits"], st["tab"], entry, out_rows=out_rows, **kw)
         out = trimmed(torch, dense, counts)
-        ran = {n: m.launches for n, m in mods.items() if m.launches}
+        ran = launched_since(before, mods)
         expect(f"dense pipeline {name}", np.array_equal(out, r), ran,
                dict.fromkeys(DENSE_PATH, 1))
         add(ran)
         if k != "d":
             continue
-        for m in mods.values():
-            m.launches = 0
+        before = launch_counts()
         cnt, ex = candidate_scan.candidate_scan(st["bits"], st["tab"], **kw)
         entry = ld.compose(cnt, ex)[0]
         sym, valid = lane_scan.lane_scan(st["bits"], st["tab"], entry, **kw)
         cum = torch.cumsum(valid, 0, dtype=torch.int32)
         out = trimmed(torch, compact.compact(cum, sym, out_rows=out_rows),
                       cum[-1])
-        ran = {n: m.launches for n, m in mods.items() if m.launches}
+        ran = launched_since(before, mods)
         expect(f"compaction pipeline {name}", np.array_equal(out, r), ran,
                dict.fromkeys(COMPACT_PATH, 1))
         add(ran)
@@ -3696,16 +3685,9 @@ def drive_encoder(torch, hfs, dev, card):
         tree_codes,
     )
     from huffmandecoderongpus_tpu_torch.models import get_decoder
-    from huffmandecoderongpus_tpu_torch.ops import (
-        e1_pack,
-        e2_compact,
-        e3_place,
-        encode,
-        encode_ops,
-    )
+    from huffmandecoderongpus_tpu_torch.ops import encode, encode_ops
 
-    mods = {"e1_pack": e1_pack, "e2_compact": e2_compact,
-            "e3_place": e3_place}
+    mods = ("e1_pack", "e2_compact", "e3_place")
 
     def same(hf, want):
         return (hf.bits == want.bits and hf.tree.shape == want.tree.shape
@@ -3714,14 +3696,13 @@ def drive_encoder(torch, hfs, dev, card):
 
     def drive(name, raw, want, tree=None, lanes=None,
               path=dict.fromkeys(ENCODE_PATH, 1), retries=0):
-        for m in mods.values():
-            m.launches = 0
-        tries = encode.device_retries
+        before = launch_counts()
+        tries = encode_retries()
         t0 = time.perf_counter()
         hf = encode.encode_lanes(raw, tree=tree, lanes=lanes, device=DEVICE)
         wall = time.perf_counter() - t0
-        ran = {n: m.launches for n, m in mods.items() if m.launches}
-        tries = encode.device_retries - tries
+        ran = launched_since(before, mods)
+        tries = encode_retries() - tries
         ok = same(hf, want)
         print(f"[slice] encode_lanes {name}: {raw.size} bytes -> {hf.bits} "
               f"bits, first encode {wall:.3f} s wall, equal to encode_bytes: "
@@ -4029,15 +4010,8 @@ def drive_probes(torch, hfs, dev, card):
     from huffmandecoderongpus_tpu_torch import probes
     from huffmandecoderongpus_tpu_torch.harness import cli
     from huffmandecoderongpus_tpu_torch.huffio import write_huff
-    from huffmandecoderongpus_tpu_torch.ops import (
-        k4_stripped,
-        probe_arith,
-        probe_gather,
-        probe_inc,
-    )
 
-    mods = {"probe_inc": probe_inc, "probe_arith": probe_arith,
-            "probe_gather": probe_gather, "k4_stripped": k4_stripped}
+    mods = ("probe_inc", "probe_arith", "probe_gather", "k4_stripped")
     streams = {k: hfs[k] for k in "af"}
 
     def run_all():

@@ -36,7 +36,8 @@ Layering (bottom-up):
               suites; ``encode``, ``decode``, ``verify``, ``info``,
               ``bits``, ``corpora``, ``decoders``, ``prof``, ``probe``,
               ``scaling``), the scaling sweep
-  utils     — env-gated debug dumps
+  utils     — env-gated debug dumps; the profiler spans and counters of
+              the codec's host work (``trace``)
 
 This package never imports jax.
 """

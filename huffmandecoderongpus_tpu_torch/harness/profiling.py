@@ -5,14 +5,13 @@ each stage to seconds, as there, so ``format_report`` is the same.  A
 device stage is timed by CUDA events around it on a CUDA device, and by the
 host clock on the CPU (where torch runs each call to its end): the median
 over ``reps`` runs after one untimed run, whose outputs feed the next
-stage.  Host stages (the lane-DFA's bit matrix and compaction) are host
-clock everywhere.  ``trace`` writes a ``torch.profiler`` Chrome trace.
+stage.  The lane-DFA's bit matrix and compaction are host clock
+everywhere.  A ``torch.profiler`` trace of any of these shows the codec's
+own spans (``utils.trace``).
 """
 
 from __future__ import annotations
 
-import contextlib
-import pathlib
 import statistics
 import time
 
@@ -26,6 +25,7 @@ from huffmandecoderongpus_tpu_torch.ops.k2_compose import k2_compose
 from huffmandecoderongpus_tpu_torch.ops.k4_compact import k4_compact
 from huffmandecoderongpus_tpu_torch.ops.lane_scan import lane_scan
 from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import (
+    _emitted,
     compose,
     require_device,
     stage_lanedfa,
@@ -81,8 +81,10 @@ def profile_lanedfa(hf, lanes: int | None = None, reps: int = REPS, *,
                     device="cuda") -> dict[str, float]:
     """Stage breakdown of the lane-DFA decoder in ``decode_lanedfa``'s
     geometry: the host bit matrix (with the table, onto the device), the
-    candidate scan, compose, the main (lane) scan and the host compaction;
-    ``total`` is their sum, as in the JAX report."""
+    candidate scan, compose, the main (lane) scan and the compaction as the
+    decoder runs it (``lanedfa_decode._emitted``: the valid symbols masked
+    out on the device, then downloaded), under the host clock; ``total``
+    is their sum, as in the JAX report."""
     device = require_device(device)
     report = {}
     report["host_bit_matrix"], st = _host_s(
@@ -96,13 +98,8 @@ def profile_lanedfa(hf, lanes: int | None = None, reps: int = REPS, *,
         lambda: compose(cnt, ex), device, reps)
     report["main_scan"], (sym, valid) = _time_stage(
         lambda: lane_scan(bits, tab, entry, **kw), device, reps)
-
-    def compaction():
-        sym_t = sym.cpu().numpy().T
-        valid_t = valid.cpu().numpy().T
-        return sym_t[valid_t > 0]
-
-    report["host_compaction"], _ = _host_s(compaction, device)
+    report["host_compaction"], _ = _host_s(
+        lambda: _emitted(hf, sym, valid, check_size=False), device)
     report["total"] = sum(report.values())
     return report
 
@@ -141,22 +138,6 @@ def profile_widescan(hf, lanes: int | None = None, reps: int = REPS, *,
     report["total"], _ = _time_stage(
         lambda: ws.wide_decode_program(words, tab, lim, **args), device, reps)
     return report
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """``torch.profiler`` context over the host and, where there is one, the
-    card; on exit writes ``trace.json`` (a Chrome trace) into ``log_dir``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-    path = pathlib.Path(log_dir)
-    path.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path / "trace.json"))
 
 
 def format_report(report: dict[str, float]) -> str:

@@ -39,6 +39,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     build_lane_dfa,
 )
 from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import require_device
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: lanes a stream's range is padded to a multiple of
 LANE_BLOCK = 1024
@@ -64,23 +65,32 @@ def stage_batch_inputs(hfs, *, device, B=None, lane_block=None) -> dict:
     whole words); ``lane_block`` overrides LANE_BLOCK."""
     if not hfs:
         raise ValueError("empty batch")
-    dfas, Hs, mds, avgs = [], [], [], []
-    for hf in hfs:
-        dfa = build_lane_dfa(hf.tree)
-        n_states = dfa.entry.shape[0] // 2
-        if n_states > widescan.MAX_STATES:
-            raise EnvelopeError(
-                f"{n_states} states > {widescan.MAX_STATES}: batched tables "
-                "require the compact layout")
-        md = max(dfa.min_depth, 1)
-        if md < 2:
-            raise EnvelopeError("md=1 tree outside the chunked batch path")
-        if hf.bits <= 0:
-            raise EnvelopeError("empty stream")
-        dfas.append(dfa)
-        Hs.append(max(dfa.height, 1))
-        mds.append(md)
-        avgs.append(hf.bits / max(hf.uncompressed_size, 1))
+    with trace.span("huff.stage"):
+        return _stage_batch(hfs, device, B, lane_block)
+
+
+def _stage_batch(hfs, device, B, lane_block) -> dict:
+    dfas, Hs, mds, avgs, tabs, c01 = [], [], [], [], [], []
+    with trace.span("huff.stage.tables"):
+        for hf in hfs:
+            dfa = build_lane_dfa(hf.tree)
+            n_states = dfa.entry.shape[0] // 2
+            if n_states > widescan.MAX_STATES:
+                raise EnvelopeError(
+                    f"{n_states} states > {widescan.MAX_STATES}: batched "
+                    "tables require the compact layout")
+            md = max(dfa.min_depth, 1)
+            if md < 2:
+                raise EnvelopeError("md=1 tree outside the chunked batch path")
+            if hf.bits <= 0:
+                raise EnvelopeError("empty stream")
+            dfas.append(dfa)
+            Hs.append(max(dfa.height, 1))
+            mds.append(md)
+            avgs.append(hf.bits / max(hf.uncompressed_size, 1))
+            tab, C0, C1, _NS = widescan.pack_quad_tables(dfa)
+            tabs.append(tab)
+            c01.append(C0 | (C1 << 16))
     H = max(Hs)
     md = min(mds)
     UNROLL = 4 * md
@@ -96,24 +106,26 @@ def stage_batch_inputs(hfs, *, device, B=None, lane_block=None) -> dict:
     hard = min(B // md + 2, steps_p // md)
 
     g0, g_live, g_pad = [], [], []
-    tabs, c01s, lims, words = [], [], [], []
+    c01s, lims, words = [], [], []
     ORP = 0
     G = 0
-    for k, hf in enumerate(hfs):
-        live = max(1, -(-hf.bits // B))
-        Gk = -(-live // lane_block) * lane_block
-        g0.append(G)
-        g_live.append(live)
-        g_pad.append(Gk)
-        G += Gk
-        tab, C0, C1, _NS = widescan.pack_quad_tables(dfas[k])
-        tabs.append(tab)
-        c01s.append(np.full(Gk, C0 | (C1 << 16), np.int32))
-        lane = np.arange(Gk, dtype=np.int64)
-        lims.append(np.clip(hf.bits - lane * B, -(1 << 30),
-                            1 << 30).astype(np.int32))
-        words.append(widescan.payload_lane_words(hf.payload, hf.bits, Gk, B))
-        ORP = max(ORP, min(int(B / avgs[k] * 1.25) + 66, hard))
+    with trace.span("huff.stage.words"):
+        for k, hf in enumerate(hfs):
+            live = max(1, -(-hf.bits // B))
+            Gk = -(-live // lane_block) * lane_block
+            g0.append(G)
+            g_live.append(live)
+            g_pad.append(Gk)
+            G += Gk
+            c01s.append(np.full(Gk, c01[k], np.int32))
+            lane = np.arange(Gk, dtype=np.int64)
+            lims.append(np.clip(hf.bits - lane * B, -(1 << 30),
+                                1 << 30).astype(np.int32))
+            words.append(widescan.payload_lane_words(hf.payload, hf.bits, Gk,
+                                                     B))
+            ORP = max(ORP, min(int(B / avgs[k] * 1.25) + 66, hard))
+        tabs, c01s, lims, words = (np.concatenate(a, axis=0)
+                                   for a in (tabs, c01s, lims, words))
     ORP = -(-ORP // 128) * 128
     R = G // 128
     # the JAX program's row-group block (a TPU grid constant): every
@@ -133,14 +145,11 @@ def stage_batch_inputs(hfs, *, device, B=None, lane_block=None) -> dict:
     NG = min(1 << (R.bit_length() // 2 + 3), G, 1024)
     plan = dict(B=B, steps=steps, steps_p=steps_p, SEG=SEG, UNROLL=UNROLL,
                 G=G, RB=RB, ORP=ORP, NG=NG, Rg=G // NG)
-
-    def t(a):
-        return torch.from_numpy(np.concatenate(a, axis=0)).to(device)
-
+    bstream, tabs, c01s, lims, words = trace.upload(
+        device, bstream, tabs, c01s, lims, words)
     return dict(plan=plan, H=H, md=md, last_live=last_live, g0=tuple(g0),
-                g_live=tuple(g_live), g_pad=tuple(g_pad),
-                bstream=torch.from_numpy(bstream).to(device), tabs=t(tabs),
-                c01=t(c01s), lim=t(lims), words=t(words))
+                g_live=tuple(g_live), g_pad=tuple(g_pad), bstream=bstream,
+                tabs=tabs, c01=c01s, lim=lims, words=words)
 
 
 def from_jax_batch(st: dict, device) -> dict:
@@ -212,39 +221,41 @@ def decode_widescan_batch(hfs, *, device, B=None, check_size=True,
     outside the envelope; a member whose lane overflows the dense rows
     decodes again alone through ``decode_widescan``."""
     device = require_device(device)
-    if auto_split:
+    with trace.span("huff.batch"):
         small = [k for k, hf in enumerate(hfs) if hf.bits < BATCH_SOLO_BITS]
-        if len(small) < len(hfs):
-            small = small if len(small) >= 2 else []
-            outs = [None] * len(hfs)
-            if small:
-                batched = decode_widescan_batch(
-                    [hfs[k] for k in small], device=device, B=B,
-                    check_size=check_size, auto_split=False)
-                for k, out in zip(small, batched):
-                    outs[k] = out
-            for k, hf in enumerate(hfs):
-                if outs[k] is None:
-                    outs[k] = widescan.decode_widescan(
-                        hf, device=device, check_size=check_size)
-            return outs
+        if not auto_split or len(small) == len(hfs):
+            return _decode_batched(hfs, device, B, check_size)
+        outs = [None] * len(hfs)
+        if len(small) >= 2:
+            batched = _decode_batched([hfs[k] for k in small], device, B,
+                                      check_size)
+            for k, out in zip(small, batched):
+                outs[k] = out
+        for k, hf in enumerate(hfs):
+            if outs[k] is None:
+                outs[k] = widescan.decode_widescan(hf, device=device,
+                                                   check_size=check_size)
+        return outs
 
+
+def _decode_batched(hfs, device, B, check_size: bool) -> list:
+    """Every member of ``hfs`` in one batched program; a member whose lane
+    overflows the shared dense rows decodes again alone."""
     st = stage_batch_inputs(hfs, device=device, B=B)
-    ORP = st["plan"]["ORP"]
-    denseT, n, _total = batch_decode_program(*batch_inputs(st),
-                                             **batch_args(st))
-    counts = n.cpu()
-    cols = torch.arange(ORP, device=device)[None, :]
+    with trace.span("huff.launch"):
+        denseT, n, _total = batch_decode_program(*batch_inputs(st),
+                                                 **batch_args(st))
+    with trace.span("huff.wait"):
+        counts = n.cpu()
     outs = []
     for k, hf in enumerate(hfs):
         g0, gk = st["g0"][k], st["g_pad"][k]
-        ck = counts[g0:g0 + gk]
-        if int(ck.max()) > ORP:  # a lane overflowed the shared dense rows
+        # a lane overflowed the shared dense rows
+        if int(counts[g0:g0 + gk].max()) > st["plan"]["ORP"]:
             outs.append(widescan.decode_widescan(hf, device=device,
                                                  check_size=check_size))
             continue
-        mask = cols < ck.to(device)[:, None]
-        out = denseT[g0:g0 + gk][mask].cpu().numpy()
+        out = widescan.trimmed(denseT[g0:g0 + gk], n[g0:g0 + gk])
         if check_size and out.size != hf.uncompressed_size:
             raise RuntimeError(
                 f"stream {k}: emitted {out.size} symbols, header says "

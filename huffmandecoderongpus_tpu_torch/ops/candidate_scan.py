@@ -29,9 +29,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     lane_limits,
     tile_plan,
 )
-
-#: kernel launches made by ``candidate_scan`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def candidate_scan(bits_t, tab, *, B, H, N):
@@ -41,7 +39,6 @@ def candidate_scan(bits_t, tab, *, B, H, N):
     launch the kernel."""
     if bits_t.device.type == "cpu":
         return candidate_scan_ref(bits_t, tab, B=B, H=H, N=N)
-    global launches
     _build.require_cuda("candidate_scan", bits_t, tab)
     steps, G = bits_t.shape
     if (steps != B + H or bits_t.dtype != torch.uint8
@@ -56,7 +53,7 @@ def candidate_scan(bits_t, tab, *, B, H, N):
         bp, tab.data_ptr(), cnt.data_ptr(), ex.data_ptr(), G, B, H, N,
         tab.numel(), p["lanes"], p["rows"], p["vec"], p["shared"],
         _build.stream_ptr(bits_t))
-    launches += 1
+    trace.count("launch.candidate_scan")
     _build.check(rc, "candidate_scan")
     return cnt, ex
 

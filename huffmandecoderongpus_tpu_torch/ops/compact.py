@@ -29,9 +29,8 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``compact`` on CUDA tensors
-launches = 0
 #: columns a tile, rows a chunk and threads a block of the kernel
 W, R, THREADS = 32, 1024, 256
 #: stats the kernel adds where asked: blocks whose rank union is wider than
@@ -88,7 +87,6 @@ def compact(cum, sym, *, out_rows, stats=None):
     int64 CUDA tensor to which the kernel adds ``STATS``."""
     if cum.device.type == "cpu":
         return compact_ref(cum, sym, out_rows=out_rows)
-    global launches
     _build.require_cuda("compact", cum, sym,
                         *(() if stats is None else (stats,)))
     steps, G = cum.shape
@@ -106,7 +104,7 @@ def compact(cum, sym, *, out_rows, stats=None):
         None if stats is None else stats.data_ptr(), steps, G, out_rows,
         p["W"], p["R"], p["vec"], p["threads"], p["shared"], p["tiles"],
         p["chunks"], p["zrows"], _build.stream_ptr(cum))
-    launches += 1
+    trace.count("launch.compact")
     _build.check(rc, "compact")
     return out
 

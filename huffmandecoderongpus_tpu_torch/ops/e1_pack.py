@@ -26,12 +26,11 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build, lookback
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 GRAN = 16
 HALF = 13
 
-#: kernel launches made by ``e1_pack`` on CUDA tensors
-launches = 0
 #: the look-back's state, a device and stream each
 _states = lookback.States()
 
@@ -83,7 +82,6 @@ def e1_pack(data3, lo, hi, nval):
     plan."""
     if data3.device.type == "cpu":
         return e1_pack_ref(data3, lo, hi, nval)
-    global launches
     _build.require_cuda("e1_pack", data3, lo, hi, nval)
     K, G = data3.shape
     if (data3.dtype != torch.uint8 or lo.shape != (256,) or hi.shape != (256,)
@@ -105,7 +103,7 @@ def e1_pack(data3, lo, hi, nval):
         state.data_ptr(), cap, K, G, p["lanes"], p["vec"], p["chunks"],
         p["rows"], p["row_blocks"], p["threads"], p["shared"], p["blocks"],
         stream)
-    launches += 1
+    trace.count("launch.e1_pack")
     _build.check(rc, "e1_pack")
     return gran, gval, cnt, bits
 

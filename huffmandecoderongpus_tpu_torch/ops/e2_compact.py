@@ -24,9 +24,8 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build, lookback
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``e2_compact`` on CUDA tensors
-launches = 0
 #: the look-back's state, a device and stream each
 _states = lookback.States()
 
@@ -96,7 +95,6 @@ def e2_compact(gran, gval, *, ORP):
     the kernel with ``e2_plan``'s plan."""
     if gran.device.type == "cpu":
         return e2_compact_ref(gran, gval, ORP=ORP)
-    global launches
     _build.require_cuda("e2_compact", gran, gval)
     rows, G = gran.shape
     if (gval.shape != gran.shape or gran.dtype != torch.int32
@@ -114,7 +112,7 @@ def e2_compact(gran, gval, *, ORP):
         cap, rows, G, ORP, p["lanes"], p["vec"], p["chunks"],
         p["block_rows"], p["row_blocks"], p["window"], p["threads"],
         p["shared"], p["blocks"], stream)
-    launches += 1
+    trace.count("launch.e2_compact")
     _build.check(rc, "e2_compact")
     return out
 

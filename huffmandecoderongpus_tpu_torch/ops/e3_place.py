@@ -27,9 +27,7 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
-
-#: kernel launches made by ``e3_place`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: threads a block, and most lanes a tile (a thread each in the scan)
 THREADS = 256
@@ -78,7 +76,6 @@ def e3_place(denseT, cnt, bits, *, NROWS):
     version; CUDA tensors launch the kernel."""
     if denseT.device.type == "cpu":
         return e3_place_ref(denseT, cnt, bits, NROWS=NROWS)
-    global launches
     G, ORP = denseT.shape
     _build.require_cuda("e3_place", denseT, cnt, bits)
     if (cnt.shape != (G,) or bits.shape != (G,) or NROWS < 1
@@ -91,7 +88,7 @@ def e3_place(denseT, cnt, bits, *, NROWS):
         denseT.data_ptr(), cnt.data_ptr(), bits.data_ptr(), out.data_ptr(),
         G, ORP, NROWS * 128, p["lanes"], p["threads"], p["blocks"],
         _build.stream_ptr(denseT))
-    launches += 1
+    trace.count("launch.e3_place")
     _build.check(rc, "e3_place")
     return out
 

@@ -19,8 +19,8 @@ ceil(bits/8), on the device, and only those bytes come back.  Every shape
 is known before the program runs: ``total_bits`` is exact from the byte
 histogram.
 
-Two cases leave the first plan, and each adds one to ``device_retries``;
-both stay on the device.  A lane whose granule count reaches ORP has its
+Two cases leave the first plan, and each counts one ``encode.retry``
+(``utils.trace``); both stay on the device.  A lane whose granule count reaches ORP has its
 dense row cut, so E2 and E3 run again on E1's rows with ORP lifted past
 the largest count.  Codes longer than 26 bits (two 13-bit halves) do not
 fit E1's pack tables, so the stream goes to ``encode_ops.encode_device``.
@@ -49,14 +49,10 @@ from huffmandecoderongpus_tpu_torch.ops.e2_compact import e2_compact
 from huffmandecoderongpus_tpu_torch.ops.e3_place import e3_place, occupancy
 from huffmandecoderongpus_tpu_torch.ops.encode_ops import encode_device
 from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import require_device
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: symbol rows are a multiple of SEG (the TPU kernel's grid step)
 SEG = 16
-#: streams that ``encode_lanes`` could not finish on its first plan, both
-#: finished on the device: a lane overflowing its dense row (E2 and E3 run
-#: again with a larger ORP), or codes longer than 2 * HALF bits
-#: (``encode_device``)
-device_retries = 0
 
 
 def build_pack_tables(code: np.ndarray, length: np.ndarray):
@@ -76,15 +72,16 @@ def build_pack_tables(code: np.ndarray, length: np.ndarray):
 def _prepare(data, tree):
     """(symbols, histogram, tree, code, length); raises ValueError for
     empty input and for a tree without a code for a symbol of the input."""
-    arr = as_u8(data)
-    if arr.size == 0:
-        raise ValueError("cannot encode empty input")
-    hist = np.bincount(arr, minlength=256)
-    if tree is None:
-        tree = build_tree(hist)
-    code, length, present = tree_codes(tree)
-    require_codes(hist, present)
-    return arr, hist, tree, code, length
+    with trace.span("huff.stage.hist"):
+        arr = as_u8(data)
+        if arr.size == 0:
+            raise ValueError("cannot encode empty input")
+        hist = np.bincount(arr, minlength=256)
+        if tree is None:
+            tree = build_tree(hist)
+        code, length, present = tree_codes(tree)
+        require_codes(hist, present)
+        return arr, hist, tree, code, length
 
 
 def _plan(N: int, hist: np.ndarray, length: np.ndarray, lanes=None) -> dict:
@@ -122,22 +119,19 @@ def _rows(n_granules: int, ORP: int) -> dict:
 
 
 def _stage(arr, hist, tree, code, length, lanes, device) -> dict:
-    p = _plan(int(arr.size), hist, length, lanes)
-    lo, hi = build_pack_tables(code, length)
-    N, G, K, K_real = p["N"], p["G"], p["K"], p["K_real"]
-    lanes_mat = np.zeros((G, K), dtype=np.uint8)
-    tmp = np.zeros(G * K_real, dtype=np.uint8)
-    tmp[:N] = arr
-    lanes_mat[:, :K_real] = tmp.reshape(G, K_real)
-    nval = np.clip(N - np.arange(G, dtype=np.int64) * K_real, 0, K_real)
-
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
-            device)
-
-    return dict(plan=p, tree=tree, data3=put(lanes_mat.T, np.uint8),
-                lo=put(lo, np.int32), hi=put(hi, np.int32),
-                nval=put(nval, np.int32))
+    with trace.span("huff.stage.lanes"):
+        p = _plan(int(arr.size), hist, length, lanes)
+        lo, hi = build_pack_tables(code, length)
+        N, G, K, K_real = p["N"], p["G"], p["K"], p["K_real"]
+        lanes_mat = np.zeros((G, K), dtype=np.uint8)
+        tmp = np.zeros(G * K_real, dtype=np.uint8)
+        tmp[:N] = arr
+        lanes_mat[:, :K_real] = tmp.reshape(G, K_real)
+        data3 = np.ascontiguousarray(lanes_mat.T)
+        nval = np.clip(N - np.arange(G, dtype=np.int64) * K_real, 0,
+                       K_real).astype(np.int32)
+    data3, lo, hi, nval = trace.upload(device, data3, lo, hi, nval)
+    return dict(plan=p, tree=tree, data3=data3, lo=lo, hi=hi, nval=nval)
 
 
 def stage_encode_inputs(data, tree=None, lanes=None, *, device) -> dict:
@@ -148,7 +142,8 @@ def stage_encode_inputs(data, tree=None, lanes=None, *, device) -> dict:
     Raises ValueError for empty input, a symbol without a code and codes
     longer than 26 bits."""
     device = require_device(device)
-    return _stage(*_prepare(data, tree), lanes, device)
+    with trace.span("huff.stage"):
+        return _stage(*_prepare(data, tree), lanes, device)
 
 
 def shift_lanes(denseT, counts, shift):
@@ -206,31 +201,43 @@ def encode_lanes(data, tree=None, lanes=None, *, device,
     available; ``device="cpu"`` runs their plain versions.  A lane
     overflowing its dense row re-runs E2 and E3 with a larger ORP, and codes
     longer than 26 bits go to ``encode_device``, both on ``device``
-    (``device_retries`` counts them).  ``block_symbols``: also attach the
-    `.huffidx` block index (``huffio.build_block_index``)."""
-    global device_retries
+    (each counts one ``encode.retry``).  ``block_symbols``: also attach
+    the `.huffidx` block index (``huffio.build_block_index``)."""
     device = require_device(device)
-    arr, hist, tree, code, length = _prepare(data, tree)
-    if length.max(initial=0) > 2 * HALF:
-        device_retries += 1
-        hf = encode_device(arr, tree=tree, device=device)
-    else:
-        st = _stage(arr, hist, tree, code, length, lanes, device)
-        p = st["plan"]
+    with trace.span("huff.encode"):
+        with trace.span("huff.stage"):
+            arr, hist, tree, code, length = _prepare(data, tree)
+            long_codes = length.max(initial=0) > 2 * HALF
+            if not long_codes:
+                st = _stage(arr, hist, tree, code, length, lanes, device)
+        if long_codes:
+            trace.count("encode.retry")
+            hf = encode_device(arr, tree=tree, device=device)
+        else:
+            hf = _encode_staged(st, tree)
+        if block_symbols is not None:
+            hf.index = (build_block_index(length[arr], block_symbols),
+                        int(block_symbols))
+        return hf
+
+
+def _encode_staged(st: dict, tree) -> HuffFile:
+    """E1-E3 on a staged input, and its payload's bytes to the host."""
+    p = st["plan"]
+    with trace.span("huff.launch"):
         gran, gval, cnt, bits = e1_pack(st["data3"], st["lo"], st["hi"],
                                         st["nval"])
         out = place(gran, gval, cnt, bits, ORP=p["ORP"], NROWS=p["NROWS"])
+    with trace.span("huff.wait"):
         top = int(cnt.max())
-        if top >= p["ORP"]:
-            # a lane's row was cut: compact and place again with room for
-            # the largest count and its phase-shift carry granule
-            device_retries += 1
-            r = _rows(p["n_granules"], -(-(top + 1) // 128) * 128)
-            out = place(gran, gval, cnt, bits, ORP=r["ORP"], NROWS=r["NROWS"])
-        hf = HuffFile(tree=tree, bits=p["total_bits"],
-                      uncompressed_size=p["N"],
-                      payload=payload_bytes(out, p["total_bits"]).cpu().numpy())
-    if block_symbols is not None:
-        hf.index = (build_block_index(length[arr], block_symbols),
-                    int(block_symbols))
-    return hf
+    if top >= p["ORP"]:
+        # a lane's row was cut: compact and place again with room for the
+        # largest count and its phase-shift carry granule
+        trace.count("encode.retry")
+        r = _rows(p["n_granules"], -(-(top + 1) // 128) * 128)
+        with trace.span("huff.launch"):
+            out = place(gran, gval, cnt, bits, ORP=r["ORP"],
+                        NROWS=r["NROWS"])
+    return HuffFile(tree=tree, bits=p["total_bits"], uncompressed_size=p["N"],
+                    payload=trace.download(payload_bytes(out,
+                                                         p["total_bits"])))

@@ -33,9 +33,7 @@ from huffmandecoderongpus_tpu_torch.ops.quad import (
     to_i32,
     u32,
 )
-
-#: kernel launches made by ``k1_main`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: a block's threads (``__launch_bounds__(128)``): on the indexed (a), (b)
 #: and (i) of ``chip_smoke.py`` 128 beat or tied 64 and 32, within 8 %,
@@ -77,7 +75,6 @@ def k1_main(wmat, tab, lim, *, steps_p, md, C0, C1, NS):
     kw = dict(steps_p=steps_p, md=md, C0=C0, C1=C1, NS=NS)
     if wmat.device.type == "cpu":
         return k1_main_ref(wmat, tab, lim, **kw)
-    global launches
     _build.require_cuda("k1_main", wmat, tab, lim)
     steps_w, G = wmat.shape
     if steps_w * 32 < steps_p or lim.shape != (G,):
@@ -90,7 +87,7 @@ def k1_main(wmat, tab, lim, *, steps_p, md, C0, C1, NS):
         wmat.data_ptr(), tab.data_ptr(), lim.data_ptr(), sym.data_ptr(),
         val.data_ptr(), G, steps_w, steps_p, md, C0, C1, NS, p["threads"],
         p["shared"], _build.stream_ptr(wmat))
-    launches += 1
+    trace.count("launch.k1_main")
     _build.check(rc, "k1_main")
     return sym, val
 

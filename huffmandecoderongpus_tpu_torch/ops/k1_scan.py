@@ -41,9 +41,7 @@ from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import (
 )
 from huffmandecoderongpus_tpu_torch.ops.pair import bit_rows, e1_fields, pair_entry
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL, to_i32, u32
-
-#: kernel launches made by ``k1_scan`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 #: bits a segment of the kernel's walk: one payload word (``widescan._plan``
@@ -116,7 +114,6 @@ def k1_scan(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, NS):
     kw = dict(B=B, H=H, steps=steps, steps_p=steps_p, SEG=SEG, md=md, NS=NS)
     if wmat.device.type == "cpu":
         return k1_scan_ref(wmat, tab, lim, **kw)
-    global launches
     _build.require_cuda("k1_scan", wmat, tab, lim)
     steps_w, G = wmat.shape
     CH, HP, cells_p = _shapes(H, steps_p, md)
@@ -134,7 +131,7 @@ def k1_scan(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, NS):
         val.data_ptr(), *(m.data_ptr() for m in maps),
         G, steps_w, B, H, steps, steps_p, NS, p["T"], p["shared"],
         _build.stream_ptr(wmat))
-    launches += 1
+    trace.count("launch.k1_scan")
     _build.check(rc, "k1_scan")
     return (sym, val, *maps)
 

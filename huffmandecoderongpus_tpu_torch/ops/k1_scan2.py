@@ -37,9 +37,7 @@ from huffmandecoderongpus_tpu_torch.ops.quad import (
     to_i32,
     u32,
 )
-
-#: kernel launches made by ``k1_scan2`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: the K1 kernels' block (``K1_THREADS``), and the blocks an SM must hold
 #: by their registers (``__launch_bounds__(K1_THREADS, MIN_BLOCKS)``: at
@@ -158,7 +156,6 @@ def k1_scan2(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1, NS):
               C0=C0, C1=C1, NS=NS)
     if wmat.device.type == "cpu":
         return k1_scan2_ref(wmat, tab, lim, **kw)
-    global launches
     _build.require_cuda("k1_scan2", wmat, tab, lim)
     steps_w, G = wmat.shape
     CH, HP, cells_p = _shapes(H, steps_p, md)
@@ -177,7 +174,7 @@ def k1_scan2(wmat, tab, lim, *, B, H, steps, steps_p, SEG, md, C0, C1, NS):
         val.data_ptr(), *(m.data_ptr() for m in maps),
         G, steps_w, B, H, steps, steps_p, SEG, md, C0, C1, NS, p["T"],
         p["shared"], _build.stream_ptr(wmat))
-    launches += 1
+    trace.count("launch.k1_scan2")
     _build.check(rc, "k1_scan2")
     return (sym, val, *maps)
 

@@ -26,9 +26,8 @@ from huffmandecoderongpus_tpu_torch.ops.k1_scan2 import (
     k1_scan2_ref,
 )
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``k1_scan2_c01`` on CUDA tensors
-launches = 0
 #: lanes of one stream-map entry
 BLOCK = 128
 
@@ -49,7 +48,6 @@ def k1_scan2_c01(wmat, tabs, lim, c01, bstream, *, B, H, steps, steps_p,
     kw = dict(B=B, H=H, steps=steps, steps_p=steps_p, SEG=SEG, md=md)
     if wmat.device.type == "cpu":
         return k1_scan2_c01_ref(wmat, tabs, lim, c01, bstream, **kw)
-    global launches
     _build.require_cuda("k1_scan2_c01", wmat, tabs, lim, c01, bstream)
     steps_w, G = wmat.shape
     _CH, HP, cells_p = _shapes(H, steps_p, md)
@@ -69,7 +67,7 @@ def k1_scan2_c01(wmat, tabs, lim, c01, bstream, *, B, H, steps, steps_p,
         bstream.data_ptr(), sym.data_ptr(), val.data_ptr(),
         *(m.data_ptr() for m in maps), G, steps_w, B, H, steps, steps_p,
         SEG, md, p["T"], p["shared"], _build.stream_ptr(wmat))
-    launches += 1
+    trace.count("launch.k1_scan2_c01")
     _build.check(rc, "k1_scan2_c01")
     return (sym, val, *maps)
 

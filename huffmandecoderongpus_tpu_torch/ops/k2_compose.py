@@ -34,9 +34,7 @@ import functools
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build, lookback
-
-#: kernel launches made by ``k2_compose`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: entry offsets a map is evaluated at (the TPU kernel's lane width)
 NE = 128
@@ -117,7 +115,6 @@ def k2_compose(exmap, start: int = 0):
     tensors launch the kernel."""
     if exmap.device.type == "cpu":
         return k2_compose_ref(exmap, start)
-    global launches
     _build.require_cuda("k2_compose", exmap)
     HP, G = exmap.shape
     if not 0 <= start < NE or HP > NE:
@@ -133,7 +130,7 @@ def k2_compose(exmap, start: int = 0):
         exmap.data_ptr(), entry.data_ptr(), tot.data_ptr(), state.data_ptr(),
         cap, G, HP, start, p["tile"], p["sub"], p["threads"], p["shared"],
         stream)
-    launches += 1
+    trace.count("launch.k2_compose")
     _build.check(rc, "k2_compose")
     return entry, tot
 

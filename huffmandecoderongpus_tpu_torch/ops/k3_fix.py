@@ -23,9 +23,7 @@ from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.k3_fix2 import splice
 from huffmandecoderongpus_tpu_torch.ops.pair import bit_rows, e1_fields, pair_entry
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL, u32
-
-#: kernel launches made by ``k3_fix`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def k3_fix(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, NS):
@@ -36,7 +34,6 @@ def k3_fix(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, NS):
     kw = dict(steps_p=steps_p, SEG=SEG, md=md, NS=NS)
     if wmat.device.type == "cpu":
         return k3_fix_ref(wmat, tab, ent, cut, cut_slot, sym, val, **kw)
-    global launches
     _build.require_cuda("k3_fix", wmat, tab, ent, cut, cut_slot, sym, val)
     steps_w, G = wmat.shape
     if (md != 1 or SEG != 32 or not 1 <= NS <= 8 or tab.shape[0] != NS
@@ -47,7 +44,7 @@ def k3_fix(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, NS):
         wmat.data_ptr(), tab.data_ptr(), ent.data_ptr(), cut.data_ptr(),
         cut_slot.data_ptr(), sym.data_ptr(), val.data_ptr(),
         G, steps_w, steps_p, NS, _build.stream_ptr(wmat))
-    launches += 1
+    trace.count("launch.k3_fix")
     _build.check(rc, "k3_fix")
     return sym, val
 

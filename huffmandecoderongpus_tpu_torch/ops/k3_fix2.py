@@ -27,9 +27,7 @@ from huffmandecoderongpus_tpu_torch.ops.quad import (
     to_i32,
     u32,
 )
-
-#: kernel launches made by ``k3_fix2`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def k3_fix2(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, C0,
@@ -41,7 +39,6 @@ def k3_fix2(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, C0,
     kw = dict(steps_p=steps_p, SEG=SEG, md=md, C0=C0, C1=C1, NS=NS)
     if wmat.device.type == "cpu":
         return k3_fix2_ref(wmat, tab, ent, cut, cut_slot, sym, val, **kw)
-    global launches
     _build.require_cuda("k3_fix2", wmat, tab, ent, cut, cut_slot, sym, val)
     steps_w, G = wmat.shape
     if (SEG % (CELL * md) or SEG > 32 or NS > 8 or steps_p % SEG
@@ -52,7 +49,7 @@ def k3_fix2(wmat, tab, ent, cut, cut_slot, sym, val, *, steps_p, SEG, md, C0,
         wmat.data_ptr(), tab.data_ptr(), ent.data_ptr(), cut.data_ptr(),
         cut_slot.data_ptr(), sym.data_ptr(), val.data_ptr(),
         G, steps_w, steps_p, SEG, md, C0, C1, NS, _build.stream_ptr(wmat))
-    launches += 1
+    trace.count("launch.k3_fix2")
     _build.check(rc, "k3_fix2")
     return sym, val
 

@@ -15,9 +15,7 @@ from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.k1_scan2_c01 import BLOCK, lane_tables
 from huffmandecoderongpus_tpu_torch.ops.k3_fix2 import k3_fix2_ref
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL
-
-#: kernel launches made by ``k3_fix2_c01`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def k3_fix2_c01(wmat, tabs, ent, cut, cut_slot, sym, val, c01, bstream, *,
@@ -29,7 +27,6 @@ def k3_fix2_c01(wmat, tabs, ent, cut, cut_slot, sym, val, c01, bstream, *,
     if wmat.device.type == "cpu":
         return k3_fix2_c01_ref(wmat, tabs, ent, cut, cut_slot, sym, val, c01,
                                bstream, **kw)
-    global launches
     _build.require_cuda("k3_fix2_c01", wmat, tabs, ent, cut, cut_slot, sym,
                         val, c01, bstream)
     steps_w, G = wmat.shape
@@ -43,7 +40,7 @@ def k3_fix2_c01(wmat, tabs, ent, cut, cut_slot, sym, val, c01, bstream, *,
         cut_slot.data_ptr(), c01.data_ptr(), bstream.data_ptr(),
         sym.data_ptr(), val.data_ptr(), G, steps_w, steps_p, SEG, md,
         _build.stream_ptr(wmat))
-    launches += 1
+    trace.count("launch.k3_fix2_c01")
     _build.check(rc, "k3_fix2_c01")
     return sym, val
 

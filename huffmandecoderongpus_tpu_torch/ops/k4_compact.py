@@ -17,9 +17,7 @@ import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL, u32
-
-#: kernel launches made by ``k4_compact`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: most lanes a block owns: a warp's 32 threads read one cell row of them
 MAX_LANES = 32
@@ -82,7 +80,6 @@ def k4_compact(sym, val, *, ORP):
     tensors launch the kernel with ``k4_plan``'s plan."""
     if sym.device.type == "cpu":
         return k4_compact_ref(sym, val, ORP=ORP)
-    global launches
     _build.require_cuda("k4_compact", sym, val)
     cells_p, G = sym.shape
     if ORP % 128 or val.shape != sym.shape:
@@ -93,7 +90,7 @@ def k4_compact(sym, val, *, ORP):
         sym.data_ptr(), val.data_ptr(), out.data_ptr(), G, cells_p, ORP,
         p["lanes"], p["vec"], p["chunks"], p["window"], p["threads"],
         p["shared"], _build.stream_ptr(sym))
-    launches += 1
+    trace.count("launch.k4_compact")
     _build.check(rc, "k4_compact")
     return out
 

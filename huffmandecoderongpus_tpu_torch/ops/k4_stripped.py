@@ -26,9 +26,8 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``k4_stripped`` on CUDA tensors
-launches = 0
 STAGES = ("transpose", "prefix")
 WIN = 128
 #: G must be a multiple of this; a block of the kernel owns LANES lanes
@@ -91,7 +90,6 @@ def k4_stripped(sym, nib, *, ORP, stage):
     _check(sym, nib, ORP, stage)
     if sym.device.type == "cpu":
         return k4_stripped_ref(sym, nib, ORP=ORP, stage=stage)
-    global launches
     _build.require_cuda("k4_stripped", sym, nib)
     cells_p, G = sym.shape
     if G % G_MULTIPLE:
@@ -102,7 +100,7 @@ def k4_stripped(sym, nib, *, ORP, stage):
         sym.data_ptr(), nib.data_ptr(), out.data_ptr(), G, cells_p, ORP,
         int(stage == "prefix"), p["lanes"], p["vec"], p["jr"], p["threads"],
         p["shared"], int(p["store"] == 16), _build.stream_ptr(sym))
-    launches += 1
+    trace.count("launch.k4_stripped")
     _build.check(rc, "k4_stripped")
     return out
 

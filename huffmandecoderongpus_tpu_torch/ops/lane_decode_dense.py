@@ -34,9 +34,8 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     lane_limits,
     tile_plan,
 )
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``lane_decode_dense`` on CUDA tensors
-launches = 0
 #: ranks of a block's lanes its window stages in shared memory (a power of
 #: two), and the bytes a rank takes (a lane each, 32 whatever the lanes)
 WINDOW = 512
@@ -67,7 +66,6 @@ def lane_decode_dense(bits_t, tab, start, *, B, H, N, out_rows, ahead=None):
     if bits_t.device.type == "cpu":
         return lane_decode_dense_ref(bits_t, tab, start, B=B, H=H, N=N,
                                      out_rows=out_rows)
-    global launches
     _build.require_cuda("lane_decode_dense", bits_t, tab, start,
                         *(() if ahead is None else (ahead,)))
     steps, G = bits_t.shape
@@ -88,7 +86,7 @@ def lane_decode_dense(bits_t, tab, start, *, B, H, N, out_rows, ahead=None):
         None if ahead is None else ahead.data_ptr(), G, B, steps, N,
         out_rows, tab.numel(), p["lanes"], p["rows"], p["vec"], p["window"],
         p["flush_vec"], p["shared"], _build.stream_ptr(bits_t))
-    launches += 1
+    trace.count("launch.lane_decode_dense")
     _build.check(rc, "lane_decode_dense")
     return dense, counts
 

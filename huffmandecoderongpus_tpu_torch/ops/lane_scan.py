@@ -32,9 +32,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     lane_limits,
     tile_plan,
 )
-
-#: kernel launches made by ``lane_scan`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def lane_scan(bits_t, tab, start, *, B, H, N, rows=None):
@@ -44,7 +42,6 @@ def lane_scan(bits_t, tab, start, *, B, H, N, rows=None):
     tensors run the plain version; CUDA tensors launch the kernel."""
     if bits_t.device.type == "cpu":
         return lane_scan_ref(bits_t, tab, start, B=B, H=H, N=N, rows=rows)
-    global launches
     _build.require_cuda("lane_scan", bits_t, tab, start)
     steps, G = bits_t.shape
     if (steps != (B + H if rows is None else rows)
@@ -62,7 +59,7 @@ def lane_scan(bits_t, tab, start, *, B, H, N, rows=None):
         bp, tab.data_ptr(), start.data_ptr(), sp, vp, G, B, steps, N,
         tab.numel(), p["lanes"], p["rows"], p["vec"], p["shared"],
         _build.stream_ptr(bits_t))
-    launches += 1
+    trace.count("launch.lane_scan")
     _build.check(rc, "lane_scan")
     return sym, valid
 

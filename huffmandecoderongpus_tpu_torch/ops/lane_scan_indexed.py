@@ -27,9 +27,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     STATE_MASK,
     indexed_plan,
 )
-
-#: kernel launches made by ``lane_scan_indexed`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def lane_scan_indexed(bits_t, tab, lane_len):
@@ -39,7 +37,6 @@ def lane_scan_indexed(bits_t, tab, lane_len):
     version; CUDA tensors launch the kernel."""
     if bits_t.device.type == "cpu":
         return lane_scan_indexed_ref(bits_t, tab, lane_len)
-    global launches
     _build.require_cuda("lane_scan_indexed", bits_t, tab, lane_len)
     B, G = bits_t.shape
     if (bits_t.dtype != torch.uint8 or lane_len.dtype != torch.int32
@@ -56,7 +53,7 @@ def lane_scan_indexed(bits_t, tab, lane_len):
         bp, tab.data_ptr(), lane_len.data_ptr(), sp, vp, G, B, tab.numel(),
         p["lanes"], p["rows"], p["vec"], p["shared"],
         _build.stream_ptr(bits_t))
-    launches += 1
+    trace.count("launch.lane_scan_indexed")
     _build.check(rc, "lane_scan_indexed")
     return sym, valid
 

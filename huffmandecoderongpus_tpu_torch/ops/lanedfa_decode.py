@@ -40,6 +40,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     pad_table,
     pick_lanes,
 )
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def prefix_maps(cnt: torch.Tensor, ex: torch.Tensor):
@@ -131,9 +132,8 @@ def stage_lanedfa(hf, *, device, lanes=None, tiled=True) -> dict:
         G = pick_lanes(hf.bits) if lanes is None else int(lanes)
         G = max(1, min(G, hf.bits // H if hf.bits >= H else 1))
     mat, B = bits_matrix(hf.payload, hf.bits, G, H, round_to=512)
-    return dict(bits=torch.from_numpy(mat).to(device),
-                tab=torch.from_numpy(pad_table(dfa.entry)).to(device),
-                B=B, H=H, N=hf.bits)
+    bits, tab = trace.upload(device, mat, pad_table(dfa.entry))
+    return dict(bits=bits, tab=tab, B=B, H=H, N=hf.bits)
 
 
 def decode_lanedfa(hf, *, device, lanes=None, check_size=True) -> np.ndarray:
@@ -171,7 +171,8 @@ def _decode(hf, st: dict, check_size: bool) -> np.ndarray:
     cnt, ex = candidate_scan(st["bits"], st["tab"], **kw)
     entry_off, _base, _n, total = compose(cnt, ex)
     sym, valid = lane_scan(st["bits"], st["tab"], entry_off, **kw)
-    total = int(total)
+    with trace.span("huff.wait"):
+        total = int(total)
     if check_size and total != hf.uncompressed_size:
         raise RuntimeError(
             f"decoded {total} symbols, header says {hf.uncompressed_size}")
@@ -181,7 +182,8 @@ def _decode(hf, st: dict, check_size: bool) -> np.ndarray:
 def _emitted(hf, sym, valid, check_size: bool) -> np.ndarray:
     """The valid symbols of (sym, valid) (rows, G), lane by lane, on the
     host."""
-    out = sym.t()[valid.t() > 0].cpu().numpy()
+    with trace.span("huff.trim"):
+        out = trace.download(sym.t()[valid.t() > 0])
     if check_size and out.size != hf.uncompressed_size:
         raise RuntimeError(
             f"emitted {out.size} symbols, header says {hf.uncompressed_size}")
@@ -212,9 +214,9 @@ def stage_lanedfa_indexed(hf, offsets, *, device, tiled=True) -> dict:
     flat[:hf.bits] = unpack_bits(hf.payload, hf.bits)
     mat = flat[offs[None, :] + np.arange(B, dtype=np.int64)[:, None]]
     dfa = build_lane_dfa(hf.tree)
-    return dict(bits=torch.from_numpy(mat).to(device),
-                tab=torch.from_numpy(pad_table(dfa.entry)).to(device),
-                lane_len=torch.from_numpy(lane_len).to(device))
+    bits, tab, lane_len = trace.upload(device, mat, pad_table(dfa.entry),
+                                       lane_len)
+    return dict(bits=bits, tab=tab, lane_len=lane_len)
 
 
 def decode_lanedfa_indexed(hf, offsets, block_symbols: int, *, device,

@@ -61,9 +61,7 @@ from huffmandecoderongpus_tpu_torch.ops.k4_compact import (
 from huffmandecoderongpus_tpu_torch.ops.lanedfa import EnvelopeError
 from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import require_device
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL
-
-#: kernel launches made by ``oneshot_program`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: most bytes of the one-shot working set: the lane words, cells, maps and
 #: dense rows of the fused launch, counted with the JAX package's word
@@ -209,7 +207,6 @@ def oneshot_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md, C0,
               C1=C1, NS=NS, ORP=ORP)
     if words.device.type == "cpu" and stamps is None:
         return oneshot_program_ref(words, tab, lim, **kw)
-    global launches
     _build.require_cuda("oneshot", words, tab, lim,
                         *(() if stamps is None else (stamps,)))
     if stamps is not None and stamps.shape != (len(PHASES) + 1,):
@@ -232,7 +229,7 @@ def oneshot_program(words, tab, lim, *, B, H, steps, steps_p, SEG, md, C0,
         G, BW, B, H, steps, steps_p, SEG, md, C0, C1, NS, ORP, p["L"],
         p["NGp"], p["T"], k4["lanes"], k4["vec"], k4["chunks"],
         k4["window"], p["shared"], _build.stream_ptr(words))
-    launches += 1
+    trace.count("launch.oneshot")
     _build.check(rc, "oneshot", CoresidencyError
                  if rc == COOPERATIVE_LAUNCH_TOO_LARGE else RuntimeError)
     return denseT, n, total
@@ -294,14 +291,16 @@ def decode_oneshot_staged(hf, st, *, check_size=True) -> np.ndarray:
         raise EnvelopeError(f"the one-shot grid of {plan['blocks']} blocks "
                             f"is not co-resident on {sms} SMs")
     try:
-        denseT, n, _total = oneshot_program(st["words"], st["tab"],
-                                            st["lim"], **program_args(st))
+        with trace.span("huff.launch"):
+            denseT, n, _total = oneshot_program(
+                st["words"], st["tab"], st["lim"], **program_args(st))
     except CoresidencyError as e:
         raise EnvelopeError(str(e)) from e
-    if int(n.max()) > ORP:
+    with trace.span("huff.wait"):
+        top = int(n.max())
+    if top > ORP:
         raise EnvelopeError("a lane overflowed the dense buffer")
-    mask = torch.arange(ORP, device=n.device)[None, :] < n[:, None]
-    out = denseT[mask].cpu().numpy()
+    out = widescan.trimmed(denseT, n)
     if check_size and out.size != hf.uncompressed_size:
         raise RuntimeError(
             f"emitted {out.size} symbols, header says {hf.uncompressed_size}")

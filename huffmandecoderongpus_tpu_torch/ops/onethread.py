@@ -17,9 +17,7 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
-
-#: kernel launches made by ``onethread`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def pack_table(lut_sym, lut_len):
@@ -55,7 +53,6 @@ def onethread(words, lut_sym, lut_len, *, bits: int, size: int,
     if words.is_cpu:
         return onethread_ref(words, lut_sym, lut_len, bits=bits, size=size,
                              height=height)
-    global launches
     _build.require_cuda("onethread", words, lut_sym, lut_len)
     if lut_sym.numel() != 1 << height or lut_len.numel() != 1 << height:
         raise ValueError("onethread: the tables hold 2^height entries")
@@ -65,7 +62,7 @@ def onethread(words, lut_sym, lut_len, *, bits: int, size: int,
     rc = _build.get_lib().ws_onethread(
         words.data_ptr(), tab.data_ptr(), out.data_ptr(), n.data_ptr(),
         words.numel(), bits, size, height, _build.stream_ptr(words))
-    launches += 1
+    trace.count("launch.onethread")
     _build.check(rc, "onethread")
     return out, n
 

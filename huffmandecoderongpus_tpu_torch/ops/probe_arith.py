@@ -19,9 +19,8 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``probe_arith`` on CUDA tensors
-launches = 0
 BODIES = {"xor3": 0, "addxor": 1, "mul3": 2}
 #: integer instructions a step of one chain, the fewest that compute it:
 #: xor3 an xor and an add, addxor four of each, mul3 one multiply-add
@@ -48,13 +47,12 @@ def probe_arith(x, *, body, S, P=1):
     _check(x, body, P, S)
     if x.device.type == "cpu":
         return probe_arith_ref(x, body=body, S=S, P=P)
-    global launches
     _build.require_cuda("probe_arith", x)
     out = torch.empty_like(x)
     rc = _build.get_lib().ws_probe_arith(
         x.data_ptr(), out.data_ptr(), x.numel(), S, BODIES[body], P,
         8 * x.element_size(), _build.stream_ptr(x))
-    launches += 1
+    trace.count("launch.probe_arith")
     _build.check(rc, "probe_arith")
     return out
 

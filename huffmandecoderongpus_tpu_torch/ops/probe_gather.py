@@ -24,10 +24,8 @@ import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.quad import to_i32
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``probe_gather``, ``probe_roll`` and
-#: ``probe_gather_chain`` on CUDA tensors
-launches = 0
 ELEMENTS = (torch.int32, torch.int16, torch.uint16, torch.uint8)
 #: the index types the kernel reads, and the code its launcher takes
 INDEXES = {torch.int32: 0, torch.int16: 1, torch.uint16: 2}
@@ -54,7 +52,6 @@ def probe_gather(tab, idx, *, axis):
     _check_gather(tab, idx, axis)
     if tab.is_cpu:
         return probe_gather_ref(tab, idx, axis=axis)
-    global launches
     _build.require_cuda("probe_gather", tab, idx)
     out = torch.empty_like(idx, dtype=tab.dtype)
     R, W = idx.shape
@@ -62,7 +59,7 @@ def probe_gather(tab, idx, *, axis):
     rc = _build.get_lib().ws_probe_gather(
         tab.data_ptr(), idx.data_ptr(), out.data_ptr(), R, W, Rt, Wt, axis,
         tab.element_size(), INDEXES[idx.dtype], _build.stream_ptr(tab))
-    launches += 1
+    trace.count("launch.probe_gather")
     _build.check(rc, "probe_gather")
     return out
 
@@ -91,7 +88,6 @@ def probe_roll(x, shift: int, *, axis):
     _check_roll(x, axis)
     if x.is_cpu:
         return probe_roll_ref(x, shift, axis=axis)
-    global launches
     _build.require_cuda("probe_roll", x)
     out = torch.empty_like(x)
     R, W = x.shape
@@ -99,7 +95,7 @@ def probe_roll(x, shift: int, *, axis):
     rc = _build.get_lib().ws_probe_roll(
         x.data_ptr(), out.data_ptr(), R, W, axis, x.element_size(),
         shift % n if n else 0, _build.stream_ptr(x))
-    launches += 1
+    trace.count("launch.probe_gather")
     _build.check(rc, "probe_roll")
     return out
 
@@ -133,14 +129,13 @@ def probe_gather_chain(tab, init, *, P, S, broadcast=False):
     if tab.device.type == "cpu":
         return probe_gather_chain_ref(tab, init, P=P, S=S,
                                       broadcast=broadcast)
-    global launches
     _build.require_cuda("probe_gather_chain", tab, init)
     R, C = init.shape
     out = torch.empty_like(init)
     rc = _build.get_lib().ws_probe_gather_chain(
         tab.data_ptr(), init.data_ptr(), out.data_ptr(), R, C, P, S,
         int(broadcast), _build.stream_ptr(tab))
-    launches += 1
+    trace.count("launch.probe_gather")
     _build.check(rc, "probe_gather_chain")
     return out
 

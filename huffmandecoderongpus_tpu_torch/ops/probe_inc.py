@@ -14,9 +14,8 @@ import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.quad import to_i32, u32
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``probe_inc`` and ``probe_grid`` on CUDA tensors
-launches = 0
 #: the scratch of ``grid_k`` past s1, in blocks of the x block's shape:
 #: s2 (14, R, C), s3 (12, R, C) and s4 (12, R, C)
 WORK_BLOCKS = 14 + 12 + 12
@@ -27,14 +26,13 @@ def probe_inc(x):
     run the plain version; CUDA tensors launch the kernel."""
     if x.is_cpu:
         return probe_inc_ref(x)
-    global launches
     _build.require_cuda("probe_inc", x)
     if x.dtype != torch.int32:
         raise ValueError("probe_inc: x must be int32")
     out = torch.empty_like(x)
     rc = _build.get_lib().ws_probe_inc(x.data_ptr(), out.data_ptr(),
                                        x.numel(), _build.stream_ptr(x))
-    launches += 1
+    trace.count("launch.probe_inc")
     _build.check(rc, "probe_inc")
     return out
 
@@ -52,7 +50,6 @@ def probe_grid(x):
     kernel, its workspace from ``torch.empty``."""
     if x.is_cpu:
         return probe_grid_ref(x)
-    global launches
     _build.require_cuda("probe_grid", x)
     if x.dtype != torch.int32 or x.dim() != 3:
         raise ValueError("probe_grid: x must be (S, R, C) int32")
@@ -63,7 +60,7 @@ def probe_grid(x):
     rc = _build.get_lib().ws_probe_grid(
         x.data_ptr(), out.data_ptr(), work.data_ptr(), S, R * C,
         work.numel(), _build.stream_ptr(x))
-    launches += 1
+    trace.count("launch.probe_inc")
     _build.check(rc, "probe_grid")
     return out, work
 

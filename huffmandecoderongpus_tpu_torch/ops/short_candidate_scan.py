@@ -30,9 +30,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa import (
     lane_limits,
     short_plan,
 )
-
-#: kernel launches made by ``short_candidate_scan`` on CUDA tensors
-launches = 0
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 
 def short_candidate_scan(bits_t, tab, valid0, *, B, H, N, W):
@@ -44,7 +42,6 @@ def short_candidate_scan(bits_t, tab, valid0, *, B, H, N, W):
     if bits_t.device.type == "cpu":
         return short_candidate_scan_ref(bits_t, tab, valid0, B=B, H=H, N=N,
                                         W=W)
-    global launches
     _build.require_cuda("short_candidate_scan", bits_t, tab, valid0)
     steps, G = bits_t.shape
     if (bits_t.dtype != torch.uint8 or valid0.shape[1:] != (G,)
@@ -66,7 +63,7 @@ def short_candidate_scan(bits_t, tab, valid0, *, B, H, N, W):
         mrow.data_ptr(), cnt.data_ptr(), ex.data_ptr(), G, B, H, N, W,
         tab.numel(), p["lanes"], p["rows"], p["vec"], p["shared"],
         _build.stream_ptr(bits_t))
-    launches += 1
+    trace.count("launch.short_candidate_scan")
     _build.check(rc, "short_candidate_scan")
     return merged, exited, mrow, cnt, ex
 

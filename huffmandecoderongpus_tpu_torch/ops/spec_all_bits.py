@@ -25,9 +25,8 @@ import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.quad import u32
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``spec_all_bits`` on CUDA tensors
-launches = 0
 #: tables up to this height sit whole in a block's shared memory; a taller
 #: one is looked up in two levels (``csrc/spec_all_bits.cu``)
 SHARED_HEIGHT = 14
@@ -65,7 +64,6 @@ def spec_all_bits(words, lut_sym, lut_len, *, bits: int, height: int):
     if words.is_cpu:
         return spec_all_bits_ref(words, lut_sym, lut_len, bits=bits,
                                  height=height)
-    global launches
     _build.require_cuda("spec_all_bits", words, lut_sym, lut_len)
     step0 = torch.empty(bits, dtype=torch.int16, device=words.device)
     sym = torch.empty(bits, dtype=torch.uint8, device=words.device)
@@ -75,7 +73,7 @@ def spec_all_bits(words, lut_sym, lut_len, *, bits: int, height: int):
         words.data_ptr(), lut_sym.data_ptr(), lut_len.data_ptr(),
         0 if packed is None else packed.data_ptr(), step0.data_ptr(),
         sym.data_ptr(), bits, height, _build.stream_ptr(words))
-    launches += 1
+    trace.count("launch.spec_all_bits")
     _build.check(rc, "spec_all_bits")
     return step0, sym
 

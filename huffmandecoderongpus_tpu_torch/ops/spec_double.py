@@ -16,9 +16,8 @@ from __future__ import annotations
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``spec_double`` on CUDA tensors
-launches = 0
 _SIZES = {torch.int16: 2, torch.int32: 4}
 
 
@@ -39,13 +38,12 @@ def spec_double(s, *, bits: int, dtype: torch.dtype):
                          "output int16 or int32 no narrower")
     if s.is_cpu:
         return spec_double_ref(s, bits=bits, dtype=dtype)
-    global launches
     _build.require_cuda("spec_double", s)
     out = torch.empty(bits, dtype=dtype, device=s.device)
     rc = _build.get_lib().ws_spec_double(
         s.data_ptr(), out.data_ptr(), bits, _SIZES[s.dtype], _SIZES[dtype],
         _build.stream_ptr(s))
-    launches += 1
+    trace.count("launch.spec_double")
     _build.check(rc, "spec_double")
     return out
 

@@ -18,9 +18,8 @@ import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
 from huffmandecoderongpus_tpu_torch.ops.spec_double import spec_double_ref
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``spec_pair`` on CUDA tensors
-launches = 0
 _SIZES = {torch.int16: 2, torch.int32: 4}
 #: offsets a block of the kernel takes: 256 threads, 4 offsets each
 BLOCK_OFFSETS = 1024
@@ -45,13 +44,12 @@ def spec_pair(s, *, bits: int, dtype: torch.dtype, seg: int = 1):
         raise ValueError(f"spec_pair: seg {seg} outside 1-{blocks(bits)}")
     if s.is_cpu:
         return spec_pair_ref(s, bits=bits, dtype=dtype)
-    global launches
     _build.require_cuda("spec_pair", s)
     out = torch.empty(bits, dtype=dtype, device=s.device)
     rc = _build.get_lib().ws_spec_pair(
         s.data_ptr(), out.data_ptr(), bits, _SIZES[s.dtype], _SIZES[dtype],
         seg, _build.stream_ptr(s))
-    launches += 1
+    trace.count("launch.spec_pair")
     _build.check(rc, "spec_pair")
     return out
 

@@ -20,9 +20,8 @@ import ctypes
 import torch
 
 from huffmandecoderongpus_tpu_torch.ops import _build
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``spec_query`` on CUDA tensors
-launches = 0
 #: a block's outputs, 2^BLOCK_LEVELS, its threads, and the levels warp 0
 #: expands by shuffles (``csrc/spec_query.cu`` B, THREADS and SHUF)
 BLOCK_LEVELS = 10
@@ -62,7 +61,6 @@ def spec_query(kept, sym, *, bits: int, size: int, levels: int):
     _check_inputs(kept, sym, bits, size, levels)
     if sym.is_cpu or size == 0:
         return spec_query_ref(kept, sym, bits=bits, size=size, levels=levels)
-    global launches
     _build.require_cuda("spec_query", sym, *kept)
     result = torch.empty(size, dtype=torch.uint8, device=sym.device)
     scratch = torch.empty(4, dtype=torch.int32, device=sym.device)
@@ -73,7 +71,7 @@ def spec_query(kept, sym, *, bits: int, size: int, levels: int):
         ctypes.addressof(ptrs), len(kept), wide, sym.data_ptr(),
         result.data_ptr(), scratch.data_ptr(), scratch[3:].data_ptr(), bits,
         size, levels, _build.stream_ptr(sym))
-    launches += 1
+    trace.count("launch.spec_query")
     _build.check(rc, "spec_query")
     return result, scratch[3]
 

@@ -25,9 +25,8 @@ from huffmandecoderongpus_tpu_torch.ops.spec_double import (
     spec_double_ref,
 )
 from huffmandecoderongpus_tpu_torch.ops.spec_pair import BLOCK_OFFSETS
+from huffmandecoderongpus_tpu_torch.utils import trace
 
-#: kernel launches made by ``spec_tile`` on CUDA tensors
-launches = 0
 THREADS = 512
 #: blocks an SM (the kernel's launch bounds): each takes half its shared
 #: memory
@@ -158,7 +157,6 @@ def spec_tile(step0, *, bits: int, height: int, m: int, tile: int) -> list:
                          f"tile={tile} at height {height}, {bits} bits")
     if step0.is_cpu:
         return spec_tile_ref(step0, bits=bits, m=m)
-    global launches
     _build.require_cuda("spec_tile", step0)
     outs = [torch.empty(bits, dtype=torch.int16, device=step0.device)
             for _ in range(m // 2)]
@@ -166,7 +164,7 @@ def spec_tile(step0, *, bits: int, height: int, m: int, tile: int) -> list:
     rc = _build.get_lib().ws_spec_tile(
         step0.data_ptr(), ctypes.addressof(ptrs), len(outs), bits, height,
         m, tile, THREADS, p["shared"], _build.stream_ptr(step0))
-    launches += 1
+    trace.count("launch.spec_tile")
     _build.check(rc, "spec_tile")
     return outs
 

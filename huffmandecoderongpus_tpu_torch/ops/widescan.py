@@ -56,6 +56,7 @@ from huffmandecoderongpus_tpu_torch.ops.lanedfa_decode import (
     require_device,
 )
 from huffmandecoderongpus_tpu_torch.ops.quad import CELL, to_i32, u32
+from huffmandecoderongpus_tpu_torch.utils import trace
 
 #: the batched decode's state limit, the JAX package's compact-entry limit
 #: (its ``MAX_STATES``); the port's tables hold up to 128 states compact
@@ -229,37 +230,40 @@ def stage_widescan_inputs(hf, *, device, lanes=None):
     quad table for md >= 2, ``chunk2``; the pair table for md = 1) and the
     per-lane payload words and bit limits as tensors on ``device``.  Raises
     EnvelopeError for a stream the program does not take."""
-    dfa = build_lane_dfa(hf.tree)
-    H = max(dfa.height, 1)
-    md = max(dfa.min_depth, 1)
-    n_states = dfa.entry.shape[0] // 2
-    if n_states > MAX_STATES_WIDE:
-        raise EnvelopeError(
-            f"{n_states} internal states > {MAX_STATES_WIDE} (wide tables)")
-    if hf.bits < 1024 * max(H, 8):
-        raise EnvelopeError(
-            f"{hf.bits} bits < 1024*max(H, 8): too small for the wide lanes")
-    if H > MAX_HEIGHT:
-        # the JAX program fails in K2's map padding here instead
-        raise EnvelopeError(
-            f"tree height {H} > {MAX_HEIGHT}: K2 composes at most "
-            f"{MAX_HEIGHT} entry offsets per lane")
-    avg = hf.bits / max(hf.uncompressed_size, 1)
-    p = _plan(hf.bits, H, md, lanes=lanes, avg_len=avg)
-    G = p["G"]
-    chunk2 = md >= 2
-    if chunk2:
-        tab, C0, C1, NS = pack_quad_tables(dfa)
-    else:
-        tab, C0, C1 = pack_pair_table(dfa), 0, 0
-        NS = tab.shape[0]
-    w2 = payload_lane_words(hf.payload, hf.bits, G, p["B"])
-    lane = np.arange(G, dtype=np.int64)
-    lim = np.clip(hf.bits - lane * p["B"], -(1 << 30), 1 << 30).astype(np.int32)
-    return dict(plan=p, dfa=dfa, H=H, md=md, chunk2=chunk2, C0=C0, C1=C1,
-                NS=NS, tab=torch.from_numpy(tab).to(device),
-                words=torch.from_numpy(w2).to(device),
-                lim=torch.from_numpy(lim).to(device))
+    with trace.span("huff.stage"):
+        with trace.span("huff.stage.tables"):
+            dfa = build_lane_dfa(hf.tree)
+            H = max(dfa.height, 1)
+            md = max(dfa.min_depth, 1)
+            n_states = dfa.entry.shape[0] // 2
+            if n_states > MAX_STATES_WIDE:
+                raise EnvelopeError(f"{n_states} internal states > "
+                                    f"{MAX_STATES_WIDE} (wide tables)")
+            if hf.bits < 1024 * max(H, 8):
+                raise EnvelopeError(f"{hf.bits} bits < 1024*max(H, 8): too "
+                                    "small for the wide lanes")
+            if H > MAX_HEIGHT:
+                # the JAX program fails in K2's map padding here instead
+                raise EnvelopeError(
+                    f"tree height {H} > {MAX_HEIGHT}: K2 composes at most "
+                    f"{MAX_HEIGHT} entry offsets per lane")
+            chunk2 = md >= 2
+            if chunk2:
+                tab, C0, C1, NS = pack_quad_tables(dfa)
+            else:
+                tab, C0, C1 = pack_pair_table(dfa), 0, 0
+                NS = tab.shape[0]
+        avg = hf.bits / max(hf.uncompressed_size, 1)
+        p = _plan(hf.bits, H, md, lanes=lanes, avg_len=avg)
+        G = p["G"]
+        with trace.span("huff.stage.words"):
+            w2 = payload_lane_words(hf.payload, hf.bits, G, p["B"])
+            lane = np.arange(G, dtype=np.int64)
+            lim = np.clip(hf.bits - lane * p["B"], -(1 << 30),
+                          1 << 30).astype(np.int32)
+        tab, words, lim = trace.upload(device, tab, w2, lim)
+        return dict(plan=p, dfa=dfa, H=H, md=md, chunk2=chunk2, C0=C0, C1=C1,
+                    NS=NS, tab=tab, words=words, lim=lim)
 
 
 def compact_from_jax(tab: np.ndarray, NS: int, quad: bool, C0: int,
@@ -442,31 +446,47 @@ def decode_widescan(hf, *, device, lanes=None, check_size=True,
     from huffmandecoderongpus_tpu_torch.ops import oneshot as ons
 
     device = require_device(device)
-    try:
-        st = stage_widescan_inputs(hf, device=device, lanes=lanes)
-    except EnvelopeError:
-        return decode_lanedfa_tiled(hf, device=device, check_size=check_size)
-    route = oneshot if oneshot is not None else hf.bits < ONESHOT_MAX_BITS
-    if route and ons.oneshot_eligible(st):
+    with trace.span("huff.decode"):
         try:
-            return ons.decode_oneshot_staged(hf, st, check_size=check_size)
+            st = stage_widescan_inputs(hf, device=device, lanes=lanes)
         except EnvelopeError:
-            pass  # a lane overflowed: the four-kernel program takes it
-    ORP = st["plan"]["ORP"]
-    denseT, n, total = wide_decode_program(st["words"], st["tab"], st["lim"],
-                                           **program_args(st))
-    total = int(total)
-    if check_size and total != hf.uncompressed_size:
-        raise RuntimeError(
-            f"decoded {total} symbols, header says {hf.uncompressed_size}")
-    if int(n.max()) > ORP:  # a lane overflowed its dense row
-        return decode_lanedfa_tiled(hf, device=device, check_size=check_size)
-    mask = torch.arange(ORP, device=device)[None, :] < n[:, None]
-    out = denseT[mask].cpu().numpy()
-    if check_size and out.size != hf.uncompressed_size:
-        raise RuntimeError(
-            f"emitted {out.size} symbols, header says {hf.uncompressed_size}")
-    return out
+            return decode_lanedfa_tiled(hf, device=device,
+                                        check_size=check_size)
+        route = oneshot if oneshot is not None else hf.bits < ONESHOT_MAX_BITS
+        if route and ons.oneshot_eligible(st):
+            try:
+                return ons.decode_oneshot_staged(hf, st,
+                                                 check_size=check_size)
+            except EnvelopeError:
+                pass  # a lane overflowed: the four-kernel program takes it
+        ORP = st["plan"]["ORP"]
+        with trace.span("huff.launch"):
+            denseT, n, total = wide_decode_program(
+                st["words"], st["tab"], st["lim"], **program_args(st))
+        with trace.span("huff.wait"):
+            total = int(total)
+        if check_size and total != hf.uncompressed_size:
+            raise RuntimeError(
+                f"decoded {total} symbols, header says {hf.uncompressed_size}")
+        with trace.span("huff.wait"):
+            top = int(n.max())
+        if top > ORP:  # a lane overflowed its dense row
+            return decode_lanedfa_tiled(hf, device=device,
+                                        check_size=check_size)
+        out = trimmed(denseT, n)
+        if check_size and out.size != hf.uncompressed_size:
+            raise RuntimeError(f"emitted {out.size} symbols, header says "
+                               f"{hf.uncompressed_size}")
+        return out
+
+
+def trimmed(denseT: torch.Tensor, n: torch.Tensor):
+    """The first n[g] bytes of each dense row g of denseT (G, ORP), row
+    after row, as a host numpy array (the trim)."""
+    with trace.span("huff.trim"):
+        mask = torch.arange(denseT.shape[1], device=denseT.device)[None, :] \
+            < n[:, None]
+        return trace.download(denseT[mask])
 
 
 # ---------------------------------------------------------------------------
@@ -550,13 +570,11 @@ def stage_widescan_indexed(hf, offsets, block_symbols: int, *, device,
     raw, sh = indexed_lane_words(hf.payload, hf.bits, offs_p, BW)
     lim = np.zeros(G, dtype=np.int32)
     lim[:nb] = lens
+    tab, raw, sh, lim = trace.upload(device, tab, raw, sh, lim)
     return dict(plan=dict(B=steps_p, steps=steps_p, steps_p=steps_p, SEG=SEG,
                           UNROLL=UNROLL, G=G, RB=RB, ORP=ORP),
-                H=H, md=md, C0=C0, C1=C1, NS=NS,
-                tab=torch.from_numpy(tab).to(device),
-                raw=torch.from_numpy(raw).to(device),
-                sh=torch.from_numpy(sh).to(device),
-                lim=torch.from_numpy(lim).to(device), counts=counts, nb=nb)
+                H=H, md=md, C0=C0, C1=C1, NS=NS, tab=tab, raw=raw, sh=sh,
+                lim=lim, counts=counts, nb=nb)
 
 
 def wide_decode_indexed_program(raw, sh, tab, lim, *, steps_p, md, ORP, C0,
@@ -588,12 +606,11 @@ def decode_widescan_indexed(hf, offsets, block_symbols: int, *, device,
     route)."""
     device = require_device(device)
     st = stage_widescan_indexed(hf, offsets, block_symbols, device=device)
-    denseT = wide_decode_indexed_program(st["raw"], st["sh"], st["tab"],
-                                         st["lim"], **indexed_args(st))
-    counts = torch.from_numpy(st["counts"]).to(device)
-    mask = torch.arange(st["plan"]["ORP"], device=device)[None, :] < \
-        counts[:, None]
-    out = denseT[mask].cpu().numpy()
+    with trace.span("huff.launch"):
+        denseT = wide_decode_indexed_program(st["raw"], st["sh"], st["tab"],
+                                             st["lim"], **indexed_args(st))
+    (counts,) = trace.upload(device, st["counts"])
+    out = trimmed(denseT, counts)
     if check_size and out.size != hf.uncompressed_size:
         raise RuntimeError(
             f"emitted {out.size} symbols, header says {hf.uncompressed_size}")

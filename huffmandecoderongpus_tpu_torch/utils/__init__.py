@@ -1,1 +1,2 @@
-"""Utilities of the port: env-gated debug dumps (``debug``)."""
+"""Utilities of the port: env-gated debug dumps (``debug``), and the
+spans and counters of the codec's host work (``trace``)."""

@@ -113,6 +113,7 @@ from huffmandecoderongpus_tpu_torch.ops import spec_double, spec_pair
 from huffmandecoderongpus_tpu_torch.ops import spec_query, spec_tile
 from huffmandecoderongpus_tpu_torch.ops import speculative
 from huffmandecoderongpus_tpu_torch.probes import streams as ps
+from huffmandecoderongpus_tpu_torch.utils import trace
 from torch_streams import BATCHES, INDEXED, MD1_SHAPES, SHAPES, STATES128
 from torch_streams import comb_stream
 from torch_streams import fib_tree_data
@@ -272,12 +273,23 @@ KERNEL_MODULES = (k1_scan2, k2_compose, k3_fix2, k4_compact, k1_scan,
                   spec_tile, spec_pair, spec_query, onethread)
 
 
+def _launches(m) -> int:
+    """Launches of kernel module ``m``'s kernel so far (its
+    ``launch.<module name>`` counter)."""
+    return trace.counts().get("launch." + m.__name__.rsplit(".", 1)[1], 0)
+
+
+def _retries() -> int:
+    """Encodes finished off their first plan so far (``encode.retry``)."""
+    return trace.counts().get("encode.retry", 0)
+
+
 def _launched(fn):
     """fn()'s result and the kernels it launched, {module name: count}."""
-    before = [m.launches for m in KERNEL_MODULES]
+    before = [_launches(m) for m in KERNEL_MODULES]
     out = fn()
-    ran = {m.__name__.rsplit(".", 1)[1]: m.launches - b
-           for m, b in zip(KERNEL_MODULES, before) if m.launches != b}
+    ran = {m.__name__.rsplit(".", 1)[1]: _launches(m) - b
+           for m, b in zip(KERNEL_MODULES, before) if _launches(m) != b}
     return out, ran
 
 
@@ -723,18 +735,18 @@ def test_oneshot_grid_not_coresident_raises(cuda):
     words = torch.zeros((G, 1), dtype=torch.int32, device=cuda)
     lim = torch.full((G,), 32, dtype=torch.int32, device=cuda)
     tab = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
-    before = oneshot.launches
+    before = _launches(oneshot)
     with pytest.raises(RuntimeError, match="oneshot: CUDA error"):
         oneshot.oneshot_program(words, tab, lim, B=32, H=2, steps=34,
                                 steps_p=64, SEG=32, md=2, C0=1, C1=2, NS=1,
                                 ORP=128)
-    assert oneshot.launches == before + 1
+    assert _launches(oneshot) == before + 1
 
 
 def _fallback_decode(cuda, hf, **kw):
-    before = (candidate_scan.launches, lane_scan.launches)
+    before = (_launches(candidate_scan), _launches(lane_scan))
     out = widescan.decode_widescan(hf, device=cuda, **kw)
-    assert (candidate_scan.launches, lane_scan.launches) == (
+    assert (_launches(candidate_scan), _launches(lane_scan)) == (
         before[0] + 1, before[1] + 1)
     return out
 
@@ -1068,11 +1080,11 @@ def test_encode_lanes_on_cuda(cuda, case):
         lanes = 128
     else:
         raw, tree, lanes = make(case, seed=4)[0], None, None
-    tries = encode.device_retries
+    tries = _retries()
     got, ran = _launched(lambda: encode.encode_lanes(raw, tree=tree,
                                                      lanes=lanes,
                                                      device=cuda))
-    assert (ran, encode.device_retries - tries) == ENCODE_ROUTES.get(
+    assert (ran, _retries() - tries) == ENCODE_ROUTES.get(
         case, (dict(e1_pack=1, e2_compact=1, e3_place=1), 0))
     want = encode_bytes(raw, tree=tree)
     assert got.bits == want.bits

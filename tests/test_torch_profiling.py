@@ -115,13 +115,6 @@ def test_prof_returns_report(small_huff):
     _check(cli.prof(small_huff, "widescan", 512, "cpu"), WIDESCAN_KEYS)
 
 
-def test_trace_writes_a_chrome_trace(tmp_path):
-    x = torch.arange(1000)
-    with profiling.trace(str(tmp_path / "tr")):
-        (x * 2).sum()
-    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
-
-
 def test_prof_refuses_speculative(small_huff, capsys):
     # the speculative breakdown is ported now and is no longer refused; a
     # breakdown the port does not have still is
